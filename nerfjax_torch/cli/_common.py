@@ -1,0 +1,22 @@
+"""Shared CLI helpers (counterpart of ``nerfjax/cli/_common.py``, without its
+JAX compilation cache). Only the CLI loads YAML configs, so PyYAML is
+imported here and nowhere else in the package."""
+
+from __future__ import annotations
+
+import argparse
+
+
+def cfg_parser(description: str) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("--cfg_path", type=str, required=True)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device to run on (default: cuda; 'cpu' runs the "
+                        "kernels' plain PyTorch versions)")
+    return p
+
+
+def load_cfg(args):
+    from nerfjax.config import load_config, with_defaults
+
+    return with_defaults(load_config(args.cfg_path))

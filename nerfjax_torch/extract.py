@@ -1,0 +1,390 @@
+"""Volume extraction: checkpoint -> colored 512^3 occupancy volume (counterpart
+of ``nerfjax/extract.py:34-570``).
+
+One card, no mesh: ``device`` names where the field, the volumes and every
+query live. The field runs through the fused MLP kernels
+(``nerfjax_torch.ops.fused_mlp``): on a CUDA device those are the CUDA
+kernels, on the CPU their plain PyTorch versions.
+
+Grid coordinates are computed once on the host, so a CPU run and a card run
+query the same points: ``np.linspace`` in float32 for the exact sweep and the
+coarse pass (nerfjax: ``jnp.linspace``, extract.py:61,75), ``lo + i*step`` in
+float32 for the fine pass (extract.py:454,471-473). Both differ from JAX's in
+the last bit at some entries (ROADMAP Queue 3).
+
+File contract (unchanged): volume.pth = {occupancy_volume uint8 [R,R,R],
+rgb_volume uint8 [R,R,R,3], metadata{resolution, bounds, threshold,
+occupied_ratio, total_voxels, occupied_voxels, timestamp, ...}}.
+"""
+
+from __future__ import annotations
+
+import time
+from pathlib import Path
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from nerfjax import pth
+from nerfjax_torch import checkpoint as ckpt
+from nerfjax_torch.ops.otsu import otsu_threshold
+from nerfjax_torch.train import build_fields
+
+B = 4  # fine voxels per coarse cell per axis
+FINE_CHUNK_CELLS = 8192  # marked cells per fine-pass call: 524,288 points
+COARSE_SLAB = 8  # x-slices per coarse-pass call
+
+
+def resolve_device(device) -> torch.device:
+    """The device to extract on; raises when CUDA is asked for and absent."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is False "
+            "(pass device='cpu' to run the plain PyTorch versions on the CPU)"
+        )
+    return dev
+
+
+class _PhaseClock:
+    """Wall seconds per phase; synchronises a CUDA device at each lap."""
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        self.seconds: dict[str, float] = {}
+        self._t = time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        now = time.perf_counter()
+        self.seconds[name] = self.seconds.get(name, 0.0) + now - self._t
+        self._t = now
+
+
+def _linspace(lo: float, hi: float, res: int, dev) -> torch.Tensor:
+    return torch.from_numpy(np.linspace(lo, hi, res, dtype=np.float32)).to(dev)
+
+
+def _step_coords(lo: float, hi: float, res: int, dev) -> torch.Tensor:
+    step = np.float32((hi - lo) / (res - 1))
+    c = np.float32(lo) + np.arange(res, dtype=np.float32) * step
+    return torch.from_numpy(c).to(dev)
+
+
+def _slab_points(xs: torch.Tensor, coords: torch.Tensor):
+    """x-major grid points of the slices ``xs`` -> (px, py, pz), each [nz*R*R]
+    (meshgrid "ij" over (x, y, z): x is the slowest axis)."""
+    nz, r = xs.shape[0], coords.shape[0]
+    px = xs[:, None, None].expand(nz, r, r).reshape(-1)
+    py = coords[None, :, None].expand(nz, r, r).reshape(-1)
+    pz = coords[None, None, :].expand(nz, r, r).reshape(-1)
+    return px, py, pz
+
+
+def _view3(view, like: torch.Tensor):
+    return tuple(torch.full_like(like, v) for v in view)
+
+
+def _to_u8(rgb: torch.Tensor) -> torch.Tensor:
+    """[3, N] in [0, 1] -> [N, 3] uint8 (round half to even, as jnp.round)."""
+    return torch.round(rgb.to(torch.float32) * 255.0).clamp(0, 255).to(torch.uint8).T
+
+
+def _dilate_mask(mask: np.ndarray) -> np.ndarray:
+    """3^3 binary max-filter (one-cell dilation)."""
+    out = mask.copy()
+    p = np.pad(mask, 1)
+    for dx in range(3):
+        for dy in range(3):
+            for dz in range(3):
+                out |= p[dx : dx + mask.shape[0], dy : dy + mask.shape[1], dz : dz + mask.shape[2]]
+    return out
+
+
+def _packbits(occ_flat: torch.Tensor) -> torch.Tensor:
+    """np.packbits on the device: uint8 0/1 [T] -> [ceil(T/8)], MSB first."""
+    pad = (-occ_flat.numel()) % 8
+    if pad:
+        occ_flat = torch.cat([occ_flat, occ_flat.new_zeros(pad)])
+    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8, device=occ_flat.device)
+    return (occ_flat.reshape(-1, 8) * weights).sum(1).to(torch.uint8)
+
+
+def _fetch_volumes(occupancy_dev: torch.Tensor, rgb_dev: torch.Tensor, res: int, sparse: bool):
+    """Bring the finished uint8 volumes to the host (nerfjax extract.py:248-301).
+
+    Returns (occupancy [R,R,R], rgb [R,R,R,3], sparse_used, rgb_global_max).
+    rgb_global_max is the max over the whole device RGB volume, taken before
+    compaction (post_process_vol divides by it). sparse=True fetches the
+    occupancy bit-packed and the RGB of occupied voxels only; unoccupied RGB
+    comes back as zeros. It falls back to the dense fetch when the sparse one
+    would move more bytes (K*7 >= 4*R^3, K the occupied count rounded up to a
+    power of two >= 4096, as nerfjax pads it), and reports that as
+    sparse_used=False.
+    """
+    occ_flat = occupancy_dev.reshape(-1)
+    rgb_flat = rgb_dev.reshape(-1, 3)
+    rgb_global_max = float(rgb_dev.max())
+    total = res**3
+    if sparse:
+        occ_host = np.unpackbits(_packbits(occ_flat).cpu().numpy())[:total]
+        count = int(occ_host.sum())
+        K = 1 << max(12, (max(count, 1) - 1).bit_length())
+        if K * 7 < total * 4:
+            idx = torch.nonzero(occ_flat).squeeze(1)  # ascending, as np.flatnonzero
+            rgb_host = np.zeros((total, 3), np.uint8)
+            rgb_host[np.flatnonzero(occ_host)] = rgb_flat[idx].cpu().numpy()
+            return (
+                occ_host.reshape(res, res, res).astype(np.uint8),
+                rgb_host.reshape(res, res, res, 3),
+                True,
+                rgb_global_max,
+            )
+    occupancy = occupancy_dev.cpu().numpy().reshape(res, res, res)
+    rgb = rgb_dev.cpu().numpy().reshape(res, res, res, 3)
+    return occupancy, rgb, False, rgb_global_max
+
+
+def _finish(sigma_vol, rgb_vol, res, sparse_fetch, clock, verbose, queries):
+    """Otsu on the full-resolution sigma volume, occupancy, fetch, metadata."""
+    sigma_flat = sigma_vol.reshape(-1)
+    threshold_dev = otsu_threshold(sigma_flat)
+    occupancy_dev = (sigma_flat > threshold_dev).to(torch.uint8)
+    stats = {
+        "min": float(sigma_flat.min()),
+        "max": float(sigma_flat.max()),
+        "mean": float(sigma_flat.mean()),
+        "std": float(sigma_flat.std(correction=0)),
+    }
+    threshold = float(threshold_dev)
+    clock.lap("otsu")
+    occupancy, rgb_out, sparse_used, rgb_global_max = _fetch_volumes(
+        occupancy_dev, rgb_vol, res, sparse_fetch
+    )
+    clock.lap("fetch")
+    occupied = int(occupancy.sum())
+    total = res**3
+    s = clock.seconds
+    query_time = s.get("coarse", 0.0) + s.get("fine", 0.0) + s["otsu"]
+    if verbose:
+        print(f"Otsu threshold: {threshold:.6f}")
+        print(f"Occupied voxels: {occupied / total:.1%} ({occupied:,}/{total:,})")
+        print(
+            f"Query time: {query_time:.1f}s ({queries:,} queries, "
+            f"+{s['fetch']:.1f}s host transfer)"
+        )
+    metadata = {
+        "threshold": threshold,
+        "occupied_ratio": occupied / total,
+        "total_voxels": total,
+        "occupied_voxels": occupied,
+        "density_stats": stats,
+        "query_seconds": query_time,
+        "transfer_seconds": s["fetch"],
+        "phase_seconds": dict(s),
+        "sparse_fetch": bool(sparse_used),
+        "rgb_global_max": rgb_global_max,
+    }
+    return occupancy, rgb_out, metadata
+
+
+@torch.inference_mode()
+def extract_volume(
+    cfg: Mapping,
+    *,
+    params: dict | None = None,
+    resolution: int | None = None,
+    bounds: tuple[float, float] = (-1.0, 1.0),
+    view_direction=(0.0, 0.0, -1.0),
+    slab: int = 8,
+    device="cuda",
+    dtype: torch.dtype = torch.bfloat16,
+    verbose: bool = True,
+    hierarchical: bool | None = None,
+    sparse_fetch: bool | None = None,
+    coarse_density_only: bool | None = None,
+    coarse_supersample: int | None = None,
+) -> dict:
+    """Full extraction: checkpoint -> colored occupancy volume dict.
+
+    cfg: any mapping with ``.get`` (a dict or nerfjax's ConfigNode).
+    params: {"model": param dict of tensors} (``checkpoint.load_field_params``
+    or ``params_from_jax``); loaded from ``cfg["checkpoint"]`` when None.
+
+    hierarchical (default for resolutions >= 128 divisible by 4): a coarse
+    density pass marks 4^3 cells (Otsu on the cell maxima, margin 0.25x the
+    threshold, 3^3 dilation) and only marked cells are queried at full
+    resolution. hierarchical=False is the exhaustive sweep. sparse_fetch
+    (default: on for hierarchical) fetches the occupancy bit-packed and the
+    RGB of occupied voxels only. coarse_density_only (default: follows
+    sparse_fetch) runs the mark pass through the density-only kernel;
+    coarse_supersample (1 or 2; default 1 under sparse_fetch, else 2) sets
+    the coarse subsamples per cell per axis.
+    """
+    dev = resolve_device(device)
+    res = int(resolution or cfg.get("volume_resolution", 512))
+    _, field, _ = build_fields(cfg, device=dev)
+    if params is None:
+        params = ckpt.load_field_params(cfg["checkpoint"], cfg, which="fine")
+    field.load_params(params["model"] if "model" in params else params["fine"])
+
+    view = np.asarray(view_direction, np.float32)
+    view = tuple(float(v) for v in view / np.linalg.norm(view))
+
+    if hierarchical is None:
+        hierarchical = res >= 128 and res % 4 == 0
+    if sparse_fetch is None:
+        sparse_fetch = hierarchical
+    clock = _PhaseClock(dev)
+    if hierarchical:
+        sigma_vol, rgb_vol, queries, extra = _query_hierarchical(
+            field, res, bounds, view, dev, dtype, verbose, sparse_fetch,
+            coarse_density_only, coarse_supersample, clock,
+        )
+    else:
+        sigma_vol, rgb_vol, queries = _query_exact(field, res, bounds, view, slab, dev, dtype)
+        clock.lap("fine")
+        extra = {}
+    occupancy, rgb_out, metadata = _finish(
+        sigma_vol, rgb_vol, res, sparse_fetch, clock, verbose, queries
+    )
+    return {
+        "occupancy_volume": occupancy,
+        "rgb_volume": rgb_out,
+        "metadata": {
+            "resolution": res,
+            "bounds": [float(bounds[0]), float(bounds[1])],
+            **metadata,
+            "timestamp": time.strftime("%Y-%m-%d %H:%M:%S"),
+            "checkpoint_path": str(cfg.get("checkpoint", "")),
+            "view_direction": list(view),
+            "device": str(dev),
+            **extra,
+        },
+    }
+
+
+def _query_exact(field, res, bounds, view, slab, dev, dtype):
+    """Exhaustive sweep in x-slabs -> (sigma [R,R,R] f32, rgb [R,R,R,3] u8, queries)."""
+    coords = _linspace(bounds[0], bounds[1], res, dev)
+    sigma_vol = torch.empty(res, res, res, dtype=torch.float32, device=dev)
+    rgb_vol = torch.empty(res, res, res, 3, dtype=torch.uint8, device=dev)
+    for x0 in range(0, res, slab):
+        x1 = min(res, x0 + slab)
+        pos3 = _slab_points(coords[x0:x1], coords)
+        rgb, sigma = field.apply_planar_fused(pos3, _view3(view, pos3[0]), dtype=dtype)
+        sigma_vol[x0:x1] = sigma.to(torch.float32).reshape(x1 - x0, res, res)
+        rgb_vol[x0:x1] = _to_u8(rgb).reshape(x1 - x0, res, res, 3)
+    return sigma_vol, rgb_vol, res**3
+
+
+def _query_hierarchical(
+    field, res, bounds, view, dev, dtype, verbose, sparse_fetch,
+    coarse_density_only, coarse_supersample, clock,
+):
+    """Coarse mark pass, then the fine pass over marked cells.
+
+    Returns (sigma [R,R,R] f32, rgb [R,R,R,3] u8, queries, metadata extras).
+    Voxels of unmarked cells keep their cell's coarse sigma (and coarse RGB,
+    or zeros after a density-only mark pass).
+    """
+    if res % B:
+        raise ValueError(f"hierarchical extraction needs a resolution divisible by {B}, got {res}")
+    C = res // B
+    ss = int(coarse_supersample if coarse_supersample is not None else (1 if sparse_fetch else 2))
+    if ss not in (1, 2):
+        raise ValueError(f"coarse_supersample must be 1 or 2, got {ss}")
+    if coarse_density_only is None:
+        coarse_density_only = sparse_fetch
+    res2 = ss * C
+    lo, hi = bounds
+
+    # -- coarse pass ------------------------------------------------------
+    coords2 = _linspace(lo, hi, res2, dev)
+    sig2 = torch.empty(res2, res2, res2, dtype=torch.float32, device=dev)
+    rgb2 = None if coarse_density_only else torch.empty(res2, res2, res2, 3, dtype=torch.float32, device=dev)
+    for x0 in range(0, res2, COARSE_SLAB):
+        x1 = min(res2, x0 + COARSE_SLAB)
+        pos3 = _slab_points(coords2[x0:x1], coords2)
+        if coarse_density_only:
+            sigma = field.query_density_planar_fused(pos3, dtype=dtype)
+        else:
+            rgb, sigma = field.apply_planar_fused(pos3, _view3(view, pos3[0]), dtype=dtype)
+            rgb2[x0:x1] = rgb.to(torch.float32).T.reshape(x1 - x0, res2, res2, 3)
+        sig2[x0:x1] = sigma.to(torch.float32).reshape(x1 - x0, res2, res2)
+
+    cell_sigma = sig2 if ss == 1 else sig2.reshape(C, ss, C, ss, C, ss).amax(dim=(1, 3, 5))
+
+    def rep(a):
+        return a.repeat_interleave(B, 0).repeat_interleave(B, 1).repeat_interleave(B, 2)
+
+    sigma_vol = rep(cell_sigma)
+    if rgb2 is None:
+        rgb_vol = torch.zeros(res, res, res, 3, dtype=torch.uint8, device=dev)
+    else:
+        cell_rgb = rgb2[::ss, ::ss, ::ss]
+        rgb_vol = torch.round(rep(cell_rgb) * 255.0).clamp(0, 255).to(torch.uint8)
+
+    coarse_thresh = float(otsu_threshold(cell_sigma))
+    margin = 0.25 * coarse_thresh
+    marked = _dilate_mask(cell_sigma.cpu().numpy() > margin)
+    n_marked = int(marked.sum())
+    if verbose:
+        print(
+            f"Hierarchical extraction: {n_marked}/{C**3} cells marked "
+            f"({n_marked / C**3:.1%}), coarse otsu {coarse_thresh:.4f}"
+        )
+    clock.lap("coarse")
+
+    # -- fine pass over marked cells --------------------------------------
+    # Cells come from argwhere on the [C,C,C] mask, so every voxel index is
+    # in range and unique within a call; the last call is simply shorter
+    # (nerfjax pads it with copies of its first cell to keep one jit shape).
+    cells = torch.from_numpy(np.argwhere(marked)).to(dev)  # [M, 3] int64
+    coords = _step_coords(lo, hi, res, dev)
+    ar = torch.arange(B, device=dev)
+    off = torch.stack(torch.meshgrid(ar, ar, ar, indexing="ij"), -1).reshape(-1, 3)  # [64, 3]
+    sigma_flat = sigma_vol.reshape(-1)
+    rgb_flat = rgb_vol.reshape(-1, 3)
+    for start in range(0, len(cells), FINE_CHUNK_CELLS):
+        chunk = cells[start : start + FINE_CHUNK_CELLS]
+        xi = (chunk[:, 0:1] * B + off[None, :, 0]).reshape(-1)
+        yi = (chunk[:, 1:2] * B + off[None, :, 1]).reshape(-1)
+        zi = (chunk[:, 2:3] * B + off[None, :, 2]).reshape(-1)
+        pos3 = (coords[xi], coords[yi], coords[zi])
+        rgb, sigma = field.apply_planar_fused(pos3, _view3(view, pos3[0]), dtype=dtype)
+        flat = (xi * res + yi) * res + zi
+        sigma_flat[flat] = sigma.to(torch.float32)
+        rgb_flat[flat] = _to_u8(rgb)
+    clock.lap("fine")
+
+    extra = {
+        "hierarchical": True,
+        "marked_cells": n_marked,
+        "coarse_density_only": bool(coarse_density_only),
+        "coarse_supersample": ss,
+    }
+    return sigma_vol, rgb_vol, n_marked * B**3 + res2**3, extra
+
+
+def save_volume(volume: dict, output_path: str | Path) -> None:
+    """Write volume.pth through nerfjax.pth (torch-loadable, same contract)."""
+    output_path = Path(output_path)
+    if output_path.suffix.lower() != ".pth":
+        raise ValueError(f"Unsupported output format: {output_path.suffix}")
+    pth.save(
+        {
+            "occupancy_volume": np.asarray(volume["occupancy_volume"], np.uint8),
+            "rgb_volume": np.asarray(volume["rgb_volume"], np.uint8),
+            "metadata": volume["metadata"],
+        },
+        output_path,
+    )
+    print(f"Saved colored occupancy volume with metadata: {output_path}")
+
+
+def load_volume(path: str | Path) -> dict:
+    """Read a volume.pth (nerfjax extract.py:573) into numpy arrays and dicts."""
+    return pth.load(path)
