@@ -5,7 +5,11 @@ Each source is compiled on its own into a shared library with a plain C
 interface::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o <build dir>/lib<name>.<hash>.so <name>.cu
+         -Xcompiler -fPIC -Xptxas -v [extra] -o <build dir>/lib<name>.<hash>.so <name>.cu
+
+``EXTRA_FLAGS`` adds flags for one source (``hash_encode.cu`` is built with
+``-fmad=false``: its draws must round as the plain version's separate
+multiplies and adds). ``build_all`` starts one nvcc per source at once.
 
 The file name carries a hash of the source and the flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is. The build
@@ -32,6 +36,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+EXTRA_FLAGS = {"hash_encode": ("-fmad=false",)}
+SOURCES = ("fused_mlp", "hash_encode")
 
 
 def find_nvcc() -> str:
@@ -48,39 +54,58 @@ def find_nvcc() -> str:
     return found
 
 
+def _flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}.{digest}.so"
 
 
-def build(name: str) -> dict:
-    """Compile ``csrc/<name>.cu`` unless its library is already built.
+def build_all(names=SOURCES) -> dict[str, dict]:
+    """Compile every ``csrc/<name>.cu`` not yet built, one nvcc each, all
+    started together. Returns {name: {"path", "seconds", "log"}}:
+    ``seconds`` is 0.0 and ``log`` empty for a library already there;
+    ``log`` holds nvcc's output (with ``-Xptxas -v``: registers, shared
+    memory and spills of every kernel). Raises with nvcc's message if any
+    build fails."""
+    out: dict[str, dict] = {}
+    running = {}
+    for name in names:
+        path = library_path(name)
+        if path.exists():
+            out[name] = {"path": path, "seconds": 0.0, "log": ""}
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(path.name + f".{os.getpid()}.tmp")
+        cmd = [find_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        running[name] = (proc, cmd, tmp, path, time.perf_counter())
+    failed = []
+    for name, (proc, cmd, tmp, path, t0) in running.items():
+        stdout, stderr = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{stderr}{stdout}")
+            continue
+        tmp.replace(path)
+        for stale in BUILD_DIR.glob(f"lib{name}.*.so"):
+            if stale != path:
+                stale.unlink(missing_ok=True)
+        out[name] = {"path": path, "seconds": seconds, "log": stdout + stderr}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
-    Returns {"path", "seconds", "log"}: ``seconds`` is 0.0 and ``log`` empty
-    when the library was already there; ``log`` holds nvcc's output (with
-    ``-Xptxas -v``: registers, shared memory and spills of every kernel).
-    """
-    out = library_path(name)
-    if out.exists():
-        return {"path": out, "seconds": 0.0, "log": ""}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed to build {name}.cu (exit {res.returncode}):\n"
-            f"{' '.join(cmd)}\n{res.stderr}{res.stdout}"
-        )
-    tmp.replace(out)
-    for stale in BUILD_DIR.glob(f"lib{name}.*.so"):
-        if stale != out:
-            stale.unlink(missing_ok=True)
-    return {"path": out, "seconds": seconds, "log": res.stdout + res.stderr}
+
+def build(name: str) -> dict:
+    """Compile ``csrc/<name>.cu`` unless its library is already built
+    (``build_all`` for one source)."""
+    return build_all((name,))[name]
 
 
 @functools.cache

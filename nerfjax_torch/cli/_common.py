@@ -1,6 +1,6 @@
 """Shared CLI helpers (counterpart of ``nerfjax/cli/_common.py``, without its
-JAX compilation cache). Only the CLI loads YAML configs, so PyYAML is
-imported here and nowhere else in the package."""
+JAX compilation cache). Configs load through ``nerfjax_torch.config``, which
+imports PyYAML only when it reads a YAML file."""
 
 from __future__ import annotations
 
@@ -17,6 +17,6 @@ def cfg_parser(description: str) -> argparse.ArgumentParser:
 
 
 def load_cfg(args):
-    from nerfjax.config import load_config, with_defaults
+    from nerfjax_torch.config import load_config, with_defaults
 
     return with_defaults(load_config(args.cfg_path))

@@ -94,8 +94,8 @@ def main() -> None:
     print("EXTRACTION COMPLETED SUCCESSFULLY!")
 
     if args.visualize:
-        from nerfjax.gui.viewers import display_pointcloud
-        from nerfjax.postprocess import volume_to_points
+        from nerfjax_torch.gui.viewers import display_pointcloud
+        from nerfjax_torch.postprocess import volume_to_points
 
         pts, rgbs = volume_to_points(
             vol["occupancy_volume"], vol["rgb_volume"], vol["metadata"].get("rgb_global_max")

@@ -26,7 +26,6 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from nerfjax import pth
 from nerfjax_torch import checkpoint as ckpt
 from nerfjax_torch.ops.otsu import otsu_threshold
 from nerfjax_torch.train import build_fields
@@ -209,7 +208,7 @@ def extract_volume(
 ) -> dict:
     """Full extraction: checkpoint -> colored occupancy volume dict.
 
-    cfg: any mapping with ``.get`` (a dict or nerfjax's ConfigNode).
+    cfg: any mapping with ``.get`` (a dict or the port's ``ConfigNode``).
     params: {"model": param dict of tensors} (``checkpoint.load_field_params``
     or ``params_from_jax``); loaded from ``cfg["checkpoint"]`` when None.
 
@@ -370,11 +369,12 @@ def _query_hierarchical(
 
 
 def save_volume(volume: dict, output_path: str | Path) -> None:
-    """Write volume.pth through nerfjax.pth (torch-loadable, same contract)."""
+    """Write volume.pth with torch.save (nerfjax's ``pth.load`` reads it:
+    same contract)."""
     output_path = Path(output_path)
     if output_path.suffix.lower() != ".pth":
         raise ValueError(f"Unsupported output format: {output_path.suffix}")
-    pth.save(
+    ckpt.save_pth(
         {
             "occupancy_volume": np.asarray(volume["occupancy_volume"], np.uint8),
             "rgb_volume": np.asarray(volume["rgb_volume"], np.uint8),
@@ -387,4 +387,4 @@ def save_volume(volume: dict, output_path: str | Path) -> None:
 
 def load_volume(path: str | Path) -> dict:
     """Read a volume.pth (nerfjax extract.py:573) into numpy arrays and dicts."""
-    return pth.load(path)
+    return ckpt.load_pth(path)

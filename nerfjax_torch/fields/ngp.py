@@ -8,9 +8,12 @@ jax; ``tests/test_torch_hash_encode.py`` holds the two equal.
 ``InstantNGP`` is an ``nn.Module`` holding the ``[2, total]`` table planes
 and the bias-free MLP weights in nerfjax's ``[in, out]`` layout
 (``fields/ngp.py:258-436``). Its feature-major methods keep nerfjax's names:
-``query_density_planar``/``apply_planar`` are the unfused path (matmuls in
-``dtype``), ``apply_planar_fused``/``query_density_planar_fused`` the fused
-MLP kernels of ``nerfjax_torch.ops.fused_mlp``.
+``query_density_planar``/``apply_planar`` are the unfused, differentiable
+path the training step runs (each weight cast to ``dtype`` per matmul, the
+product in ``dtype``, as ``jnp.dot(w.T.astype(dtype), h,
+preferred_element_type=dtype)``), ``apply_planar_fused``/
+``query_density_planar_fused`` the fused MLP kernels of
+``nerfjax_torch.ops.fused_mlp`` (inference).
 """
 
 from __future__ import annotations
@@ -30,17 +33,22 @@ CORNERS = [(dx, dy, dz) for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
 
 @dataclasses.dataclass(frozen=True)
 class HashGridSpec:
-    """Static hash-grid shape. ``fwd_corners``, ``dense_corners`` and
-    ``dense_grad_levels`` name nerfjax's train-only estimators; the port's
-    encode accepts only their exact values (8, 8, 0)."""
+    """Static hash-grid shape. ``fwd_corners``, ``grad_corners``,
+    ``grad_levels``, ``dense_corners`` and ``dense_grad_levels`` name
+    nerfjax's train-only estimators (nerfjax ``fields/ngp.py:49-95``); the
+    port's encode takes the exact values (8, 8, 0, 8, 0) and the k = 1
+    hashed-level estimators (``fwd_corners``/``grad_corners`` 1, any
+    ``grad_levels``)."""
 
     n_levels: int = 16
     n_features: int = 2
     log2_hashmap_size: int = 19
     base_resolution: int = 16
     per_level_scale: float = 1.5
+    grad_corners: int = 8
     fwd_corners: int = 8
     dense_corners: int = 8
+    grad_levels: int = 0
     dense_grad_levels: int = 0
     extra_dense_levels: int = 0
 
@@ -98,6 +106,9 @@ class InstantNGP(nn.Module):
         hidden: int = 64,
         geo_feat_dim: int = 16,
         extra_dense_levels: int = 0,
+        grad_corners: int = 8,
+        fwd_corners: int = 8,
+        grad_levels: int = 0,
         device: torch.device | str = "cpu",
     ):
         super().__init__()
@@ -114,6 +125,9 @@ class InstantNGP(nn.Module):
             log2_hashmap_size=NERF_TYPE_LOG2[nerf_type],
             base_resolution=base_resolution,
             per_level_scale=per_level_scale,
+            grad_corners=grad_corners,
+            fwd_corners=fwd_corners,
+            grad_levels=grad_levels,
             extra_dense_levels=extra_dense_levels,
         )
         self.extra_dense_levels = extra_dense_levels
@@ -195,7 +209,8 @@ class InstantNGP(nn.Module):
 
     def query_density_planar(self, pos3, *, dtype=torch.bfloat16):
         """(px,py,pz) [N] in [-1,1] -> (sigma [N], features [16, N]); unfused,
-        matmuls in ``dtype`` as nerfjax's XLA path."""
+        matmuls in ``dtype`` as nerfjax's XLA path, differentiable in the
+        table and the weights."""
         h = self.encode(pos3, dtype)
         for w in self.dmlp[:-1]:
             h = torch.relu(torch.matmul(w.T.to(dtype), h))

@@ -87,7 +87,10 @@ def test_hash_encode_bf16_matches_nerfjax():
 
 @pytest.mark.parametrize("field", ["fwd_corners", "dense_corners", "dense_grad_levels"])
 def test_train_only_encoders_raise(field):
-    spec = HashGridSpec(n_levels=4, log2_hashmap_size=15, **{field: 1})
+    # the k = 1 hashed forward is ported (tests/test_torch_hash_grad.py);
+    # k >= 2 and the dense estimators are not
+    value = {"fwd_corners": 2, "dense_corners": 1, "dense_grad_levels": 1}[field]
+    spec = HashGridSpec(n_levels=4, log2_hashmap_size=15, **{field: value})
     x = torch.zeros(4)
     with pytest.raises(NotImplementedError):
         hash_encode_planar(spec, torch.zeros(2, spec.total_table_size), x, x, x)
