@@ -19,27 +19,36 @@ final line:
      nerfjax_torch.checkpoint.save_field_params) ->
      nerfjax_torch.extract.extract_volume at 512^3 on the card ->
      save_volume -> load_volume; checks the volume and that the MLP kernels
-     and the hashed-level forward launched;
+     and the hashed- and dense-level forwards launched;
   5. the same extraction at 128^3 in float32 on the card (kernels) and on
      the CPU (plain versions), held to the CPU parity tests' rule;
   6. the hash-encode kernels against their plain versions at the tuned
      spec on seeded inputs: the hashed-level forward (exact at N = 524,288
      and 1,000,003, k = 1 at 196,608 with its plan; timed), its table
-     gradient (exact, k = 1, k = 1 over 2 levels) and the table-gradient
+     gradient (exact, k = 1, k = 1 over 2 levels), the table-gradient
      scatter (also timed beside index_add_ at the micro-benchmark's
-     T = 2^19, K = 4,194,304, an extra line);
+     T = 2^19, K = 4,194,304, an extra line), the dense-level forward
+     (exact in f32 and bf16 at N = 196,608 and 524,288, k = 1 with its
+     plan; bit for bit; timed) and its gradient staging (exact in bf16 and
+     f32, over 1 and 2 drawn levels, k = 1; torch.equal; K3 on each output
+     within the atomic-order bound; timed);
   7. training at full width: a seeded synthetic ray NPZ (2^20 rays from
      cameras around an analytic sphere) -> nerfjax_torch.train.train (the
      function the CLI calls) for 3 epochs of 128 steps at batch 8192;
-     checks PSNR, NaNs, launches and nerf_final.pth; then times warm steps
-     (median ms/step, the split by stage, a torch.profiler idle share) and
-     captures the inputs of the table-gradient kernels in one more step;
-     those kernels are held against their plain versions on the step's
-     own inputs and timed there, beside index_add_ for the scatter;
+     checks PSNR, NaNs, the five hash kernels' launches and nerf_final.pth;
+     then times warm steps (median ms/step, the split by stage, a
+     torch.profiler idle share) and captures the inputs of the dense-level
+     and table-gradient kernels in one more step; those kernels are held
+     against their plain versions on the step's own inputs and timed there,
+     beside index_add_ for the scatter;
+  7b. the same training, 128 steps, with hash_dense_grad_levels: 1 and
+     then with hash_dense_corners: 1, on the same NPZ: PSNR, NaNs, the
+     dense kernels' launches and mode, a warm-step median;
   8. the trained checkpoint extracted at 256^3: occupied voxels against the
      analytic sphere (IoU >= 0.5);
   9. one train step at the CPU tests' small size in float32, card against
-     CPU, with the same draws.
+     CPU, with the same draws: the tuned estimators, then with each dense
+     knob.
 
 The last two lines are a JSON object with each kernel's launches, error,
 times and bound, then {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -126,7 +135,10 @@ def _ulp_ok(got, ref) -> bool:
     return bool(((got - ref).abs() <= ulp).all())
 
 
-def _time_ms(fn, iters: int = 20) -> float:
+def _wall_ms(fn, iters: int = 20) -> float:
+    """ms per call of fn from CUDA events around iters calls: the device's
+    time, or the host's where the host enqueues slower than the device
+    runs."""
     import torch
 
     fn()
@@ -138,6 +150,28 @@ def _time_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _time_ms(fn, iters: int = 20) -> float:
+    """Device ms per call of fn: the summed durations of the kernels (and
+    copies) it runs over iters calls, from a torch.profiler trace of the
+    card alone; the host's time between them is left out. A trace that
+    came back without device events (seen once in ~100 traces) is taken
+    again, up to 3 times."""
+    import torch
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+    raise AssertionError("3 profiler traces in a row show no device time")
 
 
 def kernels_vs_plain() -> dict:
@@ -177,12 +211,8 @@ def kernels_vs_plain() -> dict:
                                       lambda: fm.fused_ngp_density_plain(params, enc)),
             }
             for name, (kern, plain) in runs.items():
-                p1, k1, k2, p2 = _time_ms(plain), _time_ms(kern), _time_ms(kern), _time_ms(plain)
-                stats[name]["ms"] = (k1 + k2) / 2
-                stats[name]["plain_ms"] = (p1 + p2) / 2
-                line += (f"\n  {name}: kernel {stats[name]['ms'] * 1e3:.1f} us, plain "
-                         f"{stats[name]['plain_ms'] * 1e3:.1f} us per call (runs p,k,k,p: "
-                         f"{p1 * 1e3:.1f}, {k1 * 1e3:.1f}, {k2 * 1e3:.1f}, {p2 * 1e3:.1f})")
+                stats[name].update(_time_kernel(kern, plain, None, None))
+                line += f"\n  {name}: " + _timing_line(stats[name])
         phase(line)
     return stats
 
@@ -239,7 +269,7 @@ def extract_full(ckpt_path: Path, out_dir: Path) -> dict:
     t0 = time.perf_counter()
     vol = extract_volume(cfg, device="cuda")
     wall = time.perf_counter() - t0
-    launches = {**fm.launch_counts, "hash_levels_fwd": he.launch_counts["hash_levels_fwd"]}
+    launches = {**fm.launch_counts, **{k: he.launch_counts[k] for k in ("hash_levels_fwd", "dense_levels_fwd")}}
     peak = torch.cuda.max_memory_allocated() / 2**30
     md = vol["metadata"]
     phase(f"{res}^3 extraction: {wall:.2f} s wall; " + _phases(md)
@@ -328,6 +358,9 @@ TUNED_TRAIN = {
 }
 TRAIN_EPOCHS = 3
 N_RAYS = 1 << 20  # 128 steps of 8192 rays per epoch
+# the dense-level knobs trained beside the tuned cfg (phase 7b), 128 steps each
+DENSE_KNOBS = {"dgl1": {"hash_dense_grad_levels": 1}, "dc1": {"hash_dense_corners": 1}}
+PSNR_RISE_DB = 3.0  # the least rise of PSNR from the first 20 steps to the last 20 of a training run
 BALL_CENTER = np.array([0.10, -0.05, 0.0])
 BALL_RADIUS = 0.5
 BALL_SIGMA = 4.0
@@ -372,14 +405,9 @@ def hash_kernels_vs_plain() -> dict:
     planes = _rand((2, total), rng)
     stats = {n: {"max_abs_err": 0.0} for n in ("hash_levels_fwd", "hash_levels_bwd", "table_grad_scatter")}
 
-    def timed(name, label, kern, plain):
-        p1, k1_, k2_, p2 = _time_ms(plain), _time_ms(kern), _time_ms(kern), _time_ms(plain)
-        stats[name].update(ms=(k1_ + k2_) / 2, plain_ms=(p1 + p2) / 2)
-        line = (f"  {name} {label}: kernel {stats[name]['ms'] * 1e3:.1f} us, plain {stats[name]['plain_ms'] * 1e3:.1f} us "
-                f"(runs p,k,k,p: {p1 * 1e3:.1f}, {k1_ * 1e3:.1f}, {k2_ * 1e3:.1f}, {p2 * 1e3:.1f})")
-        if "bound" in stats[name]:
-            line += f", bound {stats[name]['bound'][0] * 1e3:.1f} us ({stats[name]['bound'][1]})"
-        phase(line)
+    def timed(name, label, kern, plain, bound):
+        stats[name].update(_time_kernel(kern, plain, None, bound))
+        phase(f"  {name} {label}: " + _timing_line(stats[name]))
 
     # K1 exact (the extraction's fine pass and beyond), f32 output and bf16 at the concat
     for N in (524_288, 1_000_003):
@@ -396,10 +424,8 @@ def hash_kernels_vs_plain() -> dict:
         if N == 524_288:
             idx = torch.stack(he._hash_level_indices(exact, hashed, x, y, z))
             nbytes = 8 * torch.unique(idx).numel() + 12 * N + 8 * Lh * N
-            bound = _bound(nbytes, 110 * Lh * N)
-            phase(f"  hash_levels_fwd exact N={N}: bound {bound[0] * 1e3:.1f} us ({bound[1]})")
             timed("hash_levels_fwd", f"exact N={N}", lambda: he.hash_levels_fwd(exact, planes, x, y, z),
-                  lambda: he.hash_levels_fwd_plain(exact, planes, x, y, z))
+                  lambda: he.hash_levels_fwd_plain(exact, planes, x, y, z), _bound(nbytes, 110 * Lh * N))
 
     # K1 k = 1 (the train step's forward) with its plan; K2 in its three modes
     N = 196_608
@@ -411,9 +437,8 @@ def hash_kernels_vs_plain() -> dict:
         raise AssertionError("hash_levels_fwd k=1: plan or output differs from the plain version")
     phase(f"hash_levels_fwd k=1 N={N}: sel == plain plan, output == plain (torch.equal)")
     nbytes = 8 * torch.unique(plan).numel() + 12 * N + 8 * Lh * N
-    stats["hash_levels_fwd"]["bound"] = _bound(nbytes, 80 * Lh * N)
     timed("hash_levels_fwd", f"k=1 N={N}", lambda: he.hash_levels_fwd(k1, planes, x, y, z),
-          lambda: he.hash_levels_fwd_plain(k1, planes, x, y, z))
+          lambda: he.hash_levels_fwd_plain(k1, planes, x, y, z), _bound(nbytes, 80 * Lh * N))
 
     g = _rand((2, Lh, N), rng)
     for label, spec in (("exact", exact), ("k=1", dataclasses.replace(k1, grad_levels=0)), ("k=1 gl=2", k1)):
@@ -444,7 +469,7 @@ def hash_kernels_vs_plain() -> dict:
     buf = torch.empty(2, T, device="cuda")
     keep = idx < T
     ik, gk = idx[keep], torch.stack([g0[keep], g1[keep]])  # index_add_ raises on the dropped indices
-    micro = _time_scatter(
+    micro = _time_kernel(
         lambda: he.table_grad_scatter(idx, g0, g1, buf.zero_()),
         lambda: he.table_grad_scatter_plain(idx, g0, g1, buf.zero_()),
         lambda: buf.zero_().index_add_(1, ik, gk),
@@ -452,6 +477,114 @@ def hash_kernels_vs_plain() -> dict:
     )
     phase(f"  table_grad_scatter T={T} K={K} (extra line, micro shape): " + _timing_line(micro))
     return stats
+
+
+def _positions(N: int, rng):
+    """x, y, z [N] on the card, uniform in [0, 1] but for the domain's
+    corners 0 and 1 at the first two points."""
+    x, y, z = _rand((3, N), rng, 0.0, 1.0)
+    for c in (x, y, z):
+        c[0], c[1] = 0.0, 1.0
+    return x, y, z
+
+
+def _dense_fwd_bound(Ld: int, touched: int, N: int, out_bytes: int, ops_per_row: int):
+    """K4's bound: positions in, the touched table entries (both planes) in
+    once, the [2, Ld, N] output out once; ops per (level, point)."""
+    return _bound(12 * N + 8 * touched + out_bytes * 2 * Ld * N, ops_per_row * Ld * N)
+
+
+def _dense_bwd_bound(spec, g, x, y, z, K: int):
+    """K5's bound: positions in, the upstream gradient g [2, Ld, N] it reads
+    (under a level subset only the drawn (level, point) pairs), 12 B (idx,
+    v0, v1) per staged entry out; 8 operations per entry."""
+    import torch
+
+    from nerfjax_torch.ops import hash_encode as he
+
+    Ld, N = g.shape[1], x.shape[0]
+    mode, gd = he._dense_mode(spec, Ld)
+    pairs = Ld * N
+    if mode == 2:
+        ids = he._draw_levels(x, y, z, Ld, gd, he.DENSE_GL_SALT)
+        pairs = torch.unique(ids * N + torch.arange(N, device=x.device)).numel()
+    return _bound(12 * N + 2 * g.element_size() * pairs + 12 * K, 8 * K)
+
+
+def dense_kernels_vs_plain(stats: dict) -> None:
+    """K4 and K5 against their plain versions on the card at the tuned spec
+    on seeded inputs (faces included), each timed (runs p, k, k, p) beside
+    its bound as an extra line: K4 exact in f32 and bf16 at the step's
+    N = 196,608 and the extraction's fine call's 524,288, bit for bit, and
+    k = 1 with its plan; K5 exact in bf16 and f32, over 1 and 2 drawn
+    levels and k = 1, with torch.equal, and K3 on each K5 output within the
+    atomic-order bound. The kernels line takes K4's and K5's times at the
+    train step's own inputs (dense_at_step_shapes)."""
+    import torch
+
+    from nerfjax_torch.ops import hash_encode as he
+    from nerfjax_torch.train import build_fields
+
+    rng = np.random.default_rng(SEED + 8)
+    exact = build_fields(TUNED_CFG)[1].spec
+    dc1 = dataclasses.replace(exact, dense_corners=1)
+    dense, _ = he._split_levels(exact)
+    Ld, total = len(dense), exact.total_table_size
+    planes = _rand((2, total), rng)
+    stats.update({n: {"max_abs_err": 0.0} for n in ("dense_levels_fwd", "dense_levels_bwd")})
+    for N in (196_608, 524_288):
+        x, y, z = _positions(N, rng)
+        for dt in (torch.float32, torch.bfloat16):
+            got = he.dense_levels_fwd(exact, planes, x, y, z, dt)
+            ref, _ = he.dense_levels_fwd_plain(exact, planes, x, y, z, dt)
+            if got.dtype != ref.dtype or not torch.equal(got, ref):
+                raise AssertionError(f"dense_levels_fwd exact N={N} {dt}: kernel != plain "
+                                     f"(max |err| {float((got.float() - ref.float()).abs().max())})")
+        touched = torch.unique(he._dense_corner_arrays(dense, x, y, z, torch.float32)[0]).numel()
+        t = _time_kernel(lambda: he.dense_levels_fwd(exact, planes, x, y, z, torch.bfloat16),
+                         lambda: he.dense_levels_fwd_plain(exact, planes, x, y, z, torch.bfloat16), None,
+                         _dense_fwd_bound(Ld, touched, N, 2, 120))
+        phase(f"dense_levels_fwd exact N={N}: kernel == plain bit for bit (f32 and bf16); "
+              f"{touched:,} of {he._dense_width(dense):,} dense entries touched")
+        phase(f"  dense_levels_fwd exact bf16 N={N}: " + _timing_line(t))
+
+    N = 196_608
+    x, y, z = _positions(N, rng)
+    sel = torch.empty(Ld, N, dtype=torch.int32, device="cuda")
+    got = he.dense_levels_fwd(dc1, planes, x, y, z, torch.bfloat16, sel=sel)
+    ref, plan = he.dense_levels_fwd_plain(dc1, planes, x, y, z, torch.bfloat16)
+    if not torch.equal(sel.long(), plan) or got.dtype != torch.float32 or not torch.equal(got, ref):
+        raise AssertionError("dense_levels_fwd k=1: plan or output differs from the plain version")
+    t = _time_kernel(lambda: he.dense_levels_fwd(dc1, planes, x, y, z, torch.bfloat16),
+                     lambda: he.dense_levels_fwd_plain(dc1, planes, x, y, z, torch.bfloat16), None,
+                     _dense_fwd_bound(Ld, torch.unique(plan).numel(), N, 4, 80))
+    phase(f"dense_levels_fwd k=1 N={N}: sel == plain plan, output == plain (torch.equal)")
+    phase(f"  dense_levels_fwd k=1 N={N}: " + _timing_line(t))
+
+    g = _rand((2, Ld, N), rng).to(torch.bfloat16)
+    for label, spec, dt in (("exact bf16", exact, torch.bfloat16), ("exact f32", exact, torch.float32),
+                            ("gd=1", dataclasses.replace(exact, dense_grad_levels=1), torch.bfloat16),
+                            ("gd=2", dataclasses.replace(exact, dense_grad_levels=2), torch.bfloat16),
+                            ("k=1", dc1, torch.bfloat16)):
+        gt = g.to(dt)
+        got = he.dense_levels_bwd(spec, gt, x, y, z, dt)
+        ref = he.dense_levels_bwd_plain(spec, gt, x, y, z, dt)
+        if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"dense_levels_bwd {label}: kernel != plain")
+        idx, v0, v1 = got
+        one = torch.ones_like(v0)
+        err = _check_scatter(f"table_grad_scatter on dense_levels_bwd {label}",
+                             he.table_grad_scatter(idx, v0, v1, _zeros2(total)),
+                             he.table_grad_scatter_plain(idx, v0, v1, _zeros2(total)),
+                             he.table_grad_scatter_plain(idx, v0.abs(), v1.abs(), _zeros2(total)),
+                             he.table_grad_scatter_plain(idx, one, one, _zeros2(total)))
+        stats["table_grad_scatter"]["max_abs_err"] = max(stats["table_grad_scatter"]["max_abs_err"], err)
+        t = _time_kernel(lambda: he.dense_levels_bwd(spec, gt, x, y, z, dt),
+                         lambda: he.dense_levels_bwd_plain(spec, gt, x, y, z, dt), None,
+                         _dense_bwd_bound(spec, gt, x, y, z, idx.numel()))
+        phase(f"dense_levels_bwd {label} N={N}: K={idx.numel():,} staged entries == plain (torch.equal); "
+              f"K3 on them within the atomic-order bound, max |err| {err:.3g}")
+        phase(f"  dense_levels_bwd {label}: " + _timing_line(t))
 
 
 def _zeros2(T: int):
@@ -474,32 +607,39 @@ def _check_scatter(label: str, got, ref, mass, count) -> float:
     return float(err.max())
 
 
-def _time_scatter(kern, plain, library, bound) -> dict:
-    """Per-call ms of a scatter and its plain version (runs p, k, k, p), of
-    its one-call library yardstick where there is one (runs l, l), beside
-    its bound."""
+def _time_kernel(kern, plain, library, bound) -> dict:
+    """Device ms per call (_time_ms) of a kernel's wrapper and its plain
+    version (runs p, k, k, p), of its one-call library yardstick where
+    there is one (runs l, l), beside its bound (or None); and the wrapper's
+    wall ms per call (_wall_ms, the host's Python included)."""
     runs = (_time_ms(plain), _time_ms(kern), _time_ms(kern), _time_ms(plain))
     lib = (_time_ms(library), _time_ms(library)) if library is not None else ()
     return {"ms": (runs[1] + runs[2]) / 2, "plain_ms": (runs[0] + runs[3]) / 2,
-            "library_ms": sum(lib) / 2 if lib else None, "bound": bound, "runs": runs + lib}
+            "library_ms": sum(lib) / 2 if lib else None, "bound": bound, "runs": runs + lib,
+            "wall_ms": _wall_ms(kern)}
 
 
 def _timing_line(t: dict) -> str:
     r = ", ".join(f"{v * 1e3:.1f}" for v in t["runs"])
     lib = "" if t["library_ms"] is None else f", index_add_ {t['library_ms'] * 1e3:.1f} us"
     order = "p,k,k,p,l,l" if t["library_ms"] is not None else "p,k,k,p"
-    return (f"kernel {t['ms'] * 1e3:.1f} us, plain {t['plain_ms'] * 1e3:.1f} us{lib} per call (runs {order}: {r}), "
-            f"bound {t['bound'][0] * 1e3:.1f} us ({t['bound'][1]})")
+    bound = "" if t["bound"] is None else f", bound {t['bound'][0] * 1e3:.1f} us ({t['bound'][1]})"
+    return (f"device: kernel {t['ms'] * 1e3:.1f} us, plain {t['plain_ms'] * 1e3:.1f} us{lib} per call "
+            f"(runs {order}: {r}){bound}; wall per kernel call {t['wall_ms'] * 1e3:.1f} us")
+
+
+STEP_KERNELS = ("dense_levels_fwd", "dense_levels_bwd", "hash_levels_bwd", "table_grad_scatter")
 
 
 def capture_step_inputs(state, batch) -> dict:
-    """The arguments that K2 and K3 get in one warm tuned train step: the
-    step's own positions, plan and upstream gradients."""
+    """The arguments that K4, K5, K2 and K3 get in one warm train step (the
+    last call of each): the step's own positions, table, plan and upstream
+    gradients."""
     from nerfjax_torch.ops import hash_encode as he
     from nerfjax_torch.train import train_step
 
     seen, wrapped = {}, {}
-    for name in ("hash_levels_bwd", "table_grad_scatter"):
+    for name in STEP_KERNELS:
         wrapped[name] = getattr(he, name)
 
         def record(*args, _name=name, **kw):
@@ -513,7 +653,7 @@ def capture_step_inputs(state, batch) -> dict:
         for name, fn in wrapped.items():
             setattr(he, name, fn)
     if seen.keys() != wrapped.keys():
-        raise AssertionError(f"the step called {sorted(seen)} of K2 and K3")
+        raise AssertionError(f"the step called {sorted(seen)} of {STEP_KERNELS}")
     return seen
 
 
@@ -558,7 +698,7 @@ def scatters_at_step_shapes(cap: dict, stats: dict) -> None:
         dense.zero_()
         buf.index_add_(1, idx, vv)
 
-    t = _time_scatter(k3, p3, l3, _bound(12 * K + 8 * base, 2 * K))
+    t = _time_kernel(k3, p3, l3, _bound(12 * K + 8 * base, 2 * K))
     stats["table_grad_scatter"].update(t)
     phase(f"table_grad_scatter at the step's dense-level gradient (K={K:,} = {K // N} level-corners x {N:,} points "
           f"into {base:,} dense entries; at most {int(hits.max()):,} adds to one entry, median "
@@ -584,11 +724,57 @@ def scatters_at_step_shapes(cap: dict, stats: dict) -> None:
         he.hash_levels_bwd_plain(spec, g, x, y, z, buf)
 
     # no one PyTorch call computes it: the indices are computed inside
-    t = _time_scatter(k2, p2, None, _bound(12 * N + 8 * pairs + 8 * (total - base), 90 * spec.grad_levels * N))
+    t = _time_kernel(k2, p2, None, _bound(12 * N + 8 * pairs + 8 * (total - base), 90 * spec.grad_levels * N))
     stats["hash_levels_bwd"].update(t)
     phase(f"hash_levels_bwd at the step's hashed-level gradient (k=1, {spec.grad_levels} of {Lh} levels, N={N:,}): "
           f"kernel == plain within the atomic-order bound, max |err| {err:.3g}")
     phase("  " + _timing_line(t))
+
+
+def dense_at_step_shapes(cap: dict, label: str) -> dict:
+    """K4 and K5 on the inputs of one warm train step (capture_step_inputs):
+    equal to their plain versions (torch.equal) and timed beside their
+    bounds. Returns {name: timing}."""
+    import torch
+
+    from nerfjax_torch.ops import hash_encode as he
+
+    spec, planes, x, y, z, dtype = cap["dense_levels_fwd"]
+    planes = planes.detach()  # the field's table: no autograd graph for the plain version
+    dense, _ = he._split_levels(spec)
+    Ld, N = len(dense), x.shape[0]
+    mode, gd = he._dense_mode(spec, Ld)
+    got = he.dense_levels_fwd(spec, planes, x, y, z, dtype)
+    ref, plan = he.dense_levels_fwd_plain(spec, planes, x, y, z, dtype)
+    if got.dtype != ref.dtype or not torch.equal(got, ref):
+        raise AssertionError(f"dense_levels_fwd ({label} step): kernel != plain")
+    if plan is None:
+        touched = torch.unique(he._dense_corner_arrays(dense, x, y, z, torch.float32)[0]).numel()
+        bound = _dense_fwd_bound(Ld, touched, N, got.element_size(), 120)
+    else:
+        bound = _dense_fwd_bound(Ld, torch.unique(plan).numel(), N, 4, 80)
+    out = {"dense_levels_fwd": _time_kernel(lambda: he.dense_levels_fwd(spec, planes, x, y, z, dtype),
+                                            lambda: he.dense_levels_fwd_plain(spec, planes, x, y, z, dtype),
+                                            None, bound)}
+    phase(f"dense_levels_fwd at the {label} step's forward ({['exact', 'k=1', 'exact'][mode]} {dtype}, "
+          f"N={N:,}, {Ld} levels): kernel == plain (torch.equal)")
+    phase("  " + _timing_line(out["dense_levels_fwd"]))
+
+    spec, g, x, y, z, dtype = cap["dense_levels_bwd"]
+    got = he.dense_levels_bwd(spec, g, x, y, z, dtype)
+    ref = he.dense_levels_bwd_plain(spec, g, x, y, z, dtype)
+    if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, ref)):
+        raise AssertionError(f"dense_levels_bwd ({label} step): kernel != plain")
+    K = got[0].numel()
+    if K != {0: 8 * Ld, 1: Ld, 2: 8 * gd}[mode] * N or not torch.equal(got[0], cap["table_grad_scatter"][0]):
+        raise AssertionError(f"dense_levels_bwd ({label} step): K3 did not get K5's {K:,} staged entries")
+    out["dense_levels_bwd"] = _time_kernel(lambda: he.dense_levels_bwd(spec, g, x, y, z, dtype),
+                                           lambda: he.dense_levels_bwd_plain(spec, g, x, y, z, dtype), None,
+                                           _dense_bwd_bound(spec, g, x, y, z, K))
+    phase(f"dense_levels_bwd at the {label} step's gradient ({['exact', 'k=1', f'{gd} of {Ld} levels'][mode]}, "
+          f"{dtype}, N={N:,}): K={K:,} staged entries == plain (torch.equal), all handed to K3")
+    phase("  " + _timing_line(out["dense_levels_bwd"]))
+    return out
 
 
 def ray_npz(path: Path) -> None:
@@ -713,10 +899,10 @@ def train_full(tmp: Path) -> dict:
           f"launches {launches}")
     if not np.isfinite(psnr).all() or not all(np.isfinite(v["w"]).all() for v in out["params"]["dmlp"]):
         raise AssertionError("NaN in training")
-    if last < first + 3.0:
-        raise AssertionError(f"PSNR rose {last - first:.2f} dB, expected >= 3")
-    for name in ("hash_levels_fwd", "hash_levels_bwd", "table_grad_scatter"):
-        if launches[name] <= 0:
+    if last < first + PSNR_RISE_DB:
+        raise AssertionError(f"PSNR rose {last - first:.2f} dB, expected >= {PSNR_RISE_DB}")
+    for name, n in launches.items():
+        if n <= 0:
             raise AssertionError(f"{name} was not launched on the training path")
     final = Path(cfg["checkpoint_dir"]) / "nerf_final.pth"
     if not final.exists():
@@ -746,8 +932,65 @@ def train_full(tmp: Path) -> dict:
     state.step = 1  # no grid update inside the traced window
     busy, traced, idle = _idle_share(state, batches[32:40])
     phase(f"profiler, 8 warm steps: device busy {busy:.2f} ms of {traced:.2f} ms traced wall: idle share {idle:.1%}")
-    return {"cfg": cfg, "final": final, "launches": launches, "ms_per_step": med,
-            "step_inputs": capture_step_inputs(state, batches[40])}
+    torch.cuda.reset_peak_memory_stats()
+    step_inputs = capture_step_inputs(state, batches[40])
+    phase(f"one warm step (inputs captured): peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return {"cfg": cfg, "final": final, "launches": launches, "ms_per_step": med, "step_inputs": step_inputs}
+
+
+def train_dense_knob(tmp: Path, label: str) -> dict:
+    """128 steps of the tuned cfg with one dense knob through
+    nerfjax_torch.train.train on phase 7's NPZ: PSNR, NaNs, the five hash
+    kernels' launches, K5's mode (the size of its staging in one captured
+    warm step), a warm-step median; K4 and K5 timed on that step's inputs."""
+    import torch
+
+    from nerfjax_torch.data import RayDataset, batch_to_device
+    from nerfjax_torch.ops import hash_encode as he
+    from nerfjax_torch.train import TrainSettings, make_train_state, train, train_step
+
+    cfg = {**TUNED_TRAIN, **DENSE_KNOBS[label], "num_epochs": 1, "rays_file": str(tmp / "rays.npz"),
+           "output_dir": str(tmp / f"out_{label}"), "checkpoint_dir": str(tmp / f"out_{label}" / "checkpoints")}
+    he.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train(cfg, seed=SEED, log_every=64, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = dict(he.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    psnr = np.asarray(out["psnr"])
+    first, last = float(psnr[:20].mean()), float(psnr[-20:].mean())
+    phase(f"train() {label} {DENSE_KNOBS[label]}: {out['steps']} steps in {wall:.2f} s wall, PSNR first 20 steps "
+          f"{first:.2f} dB, last 20 {last:.2f} dB; peak device memory {peak:.2f} GiB; launches {launches}")
+    if not np.isfinite(psnr).all() or not all(np.isfinite(v["w"]).all() for v in out["params"]["dmlp"]):
+        raise AssertionError(f"NaN in training ({label})")
+    if last < first + PSNR_RISE_DB:
+        raise AssertionError(f"PSNR rose {last - first:.2f} dB ({label}), expected >= {PSNR_RISE_DB}")
+    for name, n in launches.items():
+        if n < (out["steps"] if name.startswith("dense") else 1):
+            raise AssertionError(f"{name} launched {n} times in {out['steps']} steps ({label})")
+
+    settings = TrainSettings.from_cfg(cfg, out["steps"])
+    state = make_train_state(cfg, settings, seed=SEED, device="cuda")
+    data = RayDataset(cfg["rays_file"], verbose=False)
+    batches = [batch_to_device(b, "cuda") for _, b in zip(range(49), data.epoch_batches(8192, seed=SEED))]
+    for b in batches[:16]:
+        train_step(state, b)
+    torch.cuda.synchronize()
+    times = []
+    for b in batches[16:48]:
+        t1 = time.perf_counter()
+        train_step(state, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    med = float(np.median(times))
+    phase(f"warm train_step {label}: median {med:.2f} ms/step over {len(times)} steps (min {min(times):.2f}, "
+          f"max {max(times):.2f}) = {8192 / med * 1e3:,.0f} rays/s")
+    mode = he._dense_mode(state.field.spec, len(he._split_levels(state.field.spec)[0]))
+    if mode != {"dgl1": (2, 1), "dc1": (1, 0)}[label]:
+        raise AssertionError(f"{label}: the field's dense mode is {mode}")
+    timings = dense_at_step_shapes(capture_step_inputs(state, batches[48]), label)
+    return {"ms_per_step": med, "launches": launches, "timings": timings}
 
 
 def extract_trained(cfg: dict, final: Path) -> None:
@@ -768,20 +1011,21 @@ def extract_trained(cfg: dict, final: Path) -> None:
         raise AssertionError(f"IoU with the analytic ball {iou:.3f} < 0.5")
 
 
-def step_card_vs_cpu(tmp: Path) -> None:
+def step_card_vs_cpu(tmp: Path, label: str) -> None:
     """One train step at the CPU tests' small size in float32 on the card
-    (kernels) and on the CPU (plain versions): the same parameters, batch,
-    update jitter and sampler uniforms. The grid update runs first on both
-    (the MLP products sum in another order on each device: grids within
-    1e-5 relative); the step then runs on the CPU's grid on both, so the
-    samples and the k = 1 draws are the same bits."""
+    (kernels) and on the CPU (plain versions), with the tuned estimators
+    and, unless ``label`` is "tuned", one of DENSE_KNOBS: the same
+    parameters, batch, update jitter and sampler uniforms. The grid update
+    runs first on both (the MLP products sum in another order on each
+    device: grids within 1e-5 relative); the step then runs on the CPU's
+    grid on both, so the samples and the k = 1 draws are the same bits."""
     import torch
 
     from nerfjax_torch.data import RayDataset, batch_to_device
     from nerfjax_torch.ops.occupancy import draw_update_jitter
     from nerfjax_torch.train import TrainSettings, make_train_state, train_step, update_occupancy
 
-    cfg = {**SMALL_TRAIN, "num_epochs": 1}
+    cfg = {**SMALL_TRAIN, **DENSE_KNOBS.get(label, {}), "num_epochs": 1}
     settings = TrainSettings.from_cfg(cfg, 100)
     cpu = make_train_state(cfg, settings, seed=SEED, device="cpu")
     card = make_train_state(cfg, settings, seed=SEED, device="cuda")
@@ -810,7 +1054,7 @@ def step_card_vs_cpu(tmp: Path) -> None:
         if d > 1e-3 * cfg["lr"]:
             raise AssertionError(f"{name} after AdamW card vs cpu: {d}")
         worst = max(worst, d)
-    phase(f"train step card vs cpu (fp32, small): grid rel err {gerr:.2g}, loss rel err {lerr:.2g}, "
+    phase(f"train step card vs cpu (fp32, small, {label}): grid rel err {gerr:.2g}, loss rel err {lerr:.2g}, "
           f"gradients within rtol 1e-4, parameters after AdamW within {worst:.2g} (bound {1e-3 * cfg['lr']:.1g})")
 
 
@@ -830,11 +1074,20 @@ def main() -> int:
         extract_launches = extract_full(ckpt_path, Path(tmp))
         card_vs_cpu_128(ckpt_path)
     hstats = hash_kernels_vs_plain()
+    dense_kernels_vs_plain(hstats)
     with tempfile.TemporaryDirectory() as tmp:
         trained = train_full(Path(tmp))
-        scatters_at_step_shapes(trained.pop("step_inputs"), hstats)
+        cap = trained.pop("step_inputs")
+        scatters_at_step_shapes(cap, hstats)
+        for name, t in dense_at_step_shapes(cap, "tuned").items():
+            hstats[name].update(t)
+        del cap
+        knobs = {label: train_dense_knob(Path(tmp), label) for label in DENSE_KNOBS}
         extract_trained(trained["cfg"], trained["final"])
-        step_card_vs_cpu(Path(tmp))
+        for label in ("tuned", *DENSE_KNOBS):
+            step_card_vs_cpu(Path(tmp), label)
+    phase("warm ms/step: tuned " + f"{trained['ms_per_step']:.2f}, "
+          + ", ".join(f"{k} {v['ms_per_step']:.2f}" for k, v in knobs.items()))
     kernels = []
     for name, line in (("fused_ngp_head", 28), ("fused_ngp_density", 98)):
         N, E = MAIN_SHAPE[0], MAIN_SHAPE[1]
@@ -849,7 +1102,9 @@ def main() -> int:
         })
     for name, replaces in (("hash_levels_fwd", "nerfjax/ops/hash_encode.py:304"),
                            ("hash_levels_bwd", "nerfjax/ops/hash_encode.py:335"),
-                           ("table_grad_scatter", "benchmarks/micro_onehot.py:99")):
+                           ("table_grad_scatter", "benchmarks/micro_onehot.py:99"),
+                           ("dense_levels_fwd", "benchmarks/micro_pallas_gather.py:97"),
+                           ("dense_levels_bwd", "benchmarks/micro_pallas_gather.py:71")):
         h = hstats[name]
         kernels.append({
             "name": name, "route": "cuda", "source": "nerfjax_torch/csrc/hash_encode.cu", "replaces": replaces,

@@ -1,7 +1,22 @@
-// Hashed levels of the multiresolution hash grid, forward and table
-// gradient, and the table-gradient scatter, for sm_90a.
+// The multiresolution hash grid's hashed and dense levels, forward and
+// table gradient, and the table-gradient scatter, for sm_90a.
 //
 // Replaces, from nerfjax:
+//   dense_levels_fwd   <- the Pallas kernel _dma_gather_fn
+//                         (benchmarks/micro_pallas_gather.py:97), the row
+//                         gather out[i] = tbl[idx[i]] that fetches a dense
+//                         cell's 8 corners x 2 planes (_packed_row_gather,
+//                         nerfjax/ops/hash_encode.py:457-468), with the
+//                         blend around it: the exact dense forward
+//                         _dense_levels_encode (:487-530) and the k = 1
+//                         stochastic one _dense_stoch_fwd (:727-741)
+//   dense_levels_bwd   <- the Pallas kernel _take_along_axis_probe
+//                         (benchmarks/micro_pallas_gather.py:71), the take
+//                         of the drawn level's cotangent in the dense
+//                         level-subset backward _dense_glv_bwd (:623-669),
+//                         with the staging of the dense table gradient
+//                         around it (exact, k = 1 _dense_stoch_bwd :744-763,
+//                         level subset) as K3's inputs
 //   hash_levels_fwd    <- the XLA forward _hash_levels_fwd
 //                         (nerfjax/ops/hash_encode.py:304-332): exact
 //                         8-corner trilinear sum, or the k = 1 dithered
@@ -38,6 +53,15 @@
 // per (level, point) in the forward, per (drawn level, point) in the
 // backward, positions and outputs coalesced along points, no shared-memory
 // staging, no sorting of indices. PERF.md has its times beside its bounds.
+//
+// The dense levels (K4, K5) are collision free and small: the tuned model's
+// five hold 753,488 entries, 6.0 MB in the two f32 planes, which stay in L2,
+// so K4 reads the planes in place (no per-step cell-row table: nerfjax
+// builds one because the TPU's gather pays per index) and is bound by its
+// positions in and its outputs out. K5 writes 12 bytes per (level, corner,
+// point): 94 MB per exact tuned step, its bound; fusing it into K3 would
+// save writing and reading them back. One thread per (level, point), or per
+// (drawn level, point).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,7 +71,9 @@ namespace {
 
 constexpr int MAX_LEVELS = 32;
 constexpr int THREADS = 256;
-constexpr uint32_t LEVEL_SALT = 0x85EBCA6Bu;  // nerfjax _LEVEL_SALT
+constexpr uint32_t LEVEL_SALT = 0x85EBCA6Bu;     // nerfjax _LEVEL_SALT
+constexpr uint32_t DENSE_SALT = 0x5BD1E995u;     // nerfjax _DENSE_SALT: the dense corner draws
+constexpr uint32_t DENSE_GL_SALT = 0x27D4EB2Fu;  // nerfjax _DENSE_GL_SALT: the dense level draws
 
 // Per hashed level: the lattice scale and the offset of its table relative
 // to the first hashed level. Passed by value (kernel parameter space).
@@ -69,13 +95,22 @@ __device__ __forceinline__ void lattice(float x, float s, int& i, float& t) {
   t = __fsub_rn(p, f);
 }
 
+// v rounded to the working type: bf16 (BF16) or f32 (unchanged). PyTorch's
+// bf16 ops compute in f32 and round each result once; so do the kernels.
+template <bool BF16>
+__device__ __forceinline__ float rnd(float v) {
+  return BF16 ? bf16_round(v) : v;
+}
+
 // trilinear weight of corner c = dx*4 + dy*2 + dz (nerfjax _CORNERS order),
-// evaluated as (wx*wy)*wz
+// evaluated as (wx*wy)*wz, every op rounded to the working type (tx, ty, tz
+// already are)
+template <bool BF16 = false>
 __device__ __forceinline__ float corner_weight(int c, float tx, float ty, float tz) {
-  float wx = (c & 4) ? tx : __fsub_rn(1.0f, tx);
-  float wy = (c & 2) ? ty : __fsub_rn(1.0f, ty);
-  float wz = (c & 1) ? tz : __fsub_rn(1.0f, tz);
-  return __fmul_rn(__fmul_rn(wx, wy), wz);
+  float wx = (c & 4) ? tx : rnd<BF16>(__fsub_rn(1.0f, tx));
+  float wy = (c & 2) ? ty : rnd<BF16>(__fsub_rn(1.0f, ty));
+  float wz = (c & 1) ? tz : rnd<BF16>(__fsub_rn(1.0f, tz));
+  return rnd<BF16>(__fmul_rn(rnd<BF16>(__fmul_rn(wx, wy)), wz));
 }
 
 __device__ __forceinline__ int64_t hash_index(int ix, int iy, int iz, int c, uint32_t mask) {
@@ -100,17 +135,11 @@ __device__ __forceinline__ float unit24(uint32_t h) {
   return __fmul_rn(static_cast<float>(h >> 8), 5.9604644775390625e-8f);
 }
 
-// The k = 1 plan of level l at (x, y, z): the hashed index (relative to the
-// first hashed level) of the one corner drawn with P(corner) = its weight.
-// cdf is the sequential f32 cumsum of the 8 weights; u is scaled by cdf[7]
-// and the corner is #{j < 7 : u >= cdf[j]} (_draw_corners with k = 1, j = 0).
-__device__ __forceinline__ int64_t plan_k1(const Levels& L, int l, uint32_t mask, float x,
-                                           float y, float z, uint32_t seed) {
-  int ix, iy, iz;
-  float tx, ty, tz;
-  lattice(x, L.scale[l], ix, tx);
-  lattice(y, L.scale[l], iy, ty);
-  lattice(z, L.scale[l], iz, tz);
+// The corner of level l drawn with P(corner) = its f32 weight from the
+// fractions tx, ty, tz: cdf is the sequential f32 cumsum of the 8 weights; u
+// is scaled by cdf[7] and the corner is #{j < 7 : u >= cdf[j]}
+// (_draw_corners with k = 1, j = 0; the salt is in seed).
+__device__ __forceinline__ int draw_corner(float tx, float ty, float tz, uint32_t seed, int l) {
   float cdf[8];
   float acc = corner_weight(0, tx, ty, tz);
   cdf[0] = acc;
@@ -124,7 +153,19 @@ __device__ __forceinline__ int64_t plan_k1(const Levels& L, int l, uint32_t mask
   int corner = 0;
 #pragma unroll
   for (int j = 0; j < 7; ++j) corner += (u >= cdf[j]) ? 1 : 0;
-  return hash_index(ix, iy, iz, corner, mask) + L.offset[l];
+  return corner;
+}
+
+// The k = 1 plan of hashed level l at (x, y, z): the hashed index (relative
+// to the first hashed level) of the drawn corner.
+__device__ __forceinline__ int64_t plan_k1(const Levels& L, int l, uint32_t mask, float x,
+                                           float y, float z, uint32_t seed) {
+  int ix, iy, iz;
+  float tx, ty, tz;
+  lattice(x, L.scale[l], ix, tx);
+  lattice(y, L.scale[l], iy, ty);
+  lattice(z, L.scale[l], iz, tz);
+  return hash_index(ix, iy, iz, draw_corner(tx, ty, tz, seed, l), mask) + L.offset[l];
 }
 
 // draw j of the level subset (_draw_levels): a level id in [0, Lh)
@@ -243,12 +284,171 @@ table_grad_scatter_kernel(const int32_t* __restrict__ idx, const float* __restri
   scatter_add2(out, out + T, T, idx[k], g0[k], g1[k]);
 }
 
+// -- the dense levels ---------------------------------------------------------
+//
+// Per dense level: lattice scale, resolution r and the offset of its r^3
+// table in the [2, total] planes. Dense levels are collision free: corner
+// (dx, dy, dz) of base cell (bx, by, bz) is entry (bx+dx) + (by+dy)*r +
+// (bz+dz)*r^2 of the level's table.
+struct DenseLevels {
+  float scale[MAX_LEVELS];
+  int res[MAX_LEVELS];
+  int64_t offset[MAX_LEVELS];
+};
+
+// floor(x*scale + 0.5) clamped to [0, r-2] and the fraction clipped to
+// [0, 1] (_dense_levels_encode's clamp semantics; f32, no contraction)
+__device__ __forceinline__ void dense_axis(float x, float s, int r, int& b, float& t) {
+  float p = __fadd_rn(__fmul_rn(x, s), 0.5f);
+  float f = fminf(fmaxf(floorf(p), 0.0f), static_cast<float>(r - 2));
+  b = static_cast<int>(f);
+  t = fminf(fmaxf(__fsub_rn(p, f), 0.0f), 1.0f);
+}
+
+__device__ __forceinline__ int64_t dense_index(const DenseLevels& L, int l, int bx, int by, int bz,
+                                               int c) {
+  int64_t r = L.res[l];
+  return L.offset[l] + (bx + ((c >> 2) & 1)) + (by + ((c >> 1) & 1)) * r + (bz + (c & 1)) * r * r;
+}
+
+template <bool BF16>
+__device__ __forceinline__ float load_g(const void* g, int64_t i) {
+  if (BF16) return __bfloat162float(static_cast<const __nv_bfloat16*>(g)[i]);
+  return static_cast<const float*>(g)[i];
+}
+
+// K4. planes: [2, total] f32 (the dense levels are its first columns).
+// out: [2, Ld, N], one thread per (level, point).
+//   exact (!K1): out in bf16 (BF16) or f32; the table value, the fractions,
+//     1 - t, (wx*wy)*wz, G*w and e + G*w each rounded to that type, the
+//     corners summed in _CORNERS order, as the plain version's ops round
+//   K1: f32 out; the one corner drawn with P = its clamped f32 weight
+//     (_stochastic_corner_plan(clamp=True, salt=_DENSE_SALT)), its table
+//     values rounded to bf16; sel (optional) [Ld, N] int32 receives the
+//     drawn entry
+template <bool BF16, bool K1>
+__global__ void __launch_bounds__(THREADS)
+dense_levels_fwd_kernel(const float* __restrict__ planes, int64_t total,
+                        const float* __restrict__ xs, const float* __restrict__ ys,
+                        const float* __restrict__ zs, int64_t N, int Ld, DenseLevels L,
+                        void* __restrict__ out, int32_t* __restrict__ sel) {
+  int64_t t = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+  if (t >= Ld * N) return;
+  int l = static_cast<int>(t / N);
+  int64_t n = t - l * N;
+  float x = xs[n], y = ys[n], z = zs[n];
+  int bx, by, bz;
+  float tx, ty, tz;
+  dense_axis(x, L.scale[l], L.res[l], bx, tx);
+  dense_axis(y, L.scale[l], L.res[l], by, ty);
+  dense_axis(z, L.scale[l], L.res[l], bz, tz);
+  const float* p0 = planes;
+  const float* p1 = planes + total;
+  if (K1) {
+    int64_t i = dense_index(L, l, bx, by, bz, draw_corner(tx, ty, tz, position_seed(x, y, z, DENSE_SALT), l));
+    float* o = static_cast<float*>(out);
+    o[t] = bf16_round(p0[i]);
+    o[Ld * N + t] = bf16_round(p1[i]);
+    if (sel != nullptr) sel[t] = static_cast<int32_t>(i);
+    return;
+  }
+  tx = rnd<BF16>(tx);
+  ty = rnd<BF16>(ty);
+  tz = rnd<BF16>(tz);
+  float e0 = 0.0f, e1 = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    int64_t i = dense_index(L, l, bx, by, bz, c);
+    float w = corner_weight<BF16>(c, tx, ty, tz);
+    e0 = rnd<BF16>(__fadd_rn(e0, rnd<BF16>(__fmul_rn(rnd<BF16>(p0[i]), w))));
+    e1 = rnd<BF16>(__fadd_rn(e1, rnd<BF16>(__fmul_rn(rnd<BF16>(p1[i]), w))));
+  }
+  if (BF16) {
+    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+    o[t] = __float2bfloat16_rn(e0);  // exact: e0 is a bf16 value
+    o[Ld * N + t] = __float2bfloat16_rn(e1);
+  } else {
+    float* o = static_cast<float*>(out);
+    o[t] = e0;
+    o[Ld * N + t] = e1;
+  }
+}
+
+// K5. The dense levels' table gradient as K3's inputs (idx int32, v0, v1
+// f32), each entry written at a fixed position (no atomics: deterministic).
+// g: the upstream gradient [2, Ld, N] in bf16 (BF16) or f32, plane stride
+// gs, level stride N.
+//   MODE 0 exact: one thread per (level, point), entry (l*8 + c)*N + n =
+//     corner c's g*w, formed in the working type as the forward's weights
+//   MODE 1 k = 1: one thread per (level, point), entry l*N + n = g at the
+//     corner the forward drew (the plan replayed from the position bits)
+//   MODE 2 level subset: one thread per (draw, point); draw r's level
+//     (_draw_levels with _DENSE_GL_SALT), its cotangent taken along the
+//     level axis (take_along_axis), entry (r*8 + c)*N + n = (w*g)*scale
+//     with f32 weights and scale = Ld/gd
+template <bool BF16, int MODE>
+__global__ void __launch_bounds__(THREADS)
+dense_levels_bwd_kernel(const void* __restrict__ g, int64_t gs, const float* __restrict__ xs,
+                        const float* __restrict__ ys, const float* __restrict__ zs, int64_t N,
+                        int Ld, int gd, float scale, DenseLevels L, int32_t* __restrict__ idx,
+                        float* __restrict__ v0, float* __restrict__ v1) {
+  int64_t t = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+  int64_t rows = MODE == 2 ? gd : Ld;
+  if (t >= rows * N) return;
+  int r = static_cast<int>(t / N);
+  int64_t n = t - r * N;
+  float x = xs[n], y = ys[n], z = zs[n];
+  int l = MODE == 2 ? draw_level(position_seed(x, y, z, DENSE_GL_SALT), r, Ld) : r;
+  float g0 = load_g<BF16>(g, l * N + n), g1 = load_g<BF16>(g, gs + l * N + n);
+  int bx, by, bz;
+  float tx, ty, tz;
+  dense_axis(x, L.scale[l], L.res[l], bx, tx);
+  dense_axis(y, L.scale[l], L.res[l], by, ty);
+  dense_axis(z, L.scale[l], L.res[l], bz, tz);
+  if (MODE == 1) {
+    int c = draw_corner(tx, ty, tz, position_seed(x, y, z, DENSE_SALT), l);
+    idx[t] = static_cast<int32_t>(dense_index(L, l, bx, by, bz, c));
+    v0[t] = g0;
+    v1[t] = g1;
+    return;
+  }
+  constexpr bool WBF16 = BF16 && MODE == 0;  // the level subset weights in f32
+  tx = rnd<WBF16>(tx);
+  ty = rnd<WBF16>(ty);
+  tz = rnd<WBF16>(tz);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    int64_t k = (static_cast<int64_t>(r) * 8 + c) * N + n;
+    float w = corner_weight<WBF16>(c, tx, ty, tz);
+    idx[k] = static_cast<int32_t>(dense_index(L, l, bx, by, bz, c));
+    if (MODE == 0) {
+      v0[k] = rnd<BF16>(__fmul_rn(g0, w));
+      v1[k] = rnd<BF16>(__fmul_rn(g1, w));
+    } else {
+      v0[k] = __fmul_rn(__fmul_rn(w, g0), scale);
+      v1[k] = __fmul_rn(__fmul_rn(w, g1), scale);
+    }
+  }
+}
+
 unsigned blocks(int64_t work) { return static_cast<unsigned>((work + THREADS - 1) / THREADS); }
 
 bool fill_levels(Levels& L, int Lh, const float* scales, const int64_t* offsets) {
   if (Lh < 1 || Lh > MAX_LEVELS) return false;
   for (int l = 0; l < Lh; ++l) {
     L.scale[l] = scales[l];
+    L.offset[l] = offsets[l];
+  }
+  return true;
+}
+
+bool fill_dense_levels(DenseLevels& L, int Ld, const float* scales, const int32_t* res,
+                       const int64_t* offsets) {
+  if (Ld < 1 || Ld > MAX_LEVELS) return false;
+  for (int l = 0; l < Ld; ++l) {
+    if (res[l] < 2) return false;
+    L.scale[l] = scales[l];
+    L.res[l] = res[l];
     L.offset[l] = offsets[l];
   }
   return true;
@@ -305,5 +505,57 @@ extern "C" int nerf_table_grad_scatter(const int32_t* idx, const float* g0, cons
                                        int64_t K, int64_t T, float* out, void* stream) {
   table_grad_scatter_kernel<<<blocks(K), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       idx, g0, g1, K, T, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// mode: 0 exact f32 out, 1 exact bf16 out, 2 k = 1 (f32 out, sel optional)
+extern "C" int nerf_dense_levels_fwd(const float* planes, int64_t total, const float* x,
+                                     const float* y, const float* z, int64_t N, int Ld,
+                                     const float* scales, const int32_t* res,
+                                     const int64_t* offsets, int mode, void* out, int32_t* sel,
+                                     void* stream) {
+  DenseLevels L;
+  if (!fill_dense_levels(L, Ld, scales, res, offsets) || mode < 0 || mode > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned nb = blocks(Ld * N);
+  if (mode == 0) {
+    dense_levels_fwd_kernel<false, false><<<nb, THREADS, 0, s>>>(planes, total, x, y, z, N, Ld, L, out, sel);
+  } else if (mode == 1) {
+    dense_levels_fwd_kernel<true, false><<<nb, THREADS, 0, s>>>(planes, total, x, y, z, N, Ld, L, out, sel);
+  } else {
+    dense_levels_fwd_kernel<false, true><<<nb, THREADS, 0, s>>>(planes, total, x, y, z, N, Ld, L, out, sel);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// mode: 0 exact, 1 k = 1, 2 gd drawn levels scaled by `scale`; g_bf16: g
+// holds bf16 (else f32)
+extern "C" int nerf_dense_levels_bwd(const void* g, int64_t gs, int g_bf16, const float* x,
+                                     const float* y, const float* z, int64_t N, int Ld,
+                                     const float* scales, const int32_t* res,
+                                     const int64_t* offsets, int mode, int gd, float scale,
+                                     int32_t* idx, float* v0, float* v1, void* stream) {
+  DenseLevels L;
+  if (!fill_dense_levels(L, Ld, scales, res, offsets) || mode < 0 || mode > 2 ||
+      (mode == 2 && gd < 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned nb = blocks((mode == 2 ? gd : Ld) * N);
+#define NERF_DENSE_BWD(B, M)                                                                \
+  dense_levels_bwd_kernel<B, M><<<nb, THREADS, 0, s>>>(g, gs, x, y, z, N, Ld, gd, scale, L, \
+                                                       idx, v0, v1)
+  if (g_bf16) {
+    if (mode == 0) NERF_DENSE_BWD(true, 0);
+    else if (mode == 1) NERF_DENSE_BWD(true, 1);
+    else NERF_DENSE_BWD(true, 2);
+  } else {
+    if (mode == 0) NERF_DENSE_BWD(false, 0);
+    else if (mode == 1) NERF_DENSE_BWD(false, 1);
+    else NERF_DENSE_BWD(false, 2);
+  }
+#undef NERF_DENSE_BWD
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,9 +36,10 @@ class HashGridSpec:
     """Static hash-grid shape. ``fwd_corners``, ``grad_corners``,
     ``grad_levels``, ``dense_corners`` and ``dense_grad_levels`` name
     nerfjax's train-only estimators (nerfjax ``fields/ngp.py:49-95``); the
-    port's encode takes the exact values (8, 8, 0, 8, 0) and the k = 1
+    port's encode takes the exact values (8, 8, 0, 8, 0), the k = 1
     hashed-level estimators (``fwd_corners``/``grad_corners`` 1, any
-    ``grad_levels``)."""
+    ``grad_levels``), any ``dense_grad_levels`` and ``dense_corners`` 1;
+    2..7 corners (leader + residual) are not ported."""
 
     n_levels: int = 16
     n_features: int = 2
@@ -109,6 +110,8 @@ class InstantNGP(nn.Module):
         grad_corners: int = 8,
         fwd_corners: int = 8,
         grad_levels: int = 0,
+        dense_corners: int = 8,
+        dense_grad_levels: int = 0,
         device: torch.device | str = "cpu",
     ):
         super().__init__()
@@ -127,7 +130,9 @@ class InstantNGP(nn.Module):
             per_level_scale=per_level_scale,
             grad_corners=grad_corners,
             fwd_corners=fwd_corners,
+            dense_corners=dense_corners,
             grad_levels=grad_levels,
+            dense_grad_levels=dense_grad_levels,
             extra_dense_levels=extra_dense_levels,
         )
         self.extra_dense_levels = extra_dense_levels

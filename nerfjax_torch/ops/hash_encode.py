@@ -3,8 +3,10 @@
 ``_hash_level_indices`` :72-100, ``_corner_weights`` :103-128, the k = 1
 plan ``_draw_corners``/``_select_drawn_indices``/``_draw_levels``/
 ``_level_subsample``/``_stochastic_corner_plan`` :131-290, the hashed-level
-custom VJP :293-409, ``_dense_levels_encode`` :487-530 and
-``hash_encode_planar`` :774-814).
+custom VJP :293-409, the dense levels: exact ``_dense_levels_encode``
+:487-530, level-subset backward ``_dense_levels_encode_glv`` :538-672, k = 1
+``_dense_levels_encode_stoch`` :679-766; and ``hash_encode_planar``
+:774-814).
 
 Semantics, not layout: nerfjax packs bf16 feature pairs into f32 words and
 builds dense-level cell-row tables because the TPU's gather pays per index.
@@ -17,7 +19,12 @@ matches nerfjax:
     sums in float32; the k = 1 plan (one corner per level and point, drawn
     with P = its weight from the f32 bits of the position) bit for bit;
   * dense levels: base cell clamped to ``[0, r-2]``, fraction clipped to
-    ``[0, 1]``, table values, weights and the corner sum in ``dtype``.
+    ``[0, 1]``, table values, weights and the corner sum in ``dtype``; under
+    ``dense_grad_levels`` = gd (0 < gd < Ld) the same forward and a backward
+    over gd levels drawn per point (salt ``_DENSE_GL_SALT``), f32 weights,
+    scaled Ld/gd; under ``dense_corners`` = 1 the k = 1 plan with clamped
+    weights (salt ``_DENSE_SALT``), bf16-rounded table values, float32 out.
+    ``dense_corners`` of 2..7 (leader + residual) is not ported.
 
 Kernels (CUDA C++ for sm_90a, ``nerfjax_torch/csrc/hash_encode.cu``, built
 by ``nerfjax_torch._build`` and called through ctypes on PyTorch's current
@@ -30,7 +37,14 @@ stream):
     planes, out-of-range indices dropped; the function of the Pallas
     kernels ``grad_onehot``/``grad_rowscatter`` (benchmarks/micro_onehot.py).
     The dense levels' table gradient goes through it, into the one
-    [2, total] gradient that K2 adds the hashed levels' into.
+    [2, total] gradient that K2 adds the hashed levels' into;
+  * ``dense_levels_fwd`` (K4): the dense levels' exact or k = 1 forward, the
+    cell-row gather of the Pallas kernel ``_dma_gather_fn``
+    (benchmarks/micro_pallas_gather.py) with the blend around it;
+  * ``dense_levels_bwd`` (K5): the dense levels' table gradient staged as
+    K3's (idx, v0, v1), exact, k = 1, or over gd drawn levels, whose
+    cotangent take is the Pallas kernel ``_take_along_axis_probe``'s
+    function.
 
 Beside each kernel stands its plain PyTorch version (``*_plain``). A wrapper
 takes the plain version only for tensors on the CPU; for a CUDA tensor it
@@ -55,8 +69,11 @@ from nerfjax_torch.fields.ngp import CORNERS, HASH_PRIMES, HashGridSpec
 
 M32 = 0xFFFFFFFF
 LEVEL_SALT = 0x85EBCA6B  # nerfjax _LEVEL_SALT: the level-subset draw family
+DENSE_SALT = 0x5BD1E995  # nerfjax _DENSE_SALT: the dense levels' corner draws
+DENSE_GL_SALT = 0x27D4EB2F  # nerfjax _DENSE_GL_SALT: the dense level-subset draws
 
-launch_counts = {"hash_levels_fwd": 0, "hash_levels_bwd": 0, "table_grad_scatter": 0}
+launch_counts = {"hash_levels_fwd": 0, "hash_levels_bwd": 0, "table_grad_scatter": 0,
+                 "dense_levels_fwd": 0, "dense_levels_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -82,10 +99,11 @@ def check_supported(spec: HashGridSpec) -> None:
             "only the exact (8) and k = 1 hashed-level estimators are ported; "
             "k >= 2 (leader + residual) is ROADMAP Queue 1 item 'k >= 2'"
         )
-    if spec.dense_corners < 8 or spec.dense_grad_levels > 0:
+    dense, _ = _split_levels(spec)
+    if dense and 1 < spec.dense_corners < 8:
         raise NotImplementedError(
-            "hash_dense_corners < 8 and hash_dense_grad_levels > 0 are not ported yet "
-            "(ROADMAP Queue 1 item 'the dense stochastic knobs')"
+            f"hash_dense_corners={spec.dense_corners}: only the exact (8) and k = 1 dense-level "
+            "estimators are ported; 2..7 (leader + residual) is ROADMAP Queue 1 item 'k >= 2'"
         )
 
 
@@ -97,6 +115,18 @@ def _bwd_mode(spec: HashGridSpec, Lh: int) -> tuple[int, int]:
         return 0, 0
     gl = spec.grad_levels
     return (2, gl) if 0 < gl < Lh else (1, 0)
+
+
+def _dense_mode(spec: HashGridSpec, Ld: int) -> tuple[int, int]:
+    """(mode, gd) of the dense levels, as ``hash_encode_planar`` branches:
+    1 k = 1 forward and backward (``dense_corners`` = 1; its backward
+    replays the plan, b = min(grad_corners, 1) = 1); else 2, the exact
+    forward with the backward over gd drawn levels, for 0 < gd < Ld; else
+    0 exact (a gd >= Ld is the exact path, unscaled)."""
+    if spec.dense_corners < 8:
+        return 1, 0
+    gd = spec.dense_grad_levels
+    return (2, gd) if 0 < gd < Ld else (0, 0)
 
 
 # -- the plan (plain torch) ---------------------------------------------------
@@ -208,6 +238,57 @@ def _plan_k1(spec: HashGridSpec, hashed: list[dict], x, y, z) -> torch.Tensor:
     return idx3.gather(1, c[:, None, :])[:, 0, :]
 
 
+def _dense_geometry(lp: dict, x, y, z, dtype):
+    """(base cell index [N] int64, tx, ty, tz [N] in dtype) of one dense level."""
+    r = lp["res"]
+    px, py, pz = x * lp["scale"] + 0.5, y * lp["scale"] + 0.5, z * lp["scale"] + 0.5
+    bx = torch.floor(px).clamp(0, r - 2)
+    by = torch.floor(py).clamp(0, r - 2)
+    bz = torch.floor(pz).clamp(0, r - 2)
+    tx = (px - bx).clamp(0.0, 1.0).to(dtype)
+    ty = (py - by).clamp(0.0, 1.0).to(dtype)
+    tz = (pz - bz).clamp(0.0, 1.0).to(dtype)
+    base = bx.to(torch.int64) + by.to(torch.int64) * r + bz.to(torch.int64) * (r * r)
+    return base, tx, ty, tz
+
+
+def _dense_corners(lp: dict, base, tx, ty, tz):
+    """Per corner (``CORNERS`` order): (flat table index, weight in tx's dtype)."""
+    r = lp["res"]
+    for dx, dy, dz in CORNERS:
+        wx = tx if dx else (1.0 - tx)
+        wy = ty if dy else (1.0 - ty)
+        wz = tz if dz else (1.0 - tz)
+        yield lp["offset"] + base + (dx + dy * r + dz * r * r), wx * wy * wz
+
+
+def _dense_corner_arrays(dense: list[dict], x, y, z, dtype):
+    """(idx [Ld, 8, N] int64 into the planes, w [Ld, 8, N] in dtype): every
+    dense level's corners in ``CORNERS`` order (nerfjax
+    ``_dense_level_indices`` and ``_corner_weights(clamp=True)``)."""
+    idx, w = [], []
+    for lp in dense:
+        i, wc = zip(*_dense_corners(lp, *_dense_geometry(lp, x, y, z, dtype)))
+        idx.append(torch.stack(i))
+        w.append(torch.stack(wc))
+    return torch.stack(idx), torch.stack(w)
+
+
+def _dense_plan_k1(dense: list[dict], x, y, z) -> torch.Tensor:
+    """The dense levels' k = 1 plan: [Ld, N] int64 entry of the corner drawn
+    with P = its clamped float32 weight (nerfjax ``_stochastic_corner_plan``
+    with k = 1, ``clamp=True``, ``salt=_DENSE_SALT``)."""
+    idx, w = _dense_corner_arrays(dense, x, y, z, torch.float32)
+    cdf = _sequential_cdf(list(w.unbind(1)))
+    c = _draw_corners(x, y, z, cdf, len(dense), 1, DENSE_SALT)[0]
+    return idx.gather(1, c[:, None, :])[:, 0, :]
+
+
+def _dense_width(dense: list[dict]) -> int:
+    """Columns of the planes the dense levels hold (they are a prefix)."""
+    return dense[-1]["offset"] + dense[-1]["size"]
+
+
 # -- plain versions -------------------------------------------------------------
 
 
@@ -271,6 +352,63 @@ def hash_levels_bwd_plain(spec: HashGridSpec, g: torch.Tensor, x, y, z, out: tor
     return table_grad_scatter_plain((idx + base).reshape(-1), v0.reshape(-1), v1.reshape(-1), out)
 
 
+def dense_levels_fwd_plain(spec: HashGridSpec, planes: torch.Tensor, x, y, z, dtype=torch.float32):
+    """(out [2, Ld, N], sel [Ld, N] int64 or None): the dense levels' exact
+    forward in ``dtype`` (every op rounds to it), or (``dense_corners`` = 1)
+    the k = 1 estimate in float32 from bf16-rounded table values, and its
+    plan."""
+    dense, _ = _split_levels(spec)
+    mode, _ = _dense_mode(spec, len(dense))
+    planes = planes[:, : _dense_width(dense)]
+    if mode == 1:
+        sel = _dense_plan_k1(dense, x, y, z)
+        tbl = planes.to(torch.bfloat16).to(torch.float32)
+        return torch.stack([tbl[0][sel], tbl[1][sel]]), sel
+    tbl = planes.to(dtype)
+    idx, w = _dense_corner_arrays(dense, x, y, z, dtype)
+    e0 = torch.zeros_like(w[:, 0])
+    e1 = torch.zeros_like(w[:, 0])
+    for c in range(8):
+        e0 = e0 + tbl[0][idx[:, c]] * w[:, c]
+        e1 = e1 + tbl[1][idx[:, c]] * w[:, c]
+    return torch.stack([e0, e1]), None
+
+
+def dense_levels_bwd_plain(spec: HashGridSpec, g: torch.Tensor, x, y, z, dtype=torch.float32):
+    """(idx [K] int32, v0, v1 [K] float32): K3's inputs for the dense levels'
+    table gradient from their upstream gradient g [2, Ld, N] (taken in
+    ``dtype``), entries in (row, corner, point) order:
+
+      * exact: K = Ld*8*N, each corner's g*w formed in ``dtype`` (the
+        product's VJP in nerfjax; ROADMAP Queue 3: nerfjax's bf16 row
+        scatter then accumulates in bf16, K3 in float32);
+      * k = 1: K = Ld*N, g at the planned corner (``_dense_stoch_bwd``);
+      * level subset: K = gd*8*N over gd levels drawn per point, the drawn
+        level's cotangent taken along the level axis (nerfjax's
+        take_along_axis), float32 weights, (w*g)*(Ld/gd) (``_dense_glv_bwd``).
+    """
+    dense, _ = _split_levels(spec)
+    Ld = len(dense)
+    mode, gd = _dense_mode(spec, Ld)
+    g = g.to(dtype)
+    if mode == 1:
+        idx = _dense_plan_k1(dense, x, y, z)
+        v0, v1 = g[0].to(torch.float32), g[1].to(torch.float32)
+    elif mode == 0:
+        idx, w = _dense_corner_arrays(dense, x, y, z, dtype)
+        v0 = (g[0][:, None, :] * w).to(torch.float32)
+        v1 = (g[1][:, None, :] * w).to(torch.float32)
+    else:
+        ids = _draw_levels(x, y, z, Ld, gd, DENSE_GL_SALT)  # [gd, N]
+        g32 = g.to(torch.float32)
+        g0, g1 = g32[0].gather(0, ids), g32[1].gather(0, ids)
+        rows = ids[:, None, :].expand(gd, 8, -1)
+        idx, w = (t.gather(0, rows) for t in _dense_corner_arrays(dense, x, y, z, torch.float32))
+        scale = float(np.float32(Ld / gd))
+        v0, v1 = (w * g0[:, None, :]) * scale, (w * g1[:, None, :]) * scale
+    return idx.reshape(-1).to(torch.int32), v0.reshape(-1), v1.reshape(-1)
+
+
 # -- kernels --------------------------------------------------------------------
 
 
@@ -284,7 +422,11 @@ def _lib() -> ctypes.CDLL:
     lib.nerf_hash_levels_fwd.argtypes = [vp, i64, i64, vp, vp, vp, i64, i32, vp, vp, u32, i32, vp, vp, vp]
     lib.nerf_hash_levels_bwd.argtypes = [vp, i64, i64, vp, vp, vp, i64, i32, vp, vp, u32, i32, i32, f32, vp, vp]
     lib.nerf_table_grad_scatter.argtypes = [vp, vp, vp, i64, i64, vp, vp]
-    for fn in (lib.nerf_hash_levels_fwd, lib.nerf_hash_levels_bwd, lib.nerf_table_grad_scatter):
+    lib.nerf_dense_levels_fwd.argtypes = [vp, i64, vp, vp, vp, i64, i32, vp, vp, vp, i32, vp, vp, vp]
+    lib.nerf_dense_levels_bwd.argtypes = [vp, i64, i32, vp, vp, vp, i64, i32, vp, vp, vp, i32, i32, f32,
+                                          vp, vp, vp, vp]
+    for fn in (lib.nerf_hash_levels_fwd, lib.nerf_hash_levels_bwd, lib.nerf_table_grad_scatter,
+               lib.nerf_dense_levels_fwd, lib.nerf_dense_levels_bwd):
         fn.restype = i32
     lib.nerf_hash_max_levels.argtypes, lib.nerf_hash_max_levels.restype = [], i32
     return lib
@@ -423,72 +565,105 @@ def table_grad_scatter(idx: torch.Tensor, g0: torch.Tensor, g1: torch.Tensor, ou
     return out
 
 
+def _dense_level_arrays(dense: list[dict]):
+    """(scales f32 [Ld], resolutions int32 [Ld], offsets int64 [Ld]) for the kernels."""
+    if len(dense) > _lib().nerf_hash_max_levels():
+        raise ValueError(f"{len(dense)} dense levels exceed the kernels' maximum")
+    return (np.array([lp["scale"] for lp in dense], np.float32), np.array([lp["res"] for lp in dense], np.int32),
+            np.array([lp["offset"] for lp in dense], np.int64))
+
+
+def _check_dtype(name: str, dtype: torch.dtype) -> None:
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: dtype must be float32 or bfloat16, got {dtype}")
+
+
+def dense_levels_fwd(spec: HashGridSpec, planes: torch.Tensor, x, y, z, dtype=torch.float32, *,
+                     sel: torch.Tensor | None = None) -> torch.Tensor:
+    """Dense-level forward -> [2, Ld, N] from the full [2, total] float32
+    planes and x, y, z [N] float32 in [0, 1]: the exact trilinear sum in
+    ``dtype``, or (``spec.dense_corners`` = 1) the k = 1 estimate in float32.
+
+    sel: optional [Ld, N] int32 that receives the k = 1 plan (entries of the
+    planes); the plain version fills it too.
+    """
+    dense, _ = _split_levels(spec)
+    if _device_kind("dense_levels_fwd", x) == "cpu":
+        out, plan = dense_levels_fwd_plain(spec, planes, x, y, z, dtype)
+        if sel is not None and plan is not None:
+            sel.copy_(plan)
+        return out
+    _check_dtype("dense_levels_fwd", dtype)
+    N = _check_positions("dense_levels_fwd", planes, x, y, z)
+    Ld = len(dense)
+    if planes.shape[1] < _dense_width(dense):
+        raise ValueError(f"dense_levels_fwd: planes hold {planes.shape[1]} columns, the dense levels "
+                         f"{_dense_width(dense)}")
+    k1 = _dense_mode(spec, Ld)[0] == 1
+    if sel is not None:
+        if not k1 or sel.shape != (Ld, N) or sel.dtype != torch.int32 or not sel.is_contiguous() \
+                or sel.device != x.device:
+            raise ValueError(f"dense_levels_fwd: sel must be a contiguous [{Ld}, {N}] int32 on "
+                             f"{x.device}, under dense_corners = 1")
+    out = torch.empty(2, Ld, N, dtype=torch.float32 if k1 else dtype, device=x.device)
+    if N:
+        scales, res, offsets = _dense_level_arrays(dense)
+        err = _lib().nerf_dense_levels_fwd(
+            planes.data_ptr(), planes.shape[1], x.data_ptr(), y.data_ptr(), z.data_ptr(), N, Ld,
+            scales.ctypes.data, res.ctypes.data, offsets.ctypes.data,
+            2 if k1 else int(dtype == torch.bfloat16), out.data_ptr(),
+            0 if sel is None else sel.data_ptr(), _stream(x),
+        )
+        _raise_if_failed("dense_levels_fwd", err)
+        launch_counts["dense_levels_fwd"] += 1
+    return out
+
+
+def dense_levels_bwd(spec: HashGridSpec, g: torch.Tensor, x, y, z, dtype=torch.float32):
+    """K3's inputs (idx [K] int32, v0, v1 [K] float32) for the dense levels'
+    table gradient from their upstream gradient g [2, Ld, N] (taken in
+    ``dtype``; each plane's [Ld, N] contiguous): exact, k = 1 (replaying the
+    forward's plan) or over ``spec.dense_grad_levels`` drawn levels scaled
+    Ld/gd, as ``dense_levels_bwd_plain`` describes."""
+    dense, _ = _split_levels(spec)
+    if _device_kind("dense_levels_bwd", x) == "cpu":
+        return dense_levels_bwd_plain(spec, g, x, y, z, dtype)
+    _check_dtype("dense_levels_bwd", dtype)
+    Ld, N = len(dense), x.shape[0]
+    g = g.to(dtype)
+    if g.shape != (2, Ld, N) or not g[0].is_contiguous():
+        raise ValueError(f"dense_levels_bwd: g must be [2, {Ld}, {N}] with contiguous planes, "
+                         f"got {tuple(g.shape)} strides {g.stride()}")
+    _check_cuda("dense_levels_bwd", {"x": x, "y": y, "z": z})
+    if g.device != x.device:
+        raise ValueError(f"dense_levels_bwd: g on {g.device}, x on {x.device}")
+    mode, gd = _dense_mode(spec, Ld)
+    K = {0: Ld * 8, 1: Ld, 2: gd * 8}[mode] * N
+    idx = torch.empty(K, dtype=torch.int32, device=x.device)
+    v0 = torch.empty(K, dtype=torch.float32, device=x.device)
+    v1 = torch.empty(K, dtype=torch.float32, device=x.device)
+    if N:
+        scales, res, offsets = _dense_level_arrays(dense)
+        scale = float(np.float32(Ld / gd)) if mode == 2 else 1.0
+        err = _lib().nerf_dense_levels_bwd(
+            g.data_ptr(), g.stride(0), int(dtype == torch.bfloat16), x.data_ptr(), y.data_ptr(),
+            z.data_ptr(), N, Ld, scales.ctypes.data, res.ctypes.data, offsets.ctypes.data, mode, gd,
+            scale, idx.data_ptr(), v0.data_ptr(), v1.data_ptr(), _stream(x),
+        )
+        _raise_if_failed("dense_levels_bwd", err)
+        launch_counts["dense_levels_bwd"] += 1
+    return idx, v0, v1
+
+
 # -- the encode, with its table gradient ----------------------------------------
 
 
-def _dense_geometry(lp: dict, x, y, z, dtype):
-    """(base cell index [N] int64, tx, ty, tz [N] in dtype) of one dense level."""
-    r = lp["res"]
-    px, py, pz = x * lp["scale"] + 0.5, y * lp["scale"] + 0.5, z * lp["scale"] + 0.5
-    bx = torch.floor(px).clamp(0, r - 2)
-    by = torch.floor(py).clamp(0, r - 2)
-    bz = torch.floor(pz).clamp(0, r - 2)
-    tx = (px - bx).clamp(0.0, 1.0).to(dtype)
-    ty = (py - by).clamp(0.0, 1.0).to(dtype)
-    tz = (pz - bz).clamp(0.0, 1.0).to(dtype)
-    base = bx.to(torch.int64) + by.to(torch.int64) * r + bz.to(torch.int64) * (r * r)
-    return base, tx, ty, tz
-
-
-def _dense_corners(lp: dict, base, tx, ty, tz):
-    """Per corner (``CORNERS`` order): (flat table index, weight in tx's dtype)."""
-    r = lp["res"]
-    for dx, dy, dz in CORNERS:
-        wx = tx if dx else (1.0 - tx)
-        wy = ty if dy else (1.0 - ty)
-        wz = tz if dz else (1.0 - tz)
-        yield lp["offset"] + base + (dx + dy * r + dz * r * r), wx * wy * wz
-
-
-def _dense_levels_encode(dense: list[dict], planes: torch.Tensor, x, y, z, dtype: torch.dtype) -> torch.Tensor:
-    """Exact dense-level encode -> [2, Ld, N] in ``dtype``."""
-    e0_rows, e1_rows = [], []
-    for lp in dense:
-        g = planes[:, lp["offset"] : lp["offset"] + lp["res"] ** 3].to(dtype)
-        base, tx, ty, tz = _dense_geometry(lp, x, y, z, dtype)
-        e0 = torch.zeros_like(tx)
-        e1 = torch.zeros_like(tx)
-        for idx, w in _dense_corners(lp, base, tx, ty, tz):
-            idx = idx - lp["offset"]
-            e0 = e0 + g[0][idx] * w
-            e1 = e1 + g[1][idx] * w
-        e0_rows.append(e0)
-        e1_rows.append(e1)
-    return torch.stack([torch.stack(e0_rows), torch.stack(e1_rows)])
-
-
-def _dense_scatter_inputs(dense: list[dict], g: torch.Tensor, x, y, z, dtype: torch.dtype):
-    """(idx [K] int32, v0, v1 [K] float32) of the dense levels' table
-    gradient from their upstream gradient g [2, Ld, N]: each corner's g*w is
-    formed in ``dtype`` (the product's VJP in nerfjax) and scattered in
-    float32 (ROADMAP Queue 3: nerfjax's bf16 row scatter accumulates in
-    bf16). K = Ld * 8 * N, levels and corners outermost."""
-    g = g.to(dtype)
-    idx, v0, v1 = [], [], []
-    for l, lp in enumerate(dense):
-        base, tx, ty, tz = _dense_geometry(lp, x, y, z, dtype)
-        for i, w in _dense_corners(lp, base, tx, ty, tz):
-            idx.append(i.to(torch.int32))
-            v0.append((g[0, l] * w).to(torch.float32))
-            v1.append((g[1, l] * w).to(torch.float32))
-    return torch.cat(idx), torch.cat(v0), torch.cat(v1)
-
-
 class _HashEncode(torch.autograd.Function):
-    """The encode -> [2, L, N] in ``dtype``: dense levels in plain torch,
-    hashed levels through K1 in float32, cast at the concat. The backward
-    zeroes one [2, total] float32 gradient, and K3 (the dense columns) and
-    K2 (the hashed columns) add into it."""
+    """The encode -> [2, L, N] in ``dtype``: dense levels through K4 (exact
+    in ``dtype``, k = 1 in float32), hashed levels through K1 in float32,
+    each cast at the concat. The backward zeroes one [2, total] float32
+    gradient; K5 stages the dense levels' table gradient, K3 adds it into
+    the dense columns and K2 the hashed levels' into the hashed columns."""
 
     @staticmethod
     def forward(ctx, planes, x, y, z, spec, dtype):
@@ -497,7 +672,7 @@ class _HashEncode(torch.autograd.Function):
         dense, hashed = _split_levels(spec)
         parts = []
         if dense:
-            parts.append(_dense_levels_encode(dense, planes, x, y, z, dtype))
+            parts.append(dense_levels_fwd(spec, planes, x, y, z, dtype).to(dtype))
         if hashed:
             parts.append(hash_levels_fwd(spec, planes, x, y, z).to(dtype))
         return torch.cat(parts, dim=1)
@@ -506,10 +681,10 @@ class _HashEncode(torch.autograd.Function):
     def backward(ctx, g):
         x, y, z = ctx.saved_tensors
         dense, hashed = _split_levels(ctx.spec)
+        g = g.contiguous()
         grad = torch.zeros(2, ctx.total, dtype=torch.float32, device=x.device)
         if dense:
-            idx, v0, v1 = _dense_scatter_inputs(dense, g[:, : len(dense)], x, y, z, ctx.dtype)
-            table_grad_scatter(idx, v0, v1, grad)
+            table_grad_scatter(*dense_levels_bwd(ctx.spec, g[:, : len(dense)], x, y, z, ctx.dtype), grad)
         if hashed:
             g_hashed = g[:, len(dense) :].to(torch.float32).contiguous()
             hash_levels_bwd(ctx.spec, g_hashed, x, y, z, grad)

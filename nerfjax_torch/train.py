@@ -10,12 +10,13 @@ in ``precision`` (bf16 matmuls with float32 parameters), compositing and
 the MSE loss run in float32, the backward runs the hashed levels' gradient
 kernel, and AdamW steps with the OneCycle learning rate.
 
-Ported: the tuned single-pass NGP path (``cfg/blender_scene_tuned.yml``).
+Ported: the tuned single-pass NGP path (``cfg/blender_scene_tuned.yml``),
+also with ``hash_dense_grad_levels`` > 0 or ``hash_dense_corners: 1``.
 Not ported, each raising ``NotImplementedError``: the coarse->pdf->fine
 render (``single_pass: false``), ``hash_fwd_corners``/``hash_grad_corners``
-of 2..7, ``hash_dense_corners`` < 8, ``hash_dense_grad_levels`` > 0,
-``occ_fast_cdf: false``, vanilla NeRF (``ngp: false``) and more than one
-card (``mesh_shape``, ``shard_hash_table``).
+and ``hash_dense_corners`` of 2..7, ``occ_fast_cdf: false``, vanilla NeRF
+(``ngp: false``) and more than one card (``mesh_shape``,
+``shard_hash_table``).
 
 Randomness: nerfjax folds the step into its key (``fold_in(key, step)``),
 so a resumed run draws what an uninterrupted one would. The port reseeds
@@ -48,7 +49,8 @@ def build_fields(cfg: Mapping, train: bool = False, device="cpu"):
     load a checkpoint or call ``init``.
 
     ``train=True`` applies the train-only estimators of the config
-    (``hash_fwd_corners``, ``hash_grad_corners``, ``hash_grad_levels``) and
+    (``hash_fwd_corners``, ``hash_grad_corners``, ``hash_grad_levels``,
+    ``hash_dense_corners``, ``hash_dense_grad_levels``) and
     makes the parameters require gradients; every other caller gets the
     exact forward.
     """
@@ -122,6 +124,8 @@ def build_fields(cfg: Mapping, train: bool = False, device="cpu"):
         grad_corners=grad_corners if train else 8,
         fwd_corners=fwd_corners,
         grad_levels=grad_levels,
+        dense_corners=dense_corners,
+        dense_grad_levels=dense_grad_levels,
         device=device,
     )
     if train:

@@ -85,12 +85,14 @@ def test_hash_encode_bf16_matches_nerfjax():
     assert np.abs(et - ej).max() <= bound
 
 
-@pytest.mark.parametrize("field", ["fwd_corners", "dense_corners", "dense_grad_levels"])
+@pytest.mark.parametrize("field", ["fwd_corners", "dense_corners", "dense_corners_7"])
 def test_train_only_encoders_raise(field):
-    # the k = 1 hashed forward is ported (tests/test_torch_hash_grad.py);
-    # k >= 2 and the dense estimators are not
-    value = {"fwd_corners": 2, "dense_corners": 1, "dense_grad_levels": 1}[field]
-    spec = HashGridSpec(n_levels=4, log2_hashmap_size=15, **{field: value})
+    # the k = 1 hashed and dense estimators and the dense level subset are
+    # ported (tests/test_torch_hash_grad.py, test_torch_dense_encode.py);
+    # k >= 2 (leader + residual) is not
+    name, value = {"fwd_corners": ("fwd_corners", 2), "dense_corners": ("dense_corners", 2),
+                   "dense_corners_7": ("dense_corners", 7)}[field]
+    spec = HashGridSpec(n_levels=4, log2_hashmap_size=15, **{name: value})
     x = torch.zeros(4)
     with pytest.raises(NotImplementedError):
         hash_encode_planar(spec, torch.zeros(2, spec.total_table_size), x, x, x)

@@ -157,14 +157,75 @@ def test_table_grad_scatter_matches_plain_and_drops(cuda_device):
         hash_encode.table_grad_scatter(idx, g0, g1, torch.zeros(T, 2, device=cuda_device).t())
 
 
-def test_train_step_launches_the_kernels(cuda_device):
-    """A tuned-estimator step on the card goes through K1, K2 and K3."""
+DENSE_MODES = {"exact": {}, "dgl1": dict(dense_grad_levels=1), "dgl2": dict(dense_grad_levels=2),
+               "dc1": dict(dense_corners=1)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["exact", "dc1"])
+@pytest.mark.parametrize("N", [1, 100_003])
+def test_dense_levels_fwd_matches_plain(cuda_device, dtype, mode, N):
+    """K4 equals its plain version bit for bit (every bf16 op rounded as
+    PyTorch rounds it; no contraction); under k = 1 its plan equals the
+    plain plan."""
+    spec = HashGridSpec(**TUNED, **DENSE_MODES[mode])
+    rng = np.random.default_rng(27)
+    planes = torch.from_numpy(rng.uniform(-1, 1, (2, spec.total_table_size)).astype(np.float32)).to(cuda_device)
+    x, y, z = _positions(N, 28, cuda_device)
+    Ld = len(hash_encode._split_levels(spec)[0])
+    sel = torch.empty(Ld, N, dtype=torch.int32, device=cuda_device) if mode == "dc1" else None
+    before = hash_encode.launch_counts["dense_levels_fwd"]
+    got = hash_encode.dense_levels_fwd(spec, planes, x, y, z, dtype, sel=sel)
+    ref, plan = hash_encode.dense_levels_fwd_plain(spec, planes, x, y, z, dtype)
+    torch.cuda.synchronize()
+    assert hash_encode.launch_counts["dense_levels_fwd"] == before + 1
+    assert got.dtype == ref.dtype and torch.equal(got, ref)
+    if mode == "dc1":
+        assert torch.equal(sel.long(), plan)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", list(DENSE_MODES))
+def test_dense_levels_bwd_matches_plain(cuda_device, dtype, mode):
+    """K5 equals its plain version with torch.equal (fixed positions, no
+    atomics); K3 on its output within the atomic-order bound of the plain
+    scatter, 2 * max(n, 8) * 2^-24 * sum|terms| per entry of n terms (two
+    f32 sums of the same terms in any order lie within it)."""
+    spec = HashGridSpec(**TUNED, **DENSE_MODES[mode])
+    Ld = len(hash_encode._split_levels(spec)[0])
+    N, total = 100_003, spec.total_table_size
+    x, y, z = _positions(N, 29, cuda_device)
+    g = torch.from_numpy(np.random.default_rng(30).normal(size=(2, Ld, N)).astype(np.float32)).to(cuda_device, dtype)
+    before = hash_encode.launch_counts["dense_levels_bwd"]
+    got = hash_encode.dense_levels_bwd(spec, g, x, y, z, dtype)
+    ref = hash_encode.dense_levels_bwd_plain(spec, g, x, y, z, dtype)
+    torch.cuda.synchronize()
+    assert hash_encode.launch_counts["dense_levels_bwd"] == before + 1
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    zeros = lambda: torch.zeros(2, total, device=cuda_device)  # noqa: E731
+    idx, v0, v1 = got
+    scattered = hash_encode.table_grad_scatter(idx, v0, v1, zeros())
+    plain = hash_encode.table_grad_scatter_plain(idx, v0, v1, zeros())
+    mass = hash_encode.table_grad_scatter_plain(idx, v0.abs(), v1.abs(), zeros())
+    one = torch.ones_like(v0)
+    count = hash_encode.table_grad_scatter_plain(idx, one, one, zeros())
+    bound = 2.0 * count.clamp_min(8.0) * 2.0**-24 * mass + 1e-30
+    assert bool(((scattered - plain).abs() <= bound).all())
+    dense_cols = hash_encode._dense_width(hash_encode._split_levels(spec)[0])
+    assert scattered[:, dense_cols:].abs().max() == 0
+
+
+@pytest.mark.parametrize("knob", [{}, {"hash_dense_grad_levels": 1}, {"hash_dense_corners": 1}])
+def test_train_step_launches_the_kernels(cuda_device, knob):
+    """A tuned-estimator step on the card goes through K1-K5, also with
+    either dense knob."""
     from nerfjax_torch.train import TrainSettings, make_train_state, train_step
 
     cfg = {"ngp": True, "nerf_type": "small", "hash_n_levels": 8, "hash_extra_dense_levels": 1,
            "single_pass": True, "occupancy_grid": True, "occ_fast_cdf": True, "occ_resolution": 16,
            "occ_segments": 8, "occ_update_partitions": 4, "N_samples": 8, "N_importance": 16,
-           "hash_fwd_corners": 1, "hash_grad_corners": 1, "hash_grad_levels": 2}
+           "hash_fwd_corners": 1, "hash_grad_corners": 1, "hash_grad_levels": 2, **knob}
     state = make_train_state(cfg, TrainSettings.from_cfg(cfg, 10), device=cuda_device)
     rng = np.random.default_rng(26)
     o = rng.normal(size=(64, 3)).astype(np.float32)

@@ -98,8 +98,8 @@ def test_default_device_needs_a_card(tmp_path, monkeypatch):
         train(_cfg(tmp_path))
 
 
-@pytest.mark.parametrize("over", [{"single_pass": False}, {"hash_fwd_corners": 2}, {"hash_dense_corners": 1},
-                                  {"hash_dense_grad_levels": 1}, {"occ_fast_cdf": False}, {"ngp": False, "single_pass": False},
+@pytest.mark.parametrize("over", [{"single_pass": False}, {"hash_fwd_corners": 2}, {"hash_dense_corners": 2},
+                                  {"hash_dense_corners": 7}, {"occ_fast_cdf": False}, {"ngp": False, "single_pass": False},
                                   {"mesh_shape": [1, 1]}])
 def test_unported_options_raise(tmp_path, over):
     with pytest.raises(NotImplementedError):

@@ -46,6 +46,8 @@ CASES = {
     "fp32": {"precision": "fp32"},
     "fp32_twin": {"precision": "fp32", "dist_last": 1e6, "grad_clip": 1.0},
     "bf16": {},
+    "bf16_dgl1": {"hash_dense_grad_levels": 1},
+    "bf16_dc1": {"hash_dense_corners": 1},
 }
 
 
@@ -90,7 +92,7 @@ def test_train_step_matches_nerfjax(case, batch):
     and 5e-2 x lr (bf16) absolute, at entries where |g| > 1e-6.
     """
     cfg = {**CFG, **CASES[case]}
-    bf16 = case == "bf16"
+    bf16 = case.startswith("bf16")
     settings_j = JaxSettings.from_cfg(ConfigNode(cfg), total_steps=100)
     fc, ff, _ = jax_build_fields(ConfigNode(cfg), train=True)
     key = jax.random.PRNGKey(7)
