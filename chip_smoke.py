@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of nerfjax_torch on one CUDA card, at the full width of the
-tuned model (cfg/blender_scene_tuned.yml): the extraction path (checkpoint
--> 512^3 volume.pth) and the training path (ray NPZ -> tuned single-pass
-train steps -> nerf_final.pth).
+models of cfg/blender_scene_tuned.yml and cfg/blender_scene.yml: the
+extraction path (checkpoint -> 512^3 volume.pth), the training paths (ray
+NPZ -> tuned single-pass train steps, and the drop-in coarse->pdf->fine
+steps -> nerf_final.pth), held-out eval rendering, and micro_probe.py's
+probes.
 
     python3 chip_smoke.py
 
@@ -50,12 +52,38 @@ final line:
      CPU, with the same draws: the tuned estimators, then with each dense
      knob.
 
-The last two lines are a JSON object with each kernel's launches, error,
-times and bound, then {"ok": true, "device": {...}}. Imports nothing of JAX.
+Added for the hierarchical path, each printed as it ends:
+
+  P. micro_probe.py's entry point through nerfjax_torch.probes.main on the
+     card (after phase 6); then its six kernels against their plain
+     versions (equal; the dots within K*2^-24*sum|a||b|), timed beside
+     their bounds and torch.matmul / x.t().to(float32) where one call
+     computes the same function;
+  7c. drop-in training at full width: cfg/blender_scene.yml's model and
+     training keys (NGP-large, 16 levels: 4 dense + 12 hashed, E = 32;
+     64 + 128 samples, no grid, exact, bf16, batch 8192) through train()
+     for 128 steps on phase 7's NPZ: PSNR, NaNs, the coarse loss, K1-K5
+     launched twice per step; a warm median, the split by stage, the idle
+     share, peak memory; every hash kernel on one warm step's inputs (each
+     pass) against its plain version, timed at the fine pass;
+  8b. eval rendering: render_image of phase 7's trained ball and of the
+     drop-in trained ball (E = 32) on the card at 256 x 256 from 3 held-out
+     orbit poses, at 64 + 128 (PSNR against the analytic ball >= 25 dB;
+     head kernel launched; rays/s) and at the tuned 8 + 16 (printed); the
+     head, K1 and K4 against their plain versions on the 64 + 128
+     render's own calls (each pass), the head timed at the fine pass;
+  9b. one drop-in step at the CPU tests' small size and one 32 x 32 render
+     in float32, card against CPU, with the same draws.
+
+The last two lines are a JSON object with each kernel's launches (summed
+over the main paths: the 512^3 extraction, both train() runs, the eval
+render, the probe entry point), error, times and bound, then
+{"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -391,7 +419,7 @@ def hash_kernels_vs_plain() -> dict:
     spec, on seeded inputs: K1 timed (runs p, k, k, p) at the extraction's
     and the train step's shapes; K3 also timed at the micro-benchmark's
     shape (an extra line). K2 and K3 are timed at the step's own inputs in
-    scatters_at_step_shapes."""
+    step_kernels_vs_plain."""
     import torch
 
     from nerfjax_torch.ops import hash_encode as he
@@ -445,8 +473,7 @@ def hash_kernels_vs_plain() -> dict:
         got = he.hash_levels_bwd(spec, g, x, y, z, _zeros2(total))
         ref = he.hash_levels_bwd_plain(spec, g, x, y, z, _zeros2(total))
         mass = he.hash_levels_bwd_plain(spec, g.abs(), x, y, z, _zeros2(total))
-        count = he.hash_levels_bwd_plain(spec, torch.ones_like(g), x, y, z, _zeros2(total))
-        err = _check_scatter(f"hash_levels_bwd {label}", got, ref, mass, count)
+        err = _check_scatter(f"hash_levels_bwd {label}", got, ref, mass, _k2_count(spec, g, x, y, z, total))
         if got[:, :base].abs().max() != 0:
             raise AssertionError(f"hash_levels_bwd {label} wrote outside the hashed columns")
         stats["hash_levels_bwd"]["max_abs_err"] = max(stats["hash_levels_bwd"]["max_abs_err"], err)
@@ -519,7 +546,7 @@ def dense_kernels_vs_plain(stats: dict) -> None:
     k = 1 with its plan; K5 exact in bf16 and f32, over 1 and 2 drawn
     levels and k = 1, with torch.equal, and K3 on each K5 output within the
     atomic-order bound. The kernels line takes K4's and K5's times at the
-    train step's own inputs (dense_at_step_shapes)."""
+    train step's own inputs (step_kernels_vs_plain)."""
     import torch
 
     from nerfjax_torch.ops import hash_encode as he
@@ -593,13 +620,30 @@ def _zeros2(T: int):
     return torch.zeros(2, T, device="cuda")
 
 
+def _k2_count(spec, g, x, y, z, total: int):
+    """Terms per entry ([2, total] float32) of K2's scatter. In the exact
+    mode each point adds one term per level and corner, weighted, so unit
+    inputs would sum the weights, not count the terms: count the corner
+    indices. In the k = 1 modes unit inputs count them (scaled by Lh/gl
+    over drawn levels: a looser bound)."""
+    import torch
+
+    from nerfjax_torch.ops import hash_encode as he
+
+    _, hashed = he._split_levels(spec)
+    if he._bwd_mode(spec, len(hashed))[0] != 0:
+        return he.hash_levels_bwd_plain(spec, torch.ones_like(g), x, y, z, _zeros2(total))
+    idx = (torch.stack(he._hash_level_indices(spec, hashed, x, y, z)) + hashed[0]["offset"]).reshape(-1)
+    one = torch.ones(idx.shape[0], device=idx.device)
+    return he.table_grad_scatter_plain(idx, one, one, _zeros2(total))
+
+
 def _check_scatter(label: str, got, ref, mass, count) -> float:
     """max |got - ref| of two table gradients summed by atomics in a free
     order, held per entry to 2 * max(n, 8) * 2^-24 * sum|terms|, n the
-    entry's terms (counted with unit inputs): an f32 sum of n terms in any
-    order lies within (n - 1) * 2^-24 * sum|terms| of the exact sum, so two
-    such sums within twice that; n is taken at no less than 8, the exact
-    backward's corners, whose unit-input count sums weights."""
+    entry's terms (``count``; ``_k2_count`` for K2): an f32 sum of n terms
+    in any order lies within (n - 1) * 2^-24 * sum|terms| of the exact sum,
+    so two such sums within twice that."""
     bound = 2.0 * count.clamp_min(8.0) * 2.0**-24 * mass + 1e-30
     err = (got - ref).abs()
     if not bool((err <= bound).all()):
@@ -607,7 +651,7 @@ def _check_scatter(label: str, got, ref, mass, count) -> float:
     return float(err.max())
 
 
-def _time_kernel(kern, plain, library, bound) -> dict:
+def _time_kernel(kern, plain, library, bound, library_name: str = "index_add_") -> dict:
     """Device ms per call (_time_ms) of a kernel's wrapper and its plain
     version (runs p, k, k, p), of its one-call library yardstick where
     there is one (runs l, l), beside its bound (or None); and the wrapper's
@@ -615,13 +659,13 @@ def _time_kernel(kern, plain, library, bound) -> dict:
     runs = (_time_ms(plain), _time_ms(kern), _time_ms(kern), _time_ms(plain))
     lib = (_time_ms(library), _time_ms(library)) if library is not None else ()
     return {"ms": (runs[1] + runs[2]) / 2, "plain_ms": (runs[0] + runs[3]) / 2,
-            "library_ms": sum(lib) / 2 if lib else None, "bound": bound, "runs": runs + lib,
-            "wall_ms": _wall_ms(kern)}
+            "library_ms": sum(lib) / 2 if lib else None, "library_name": library_name, "bound": bound,
+            "runs": runs + lib, "wall_ms": _wall_ms(kern)}
 
 
 def _timing_line(t: dict) -> str:
     r = ", ".join(f"{v * 1e3:.1f}" for v in t["runs"])
-    lib = "" if t["library_ms"] is None else f", index_add_ {t['library_ms'] * 1e3:.1f} us"
+    lib = "" if t["library_ms"] is None else f", {t['library_name']} {t['library_ms'] * 1e3:.1f} us"
     order = "p,k,k,p,l,l" if t["library_ms"] is not None else "p,k,k,p"
     bound = "" if t["bound"] is None else f", bound {t['bound'][0] * 1e3:.1f} us ({t['bound'][1]})"
     return (f"device: kernel {t['ms'] * 1e3:.1f} us, plain {t['plain_ms'] * 1e3:.1f} us{lib} per call "
@@ -631,149 +675,184 @@ def _timing_line(t: dict) -> str:
 STEP_KERNELS = ("dense_levels_fwd", "dense_levels_bwd", "hash_levels_bwd", "table_grad_scatter")
 
 
-def capture_step_inputs(state, batch) -> dict:
-    """The arguments that K4, K5, K2 and K3 get in one warm train step (the
-    last call of each): the step's own positions, table, plan and upstream
-    gradients."""
+@contextlib.contextmanager
+def _recorded(*targets):
+    """Within the block each (module, name) of ``targets`` records its
+    calls. Yields {N: {name: (args, kwargs) of its last call at N}}: N is
+    the call's point count, the last dimension of its third argument (x of
+    the hash-encode wrappers, sh of the head); table_grad_scatter, which
+    takes no positions, is filed under the N of the call before it, the
+    dense-level staging whose entries it adds."""
+    seen, wrapped, n = {}, [], [None]
+    for module, name in targets:
+        fn = getattr(module, name)
+
+        def record(*args, _name=name, _fn=fn, **kw):
+            if _name != "table_grad_scatter":
+                n[0] = args[2].shape[-1]
+            seen.setdefault(n[0], {})[_name] = (args, kw)
+            return _fn(*args, **kw)
+
+        wrapped.append((module, name, fn))
+        setattr(module, name, record)
+    try:
+        yield seen
+    finally:
+        for module, name, fn in wrapped:
+            setattr(module, name, fn)
+
+
+def capture_step_inputs(state, batch, names=STEP_KERNELS) -> dict:
+    """The arguments that the named hash-encode wrappers (K4, K5, K2 and K3
+    by default) get in one warm train step, {N: {name: args}}: one entry
+    for each field pass of N points (the single-pass step has one, the
+    two-pass step a coarse and a fine one), with the step's own positions,
+    table, plan and upstream gradients. The encode of an occupancy update,
+    which has no backward, is left out."""
     from nerfjax_torch.ops import hash_encode as he
     from nerfjax_torch.train import train_step
 
-    seen, wrapped = {}, {}
-    for name in STEP_KERNELS:
-        wrapped[name] = getattr(he, name)
-
-        def record(*args, _name=name, **kw):
-            seen[_name] = args
-            return wrapped[_name](*args, **kw)
-
-        setattr(he, name, record)
-    try:
+    with _recorded(*((he, name) for name in names)) as seen:
         train_step(state, batch)
-    finally:
-        for name, fn in wrapped.items():
-            setattr(he, name, fn)
-    if seen.keys() != wrapped.keys():
-        raise AssertionError(f"the step called {sorted(seen)} of {STEP_KERNELS}")
-    return seen
+    passes = {N: {name: args for name, (args, _) in calls.items()}
+              for N, calls in seen.items() if calls.keys() == set(names)}
+    if not passes:
+        raise AssertionError(f"no field pass of the step called all of {names}: {[sorted(c) for c in seen.values()]}")
+    return passes
 
 
-def scatters_at_step_shapes(cap: dict, stats: dict) -> None:
-    """K2 and K3 on the inputs of one warm tuned step (capture_step_inputs)
-    against their plain versions, and timed. Each timed call zeroes the
-    function's own output, the columns its levels own in a [2, total]
-    buffer (K3: the dense levels; K2: the hashed levels), and adds into
-    it, as the encode's backward does with its one gradient."""
+def step_kernels_vs_plain(cap: dict, label: str, stats: dict, timed=()) -> dict:
+    """The hash kernels on the arguments they got in one field pass of a
+    warm train step (one entry of capture_step_inputs), each that was
+    captured: K1 and K4 equal to their plain versions, K5 equal with every
+    staged entry handed to K3, K3 and K2 within the atomic-order bound;
+    the worst errors folded into ``stats``. The kernels named in ``timed``
+    are timed beside their bounds (K3 also beside index_add_); a timed
+    scatter zeroes the columns its levels own in a [2, total] buffer and
+    adds into it, as the encode's backward does with its one gradient.
+    Returns {name: timing}."""
     import torch
 
     from nerfjax_torch.ops import hash_encode as he
 
-    spec, g, x, y, z, step_grad = cap["hash_levels_bwd"]
-    idx, v0, v1, _ = cap["table_grad_scatter"]
-    total = step_grad.shape[1]
-    _, hashed = he._split_levels(spec)
-    base, Lh, N, K = hashed[0]["offset"], len(hashed), x.shape[0], idx.shape[0]
+    spec = next(args[0] for name, args in cap.items() if name != "table_grad_scatter")
+    dense, hashed = he._split_levels(spec)
+    Ld, Lh, base, total = len(dense), len(hashed), hashed[0]["offset"], spec.total_table_size
     buf = torch.empty(2, total, device="cuda")
+    out, checked = {}, []
 
-    got = he.table_grad_scatter(idx, v0, v1, _zeros2(total))
-    ref = he.table_grad_scatter_plain(idx, v0, v1, _zeros2(total))
-    one = torch.ones_like(v0)
-    mass = he.table_grad_scatter_plain(idx, v0.abs(), v1.abs(), _zeros2(total))
-    count = he.table_grad_scatter_plain(idx, one, one, _zeros2(total))
-    err = _check_scatter("table_grad_scatter (step)", got, ref, mass, count)
-    hits = torch.bincount(idx.long(), minlength=total)[:base]
-    if got[:, base:].abs().max() != 0 or int(hits.sum()) != K:
-        raise AssertionError("the dense-level gradient reached outside the dense columns")
-    stats["table_grad_scatter"]["max_abs_err"] = max(stats["table_grad_scatter"]["max_abs_err"], err)
-    dense, vv = buf[:, :base], torch.stack([v0, v1])
+    def fold(name, err):
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
 
-    def k3():
-        dense.zero_()
-        he.table_grad_scatter(idx, v0, v1, buf)
+    def timing(name, kern, plain, library, bound):  # bound: a function, called only when timed
+        if name in timed:
+            out[name] = _time_kernel(kern, plain, library, bound())
 
-    def p3():
-        dense.zero_()
-        he.table_grad_scatter_plain(idx, v0, v1, buf)
+    def zeroed(cols, fn):
+        def run():
+            cols.zero_()
+            fn()
+        return run
 
-    def l3():
-        dense.zero_()
-        buf.index_add_(1, idx, vv)
+    if "hash_levels_fwd" in cap:
+        _, planes, x, y, z = cap["hash_levels_fwd"][:5]
+        planes, N = planes.detach(), x.shape[0]
+        ref, plan = he.hash_levels_fwd_plain(spec, planes, x, y, z)
+        if not torch.equal(he.hash_levels_fwd(spec, planes, x, y, z), ref):
+            raise AssertionError(f"hash_levels_fwd ({label}): kernel != plain")
+        fold("hash_levels_fwd", 0.0)
 
-    t = _time_kernel(k3, p3, l3, _bound(12 * K + 8 * base, 2 * K))
-    stats["table_grad_scatter"].update(t)
-    phase(f"table_grad_scatter at the step's dense-level gradient (K={K:,} = {K // N} level-corners x {N:,} points "
-          f"into {base:,} dense entries; at most {int(hits.max()):,} adds to one entry, median "
-          f"{int(hits[hits > 0].median())}): kernel == plain within the atomic-order bound, max |err| {err:.3g}")
-    phase("  " + _timing_line(t))
+        def k1_bound():
+            idx = torch.stack(he._hash_level_indices(spec, hashed, x, y, z)) if plan is None else plan
+            ops = (110 if plan is None else 80) * Lh * N
+            return _bound(8 * torch.unique(idx).numel() + 12 * N + 8 * Lh * N, ops)
 
-    got = he.hash_levels_bwd(spec, g, x, y, z, _zeros2(total))
-    ref = he.hash_levels_bwd_plain(spec, g, x, y, z, _zeros2(total))
-    mass = he.hash_levels_bwd_plain(spec, g.abs(), x, y, z, _zeros2(total))
-    count = he.hash_levels_bwd_plain(spec, torch.ones_like(g), x, y, z, _zeros2(total))
-    err = _check_scatter("hash_levels_bwd (step)", got, ref, mass, count)
-    stats["hash_levels_bwd"]["max_abs_err"] = max(stats["hash_levels_bwd"]["max_abs_err"], err)
-    ids = he._draw_levels(x, y, z, Lh, spec.grad_levels, he.LEVEL_SALT)
-    pairs = torch.unique(ids * N + torch.arange(N, device="cuda")).numel()
-    hashed_cols = buf[:, base:]
+        timing("hash_levels_fwd", lambda: he.hash_levels_fwd(spec, planes, x, y, z),
+               lambda: he.hash_levels_fwd_plain(spec, planes, x, y, z), None, k1_bound)
+        checked.append(f"K1 {'exact' if plan is None else 'k=1'} == plain")
 
-    def k2():
-        hashed_cols.zero_()
-        he.hash_levels_bwd(spec, g, x, y, z, buf)
+    if "dense_levels_fwd" in cap:
+        _, planes, x, y, z, dtype = cap["dense_levels_fwd"]
+        planes, N = planes.detach(), x.shape[0]
+        mode, _ = he._dense_mode(spec, Ld)
+        got = he.dense_levels_fwd(spec, planes, x, y, z, dtype)
+        ref, plan = he.dense_levels_fwd_plain(spec, planes, x, y, z, dtype)
+        if got.dtype != ref.dtype or not torch.equal(got, ref):
+            raise AssertionError(f"dense_levels_fwd ({label}): kernel != plain")
+        fold("dense_levels_fwd", 0.0)
 
-    def p2():
-        hashed_cols.zero_()
-        he.hash_levels_bwd_plain(spec, g, x, y, z, buf)
+        def k4_bound():
+            if plan is None:
+                touched = torch.unique(he._dense_corner_arrays(dense, x, y, z, torch.float32)[0]).numel()
+                return _dense_fwd_bound(Ld, touched, N, got.element_size(), 120)
+            return _dense_fwd_bound(Ld, torch.unique(plan).numel(), N, 4, 80)
 
-    # no one PyTorch call computes it: the indices are computed inside
-    t = _time_kernel(k2, p2, None, _bound(12 * N + 8 * pairs + 8 * (total - base), 90 * spec.grad_levels * N))
-    stats["hash_levels_bwd"].update(t)
-    phase(f"hash_levels_bwd at the step's hashed-level gradient (k=1, {spec.grad_levels} of {Lh} levels, N={N:,}): "
-          f"kernel == plain within the atomic-order bound, max |err| {err:.3g}")
-    phase("  " + _timing_line(t))
+        timing("dense_levels_fwd", lambda: he.dense_levels_fwd(spec, planes, x, y, z, dtype),
+               lambda: he.dense_levels_fwd_plain(spec, planes, x, y, z, dtype), None, k4_bound)
+        checked.append(f"K4 {['exact', 'k=1', 'exact'][mode]} {dtype} == plain")
 
+    if "dense_levels_bwd" in cap:
+        _, g, x, y, z, dtype = cap["dense_levels_bwd"]
+        N = x.shape[0]
+        mode, gd = he._dense_mode(spec, Ld)
+        got = he.dense_levels_bwd(spec, g, x, y, z, dtype)
+        ref = he.dense_levels_bwd_plain(spec, g, x, y, z, dtype)
+        if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"dense_levels_bwd ({label}): kernel != plain")
+        K = got[0].numel()
+        if K != {0: 8 * Ld, 1: Ld, 2: 8 * gd}[mode] * N or not torch.equal(got[0], cap["table_grad_scatter"][0]):
+            raise AssertionError(f"dense_levels_bwd ({label}): K3 did not get K5's {K:,} staged entries")
+        fold("dense_levels_bwd", 0.0)
+        timing("dense_levels_bwd", lambda: he.dense_levels_bwd(spec, g, x, y, z, dtype),
+               lambda: he.dense_levels_bwd_plain(spec, g, x, y, z, dtype), None,
+               lambda: _dense_bwd_bound(spec, g, x, y, z, K))
+        checked.append(f"K5 {['exact', 'k=1', f'{gd} of {Ld} levels'][mode]} {dtype}: {K:,} staged entries == plain, "
+                       "all handed to K3")
 
-def dense_at_step_shapes(cap: dict, label: str) -> dict:
-    """K4 and K5 on the inputs of one warm train step (capture_step_inputs):
-    equal to their plain versions (torch.equal) and timed beside their
-    bounds. Returns {name: timing}."""
-    import torch
+    if "table_grad_scatter" in cap:
+        idx, v0, v1, _ = cap["table_grad_scatter"]
+        K, one = idx.shape[0], torch.ones_like(v0)
+        got = he.table_grad_scatter(idx, v0, v1, _zeros2(total))
+        err = _check_scatter(f"table_grad_scatter ({label})", got, he.table_grad_scatter_plain(idx, v0, v1, _zeros2(total)),
+                             he.table_grad_scatter_plain(idx, v0.abs(), v1.abs(), _zeros2(total)),
+                             he.table_grad_scatter_plain(idx, one, one, _zeros2(total)))
+        hits = torch.bincount(idx.long(), minlength=total)[:base]
+        if got[:, base:].abs().max() != 0 or int(hits.sum()) != K:
+            raise AssertionError(f"table_grad_scatter ({label}): the dense-level gradient reached outside the dense columns")
+        fold("table_grad_scatter", err)
+        vv = torch.stack([v0, v1])
+        timing("table_grad_scatter", zeroed(buf[:, :base], lambda: he.table_grad_scatter(idx, v0, v1, buf)),
+               zeroed(buf[:, :base], lambda: he.table_grad_scatter_plain(idx, v0, v1, buf)),
+               zeroed(buf[:, :base], lambda: buf.index_add_(1, idx, vv)), lambda: _bound(12 * K + 8 * base, 2 * K))
+        checked.append(f"K3: {K:,} entries into {base:,} dense entries (at most {int(hits.max()):,} adds to one, median "
+                       f"{int(hits[hits > 0].median())}) within the atomic-order bound, max |err| {err:.3g}")
 
-    from nerfjax_torch.ops import hash_encode as he
+    if "hash_levels_bwd" in cap:
+        _, g, x, y, z, _ = cap["hash_levels_bwd"]
+        N = x.shape[0]
+        mode, gl = he._bwd_mode(spec, Lh)
+        err = _check_scatter(f"hash_levels_bwd ({label})", he.hash_levels_bwd(spec, g, x, y, z, _zeros2(total)),
+                             he.hash_levels_bwd_plain(spec, g, x, y, z, _zeros2(total)),
+                             he.hash_levels_bwd_plain(spec, g.abs(), x, y, z, _zeros2(total)),
+                             _k2_count(spec, g, x, y, z, total))
+        fold("hash_levels_bwd", err)
 
-    spec, planes, x, y, z, dtype = cap["dense_levels_fwd"]
-    planes = planes.detach()  # the field's table: no autograd graph for the plain version
-    dense, _ = he._split_levels(spec)
-    Ld, N = len(dense), x.shape[0]
-    mode, gd = he._dense_mode(spec, Ld)
-    got = he.dense_levels_fwd(spec, planes, x, y, z, dtype)
-    ref, plan = he.dense_levels_fwd_plain(spec, planes, x, y, z, dtype)
-    if got.dtype != ref.dtype or not torch.equal(got, ref):
-        raise AssertionError(f"dense_levels_fwd ({label} step): kernel != plain")
-    if plan is None:
-        touched = torch.unique(he._dense_corner_arrays(dense, x, y, z, torch.float32)[0]).numel()
-        bound = _dense_fwd_bound(Ld, touched, N, got.element_size(), 120)
-    else:
-        bound = _dense_fwd_bound(Ld, torch.unique(plan).numel(), N, 4, 80)
-    out = {"dense_levels_fwd": _time_kernel(lambda: he.dense_levels_fwd(spec, planes, x, y, z, dtype),
-                                            lambda: he.dense_levels_fwd_plain(spec, planes, x, y, z, dtype),
-                                            None, bound)}
-    phase(f"dense_levels_fwd at the {label} step's forward ({['exact', 'k=1', 'exact'][mode]} {dtype}, "
-          f"N={N:,}, {Ld} levels): kernel == plain (torch.equal)")
-    phase("  " + _timing_line(out["dense_levels_fwd"]))
+        def k2_bound():
+            # no one PyTorch call computes it: the indices are computed inside
+            pairs, ops = Lh * N, (110 if mode == 0 else 90) * Lh * N
+            if mode == 2:
+                ids = he._draw_levels(x, y, z, Lh, gl, he.LEVEL_SALT)
+                pairs, ops = torch.unique(ids * N + torch.arange(N, device=x.device)).numel(), 90 * gl * N
+            return _bound(12 * N + 2 * g.element_size() * pairs + 8 * (total - base), ops)
 
-    spec, g, x, y, z, dtype = cap["dense_levels_bwd"]
-    got = he.dense_levels_bwd(spec, g, x, y, z, dtype)
-    ref = he.dense_levels_bwd_plain(spec, g, x, y, z, dtype)
-    if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, ref)):
-        raise AssertionError(f"dense_levels_bwd ({label} step): kernel != plain")
-    K = got[0].numel()
-    if K != {0: 8 * Ld, 1: Ld, 2: 8 * gd}[mode] * N or not torch.equal(got[0], cap["table_grad_scatter"][0]):
-        raise AssertionError(f"dense_levels_bwd ({label} step): K3 did not get K5's {K:,} staged entries")
-    out["dense_levels_bwd"] = _time_kernel(lambda: he.dense_levels_bwd(spec, g, x, y, z, dtype),
-                                           lambda: he.dense_levels_bwd_plain(spec, g, x, y, z, dtype), None,
-                                           _dense_bwd_bound(spec, g, x, y, z, K))
-    phase(f"dense_levels_bwd at the {label} step's gradient ({['exact', 'k=1', f'{gd} of {Ld} levels'][mode]}, "
-          f"{dtype}, N={N:,}): K={K:,} staged entries == plain (torch.equal), all handed to K3")
-    phase("  " + _timing_line(out["dense_levels_bwd"]))
+        timing("hash_levels_bwd", zeroed(buf[:, base:], lambda: he.hash_levels_bwd(spec, g, x, y, z, buf)),
+               zeroed(buf[:, base:], lambda: he.hash_levels_bwd_plain(spec, g, x, y, z, buf)), None, k2_bound)
+        checked.append(f"K2 {['exact', 'k=1', f'k=1 over {gl} of {Lh} levels'][mode]} within the atomic-order "
+                       f"bound, max |err| {err:.3g}")
+
+    phase(f"hash kernels at the {label} (N={N:,}, {Ld} dense + {Lh} hashed levels): " + "; ".join(checked))
+    for name, t in out.items():
+        phase(f"  {name}: " + _timing_line(t))
     return out
 
 
@@ -829,46 +908,64 @@ def _idle_share(state, batches) -> tuple[float, float, float]:
 
 
 def _stage_split(state, batches) -> dict:
-    """ms per step by stage, from CUDA events around the pieces of
-    train_step run in its order (the occupancy update amortised over the
-    steps of the window)."""
+    """ms per step by stage of the real train_step over ``batches``, from
+    CUDA events that wrappers record around its calls: the occupancy update
+    (with a grid; amortised over the steps), the sampling before the first
+    field pass, each field pass's forward (apply_planar), between two
+    passes the coarse composite, sample_pdf and the sort, then the
+    composites and losses with their backward up to the first gradient
+    that reaches a field pass's outputs, the field's backward (MLP and
+    encode, all passes), AdamW with its schedule."""
     import torch
 
-    from nerfjax_torch.ops.occupancy import occupancy_sample
-    from nerfjax_torch.render import raw2outputs_planar
-    from nerfjax_torch.train import update_occupancy
+    from nerfjax_torch import train
 
-    s = state.settings
-    spec, S = s.occ_spec(), s.n_samples + s.n_importance
-    names = ["occupancy update", "occupancy sample", "field forward", "composite + loss", "backward", "AdamW"]
-    total = dict.fromkeys(names, 0.0)
-    for b in batches:
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
-        ev[0].record()
-        state.generator.manual_seed(state.seed * 1_000_003 + state.step)
-        update_occupancy(state)
-        ev[1].record()
-        z = occupancy_sample(spec, state.occ_grid, b["rays_o"], b["rays_d"], b["t_near"], b["t_far"], S,
-                             generator=state.generator)
-        ev[2].record()
-        B = z.shape[0]
-        pos3 = tuple((b["rays_o"][:, i, None] + b["rays_d"][:, i, None] * z).reshape(-1) for i in range(3))
-        view3 = tuple(b["rays_d"][:, i, None].expand(B, S).reshape(-1) for i in range(3))
-        rgb, sigma = state.field.apply_planar(pos3, view3, dtype=s.dtype)
-        ev[3].record()
-        rgb_map, _ = raw2outputs_planar(rgb.reshape(3, B, S), sigma.reshape(B, S), z, s.white_bg, s.dist_last)
-        loss = torch.mean((rgb_map - b["rgb"]) ** 2)
-        ev[4].record()
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        ev[5].record()
-        state.optimizer.step()
-        state.scheduler.step()
-        ev[6].record()
-        state.step += 1
-        torch.cuda.synchronize()
-        for k, name in enumerate(names):
-            total[name] += ev[k].elapsed_time(ev[k + 1])
+    field, opt, s = state.field, state.optimizer, state.settings
+    apply, update, adamw = field.apply_planar, train.update_occupancy, opt.step
+    marks, total = [], {}
+
+    def mark(label):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((label, ev))
+
+    def backward_reached(_grad):
+        if marks[-1][0].startswith("field forward"):  # the step's first gradient at a field pass's outputs
+            mark("composite + loss, forward and backward")
+
+    def timed_apply(*args, **kw):
+        i = sum(label.startswith("field forward") for label, _ in marks)
+        mark(("occupancy sample" if s.use_occupancy else "stratified sample") if i == 0
+             else "coarse composite + pdf sample + sort")
+        rgb, sigma = apply(*args, **kw)
+        mark("field forward" + ("" if s.single_pass else " (coarse)" if i == 0 else " (fine)"))
+        rgb.register_hook(backward_reached)
+        sigma.register_hook(backward_reached)
+        return rgb, sigma
+
+    def timed_update(*args, **kw):
+        update(*args, **kw)
+        mark("occupancy update")
+
+    def timed_adamw(*args, **kw):
+        mark("field backward")
+        return adamw(*args, **kw)
+
+    field.apply_planar, opt.step = timed_apply, timed_adamw
+    if s.use_occupancy:
+        train.update_occupancy = timed_update
+    try:
+        for b in batches:
+            marks.clear()
+            mark("")
+            train.train_step(state, b)
+            mark("AdamW + schedule")
+            torch.cuda.synchronize()
+            for (_, start), (label, end) in zip(marks, marks[1:]):
+                total[label] = total.get(label, 0.0) + start.elapsed_time(end)
+    finally:
+        del field.apply_planar
+        opt.step, train.update_occupancy = adamw, update
     return {k: v / len(batches) for k, v in total.items()}
 
 
@@ -927,7 +1024,8 @@ def train_full(tmp: Path) -> dict:
     phase(f"warm train_step: median {med:.2f} ms/step over {len(times)} steps (min {min(times):.2f}, "
           f"max {max(times):.2f}; 3 of them update the grid) = {8192 / med * 1e3:,.0f} rays/s")
     split = _stage_split(state, batches[:32])
-    phase("split, ms per step (CUDA events, 32 steps, the grid update amortised over them): "
+    phase("split, ms per step (CUDA events around train_step's calls, 32 steps, the grid update amortised over "
+          "them): "
           + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + f"; sum {sum(split.values()):.3f}")
     state.step = 1  # no grid update inside the traced window
     busy, traced, idle = _idle_share(state, batches[32:40])
@@ -938,11 +1036,13 @@ def train_full(tmp: Path) -> dict:
     return {"cfg": cfg, "final": final, "launches": launches, "ms_per_step": med, "step_inputs": step_inputs}
 
 
-def train_dense_knob(tmp: Path, label: str) -> dict:
+def train_dense_knob(tmp: Path, label: str, stats: dict) -> dict:
     """128 steps of the tuned cfg with one dense knob through
     nerfjax_torch.train.train on phase 7's NPZ: PSNR, NaNs, the five hash
     kernels' launches, K5's mode (the size of its staging in one captured
-    warm step), a warm-step median; K4 and K5 timed on that step's inputs."""
+    warm step), a warm-step median; K4, K5, K3 and K2 on that step's
+    inputs against their plain versions (errors folded into ``stats``), K4
+    and K5 timed there."""
     import torch
 
     from nerfjax_torch.data import RayDataset, batch_to_device
@@ -989,7 +1089,8 @@ def train_dense_knob(tmp: Path, label: str) -> dict:
     mode = he._dense_mode(state.field.spec, len(he._split_levels(state.field.spec)[0]))
     if mode != {"dgl1": (2, 1), "dc1": (1, 0)}[label]:
         raise AssertionError(f"{label}: the field's dense mode is {mode}")
-    timings = dense_at_step_shapes(capture_step_inputs(state, batches[48]), label)
+    (cap,) = capture_step_inputs(state, batches[48]).values()
+    timings = step_kernels_vs_plain(cap, f"{label} step", stats, ("dense_levels_fwd", "dense_levels_bwd"))
     return {"ms_per_step": med, "launches": launches, "timings": timings}
 
 
@@ -1039,9 +1140,22 @@ def step_card_vs_cpu(tmp: Path, label: str) -> None:
         raise AssertionError(f"grid update card vs cpu: {gerr}")
     card.occ_grid = cpu.occ_grid.cuda()
     cpu.step = card.step = 1
-    m_cpu = train_step(cpu, batch_to_device(batch, "cpu"), xi=xi)
-    m_card = train_step(card, batch_to_device(batch, "cuda"), xi=xi.cuda())
-    lerr = abs(float(m_card["loss_fine"]) - float(m_cpu["loss_fine"])) / float(m_cpu["loss_fine"])
+    m_cpu = train_step(cpu, batch_to_device(batch, "cpu"), u_strat=xi)
+    m_card = train_step(card, batch_to_device(batch, "cuda"), u_strat=xi.cuda())
+    lerr, worst = _steps_agree(cpu, card, m_cpu, m_card, cfg["lr"], ("loss_fine",))
+    phase(f"train step card vs cpu (fp32, small, {label}): grid rel err {gerr:.2g}, loss rel err {lerr:.2g}, "
+          f"gradients within rtol 1e-4, parameters after AdamW within {worst:.2g} (bound {1e-3 * cfg['lr']:.1g})")
+
+
+def _steps_agree(cpu, card, m_cpu, m_card, lr: float, losses) -> tuple[float, float]:
+    """Phase 9's rule for one fp32 step on the CPU and on the card: each of
+    ``losses`` within 1e-5 relative, every gradient within rtol 1e-4 (atol
+    1e-4 x its largest entry), every parameter after AdamW within 1e-3 x lr
+    at entries whose CPU gradient exceeds 1e-6. Returns (worst loss error,
+    worst parameter error)."""
+    import torch
+
+    lerr = max(abs(float(m_card[k]) - float(m_cpu[k])) / float(m_cpu[k]) for k in losses)
     if lerr > 1e-5:
         raise AssertionError(f"loss card vs cpu: relative {lerr}")
     worst = 0.0
@@ -1051,11 +1165,335 @@ def step_card_vs_cpu(tmp: Path, label: str) -> None:
             raise AssertionError(f"gradient of {name} card vs cpu")
         sure = gc.abs() > 1e-6
         d = float((pk.detach().cpu() - pc.detach()).abs()[sure].max()) if bool(sure.any()) else 0.0
-        if d > 1e-3 * cfg["lr"]:
+        if d > 1e-3 * lr:
             raise AssertionError(f"{name} after AdamW card vs cpu: {d}")
         worst = max(worst, d)
-    phase(f"train step card vs cpu (fp32, small, {label}): grid rel err {gerr:.2g}, loss rel err {lerr:.2g}, "
-          f"gradients within rtol 1e-4, parameters after AdamW within {worst:.2g} (bound {1e-3 * cfg['lr']:.1g})")
+    return lerr, worst
+
+
+# -- the probes --------------------------------------------------------------
+
+# line of each probe kernel in benchmarks/micro_probe.py
+PROBE_LINES = {"k_reshape": 36, "k_transpose": 49, "k_dot_dim0": 61, "k_dot_dim0_bf16": 76, "k_onehot_row": 93,
+               "k_col_slice": 108}
+
+
+def probes_vs_plain() -> dict:
+    """micro_probe.py's entry point through the port (nerfjax_torch.probes.main)
+    on the card, its launches counted; then each of the six kernels against
+    its plain version on the probe's inputs (equal; the dots within
+    K*2^-24*sum|a||b| per element), timed beside its bound and one PyTorch
+    call where one computes the same function."""
+    import torch
+
+    from nerfjax_torch import probes
+
+    probes.reset_launch_counts()
+    if probes.main(device="cuda") != 0:
+        raise AssertionError("a probe failed on the card")
+    launches = dict(probes.launch_counts)
+    x, a, b = probes.probe_inputs("cuda")
+    a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    K, M, N = a.shape[0], a.shape[1], b.shape[1]
+    dot_bytes, rows = 4 * (K * M + K * N + M * N), probes.ROWS
+    bounds = {
+        "k_reshape": _bound(8 * x.numel(), x.numel()),
+        "k_transpose": _bound(8 * x.numel(), x.numel()),
+        "k_dot_dim0": _bound(dot_bytes, 2 * K * M * N),
+        "k_dot_dim0_bf16": _bound(dot_bytes, 2 * K * M * N, "bf16"),
+        "k_onehot_row": _bound(4 * x.shape[1] + 4 * rows * x.shape[1], rows * x.shape[1]),
+        "k_col_slice": _bound(4 * x.shape[1] + 4 * rows * x.shape[1], rows * x.shape[1]),
+    }
+    libraries = {"k_transpose": (lambda: x.t().to(torch.float32), "x.t().to(float32)"),
+                 "k_dot_dim0": (lambda: torch.matmul(a.t(), b), "torch.matmul f32"),
+                 "k_dot_dim0_bf16": (lambda: torch.matmul(a16.t(), b16), "torch.matmul bf16")}
+    stats = {}
+    for name, kernel, wrapper, plain, args, dot_bound in probes.probes(x, a, b):
+        err = probes.check(name, wrapper(*args), plain(*args), dot_bound)
+        library, library_name = libraries.get(kernel, (None, ""))
+        t = _time_kernel(lambda: wrapper(*args), lambda: plain(*args), library, bounds[kernel], library_name)
+        stats[kernel] = {"max_abs_err": err, "launches": launches[kernel], **t}
+        rule = "within K*2^-24*sum|a||b|" if dot_bound is not None else "(torch.equal)"
+        phase(f"{kernel} ({name.strip()}): kernel == plain {rule}, max |err| {err:.3g}; main-path launches "
+              f"{launches[kernel]}")
+        phase("  " + _timing_line(t))
+    return stats
+
+
+# -- the drop-in operating point and eval rendering -----------------------------
+
+# the model and training keys of cfg/blender_scene.yml (the drop-in point:
+# NGP-large, 16 levels, 64 + 128 samples, no occupancy grid, two passes of
+# one shared field, the exact estimators), stated so the script needs no
+# PyYAML
+DROP_IN_TRAIN = {"ngp": True, "nerf_type": "large", "batch_size": 8192, "lr": 0.0005, "N_samples": 64,
+                 "N_importance": 128, "white_bg": False, "precision": "bf16", "occupancy_grid": False}
+# the CPU tests' small drop-in size (tests/test_torch_train_step.py), in fp32
+DROP_IN_SMALL = {**DROP_IN_TRAIN, "nerf_type": "small", "hash_n_levels": 8, "batch_size": 256, "lr": 5e-3,
+                 "precision": "fp32", "N_samples": 8, "N_importance": 16}
+DROP_IN_KERNELS = ("hash_levels_fwd", "dense_levels_fwd", "dense_levels_bwd", "table_grad_scatter", "hash_levels_bwd")
+EVAL_SIZE = 256  # pixels per side of the held-out renders
+EVAL_POSES = 3
+EVAL_PSNR_DB = 25.0  # the least mean PSNR of the 64 + 128 renders against the analytic ball
+
+
+def train_dropin(tmp: Path) -> dict:
+    """cfg/blender_scene.yml's model and training keys at full width through
+    nerfjax_torch.train.train, 1 epoch of 128 steps on phase 7's NPZ: PSNR,
+    NaNs, the coarse loss, each hash kernel launched twice per step (K1 and
+    K4 in both forwards, K5, K3 and K2 in both backwards); then a warm
+    median, the split by stage, the idle share, and every hash kernel's
+    arguments in one more warm step."""
+    import torch
+
+    from nerfjax_torch.data import RayDataset, batch_to_device
+    from nerfjax_torch.ops import hash_encode as he
+    from nerfjax_torch.train import TrainSettings, make_train_state, train, train_step
+
+    cfg = {**DROP_IN_TRAIN, "num_epochs": 1, "rays_file": str(tmp / "rays.npz"), "output_dir": str(tmp / "out_dropin"),
+           "checkpoint_dir": str(tmp / "out_dropin" / "checkpoints")}
+    he.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train(cfg, seed=SEED, log_every=64, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = dict(he.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    psnr = np.asarray(out["psnr"])
+    first, last = float(psnr[:20].mean()), float(psnr[-20:].mean())
+    steps = out["steps"]
+    phase(f"train() drop-in (cfg/blender_scene.yml keys): {steps} steps in {wall:.2f} s wall, PSNR first 20 steps "
+          f"{first:.2f} dB, last 20 {last:.2f} dB; last logged coarse loss {out['metrics']['loss_coarse']:.5f}; "
+          f"peak device memory {peak:.2f} GiB; launches {launches}")
+    if not np.isfinite(psnr).all() or not all(np.isfinite(v["w"]).all() for v in out["params"]["dmlp"]):
+        raise AssertionError("NaN in drop-in training")
+    if last < first + PSNR_RISE_DB:
+        raise AssertionError(f"drop-in PSNR rose {last - first:.2f} dB, expected >= {PSNR_RISE_DB}")
+    if not out["metrics"]["loss_coarse"] > 0:
+        raise AssertionError("the drop-in step reported no coarse loss")
+    if launches != {k: 2 * steps for k in launches}:
+        raise AssertionError(f"drop-in launches {launches}, expected {2 * steps} of each (two encodes per step)")
+
+    settings = TrainSettings.from_cfg(cfg, steps)
+    state = make_train_state(cfg, settings, seed=SEED, device="cuda")
+    data = RayDataset(cfg["rays_file"], verbose=False)
+    batches = [batch_to_device(b, "cuda") for _, b in zip(range(47), data.epoch_batches(8192, seed=SEED))]
+    for b in batches[:8]:
+        train_step(state, b)
+    torch.cuda.synchronize()
+    times = []
+    for b in batches[8:32]:
+        t1 = time.perf_counter()
+        train_step(state, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    med = float(np.median(times))
+    phase(f"warm drop-in train_step: median {med:.2f} ms/step over {len(times)} steps (min {min(times):.2f}, "
+          f"max {max(times):.2f}) = {8192 / med * 1e3:,.0f} rays/s, {8192 * 192 / med * 1e3:,.0f} fine points/s")
+    split = _stage_split(state, batches[32:40])
+    phase("drop-in split, ms per step (CUDA events around train_step's calls, 8 steps): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f"; sum {sum(split.values()):.3f}")
+    busy, traced, idle = _idle_share(state, batches[40:46])
+    phase(f"profiler, 6 warm drop-in steps: device busy {busy:.2f} ms of {traced:.2f} ms traced wall: "
+          f"idle share {idle:.1%}")
+    torch.cuda.reset_peak_memory_stats()
+    cap = capture_step_inputs(state, batches[46], names=DROP_IN_KERNELS)
+    if len(cap) != 2:
+        raise AssertionError(f"the drop-in step ran {len(cap)} field passes ({sorted(cap)} points), expected 2")
+    phase(f"one warm drop-in step (inputs captured): peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    final = Path(cfg["checkpoint_dir"]) / "nerf_final.pth"
+    if not final.exists():
+        raise AssertionError("the drop-in run wrote no nerf_final.pth")
+    return {"launches": launches, "ms_per_step": med, "step_inputs": cap, "final": final}
+
+
+def _ball_image(K: np.ndarray, c2w: np.ndarray, H: int, W: int) -> np.ndarray:
+    """[H, W, 3] float32: the analytic ball seen from c2w, with the exact
+    volume rendering that colors ray_npz's rays (BALL_RGB * (1 - exp(-sigma
+    * chord))), black where a ray misses the ball."""
+    u, v = np.meshgrid(np.arange(W, dtype=np.float64), np.arange(H, dtype=np.float64))
+    pix = np.stack([u.ravel(), v.ravel(), np.ones(H * W)])
+    d = np.diag([1.0, -1.0, -1.0]) @ (np.linalg.inv(K.astype(np.float64)) @ pix)
+    d = (c2w[:3, :3].astype(np.float64) @ (d / np.linalg.norm(d, axis=0, keepdims=True))).T
+    oc = c2w[:3, 3].astype(np.float64) - BALL_CENTER
+    b = d @ oc
+    disc = b * b - (oc @ oc - BALL_RADIUS**2)
+    chord = 2.0 * np.sqrt(np.maximum(disc, 0.0))
+    return (BALL_RGB[None, :] * (1.0 - np.exp(-BALL_SIGMA * chord))[:, None]).reshape(H, W, 3).astype(np.float32)
+
+
+def _psnr(pred: np.ndarray, gt: np.ndarray) -> float:
+    return float(-10.0 * np.log10(max(float(np.mean((pred - gt) ** 2)), 1e-12)))
+
+
+def eval_render(final: Path, cfg: dict, label: str, stats: dict, hstats: dict) -> dict:
+    """render_image on the card from a trained ball (``cfg``'s model) at
+    EVAL_SIZE^2 and EVAL_POSES held-out orbit poses (radius 2.5, height
+    1.2: outside the training cameras' sphere): at 64 + 128 samples (the
+    main path, launches counted; mean PSNR against the analytic ball >=
+    EVAL_PSNR_DB) and at the tuned cfg's 8 + 16 (PSNR printed only: the
+    tuned field was trained on occupancy samples); the render's rays/s.
+    The head, K1 and K4 are held against their plain versions on the
+    arguments of their last call in each pass of the 64 + 128 render (the
+    head as in kernels_vs_plain, K1 and K4 equal; errors folded into
+    ``stats`` and ``hstats``), and the head is timed at the fine pass's
+    call (extra line)."""
+    import torch
+
+    from nerfjax_torch.checkpoint import load_field
+    from nerfjax_torch.ops import fused_mlp as fm
+    from nerfjax_torch.ops import hash_encode as he
+    from nerfjax_torch.render_image import orbit_poses, render_image
+
+    field = load_field(final, cfg, device="cuda")
+    H = W = EVAL_SIZE
+    K = np.array([[W, 0.0, W / 2], [0.0, W, H / 2], [0.0, 0.0, 1.0]], np.float32)
+    poses = orbit_poses(EVAL_POSES)
+    gts = [_ball_image(K, c2w, H, W) for c2w in poses]
+    render_image(field, K, poses[0], H, W)  # warm-up: the allocator, first launches
+    result, seen = {}, {}
+    for ns, ni in ((64, 128), (8, 16)):
+        main_path = (ns, ni) == (64, 128)
+        fm.reset_launch_counts()
+        he.reset_launch_counts()
+        rec = (_recorded((fm, "fused_ngp_head"), (he, "hash_levels_fwd"), (he, "dense_levels_fwd")) if main_path
+               else contextlib.nullcontext(seen))
+        with rec as calls:
+            t0 = time.perf_counter()
+            imgs = [render_image(field, K, c2w, H, W, n_samples=ns, n_importance=ni, seed=i)
+                    for i, c2w in enumerate(poses)]
+            wall = time.perf_counter() - t0
+        seen = calls
+        launches = {**fm.launch_counts, **{k: he.launch_counts[k] for k in ("hash_levels_fwd", "dense_levels_fwd")}}
+        psnrs = [_psnr(img, gt) for img, gt in zip(imgs, gts)]
+        if not all(np.isfinite(img).all() for img in imgs):
+            raise AssertionError(f"NaN in the {ns}+{ni} eval render")
+        phase(f"eval render of the {label} field, {ns}+{ni}, {EVAL_POSES} orbit poses at {H}x{W} (bf16): PSNR "
+              "against the analytic ball "
+              + ", ".join(f"{p:.2f}" for p in psnrs) + f" dB (mean {np.mean(psnrs):.2f}); {wall:.2f} s wall = "
+              f"{EVAL_POSES * H * W / wall:,.0f} rays/s; launches {launches}")
+        if main_path:
+            if launches["fused_ngp_head"] <= 0 or launches["fused_ngp_density"] != 0:
+                raise AssertionError(f"the eval render's field passes did not all run the head kernel: {launches}")
+            if np.mean(psnrs) < EVAL_PSNR_DB:
+                raise AssertionError(f"eval render mean PSNR {np.mean(psnrs):.2f} dB < {EVAL_PSNR_DB}")
+            result = {"launches": launches, "psnr": psnrs, "rays_per_s": EVAL_POSES * H * W / wall}
+
+    head_err = 0.0
+    for N, calls in sorted(seen.items()):
+        (params, enc, sh), kw = calls["fused_ngp_head"]
+        for got, ref in zip(fm.fused_ngp_head(params, enc, sh, **kw), fm.fused_ngp_head_plain(params, enc, sh)):
+            err = float((got.float() - ref.float()).abs().max())
+            if not (_ulp_ok(got, ref) if enc.dtype == torch.bfloat16 else err <= 2e-5):
+                raise AssertionError(f"fused_ngp_head at the {label} eval render (N={N:,}, E={enc.shape[0]}, "
+                                     f"{enc.dtype}) disagrees with its plain version: {err}")
+            head_err = max(head_err, err)
+        (spec, planes, x, y, z), _ = calls["hash_levels_fwd"]
+        if not torch.equal(he.hash_levels_fwd(spec, planes.detach(), x, y, z),
+                           he.hash_levels_fwd_plain(spec, planes.detach(), x, y, z)[0]):
+            raise AssertionError(f"hash_levels_fwd at the {label} eval render (N={N:,}): kernel != plain")
+        (spec, planes, x, y, z, dtype), _ = calls["dense_levels_fwd"]
+        got = he.dense_levels_fwd(spec, planes.detach(), x, y, z, dtype)
+        ref, _ = he.dense_levels_fwd_plain(spec, planes.detach(), x, y, z, dtype)
+        if got.dtype != ref.dtype or not torch.equal(got, ref):
+            raise AssertionError(f"dense_levels_fwd at the {label} eval render (N={N:,}): kernel != plain")
+    stats["fused_ngp_head"]["max_abs_err"] = max(stats["fused_ngp_head"]["max_abs_err"], head_err)
+    phase(f"the {label} eval render's kernels on their last call in each pass (N = "
+          + ", ".join(f"{n:,}" for n in sorted(seen)) + f"): fused_ngp_head within one bf16 ulp of its plain "
+          f"version (max |err| {head_err:.3g}), hash_levels_fwd and dense_levels_fwd == plain")
+    (params, enc, sh), kw = seen[max(seen)]["fused_ngp_head"]
+    E, N = enc.shape
+    macs = E * 64 + 64 * 16 + 32 * 64 + 64 * 64 + 64 * 3
+    result["head_timing"] = _time_kernel(lambda: fm.fused_ngp_head(params, enc, sh, **kw),
+                                         lambda: fm.fused_ngp_head_plain(params, enc, sh), None,
+                                         _bound((2 * E + 2 * 16 + 2 * 4) * N + 4 * 9408, 2 * macs * N, "bf16"))
+    phase(f"  fused_ngp_head at the {label} eval render's fine pass (E={E}, N={N:,}, bf16; extra line): "
+          + _timing_line(result["head_timing"]))
+    return result
+
+
+def dropin_step_card_vs_cpu(tmp: Path) -> None:
+    """One drop-in step at the CPU tests' small size in float32 on the card
+    (kernels) and on the CPU (plain versions), with the same parameters,
+    batch and uniforms, under phase 9's rule (coarse loss too). The
+    importance depths of both are the CPU's: an importance depth in a bin
+    of low pdf moves by the coarse weights' rounding over that pdf (at init
+    ~6e-8 of rounding in 1 - exp(-sigma*delta) on weights of ~1e-6), which
+    would move points across grid cells; the sampler itself is held card
+    against CPU on the CPU's weights (within 5e-5, the CPU tests' bound)."""
+    import torch
+
+    from nerfjax_torch import render
+    from nerfjax_torch.data import RayDataset, batch_to_device
+    from nerfjax_torch.train import TrainSettings, make_train_state, train_step
+
+    cfg = {**DROP_IN_SMALL, "num_epochs": 1}
+    settings = TrainSettings.from_cfg(cfg, 100)
+    cpu = make_train_state(cfg, settings, seed=SEED, device="cpu")
+    card = make_train_state(cfg, settings, seed=SEED, device="cuda")
+    batch = next(RayDataset(tmp / "rays.npz", verbose=False).epoch_batches(256, seed=SEED))
+    u_strat = torch.rand(256, settings.n_samples, generator=torch.Generator().manual_seed(3))
+    u_pdf = torch.rand(256, settings.n_importance, generator=torch.Generator().manual_seed(4))
+    real, seen = render.sample_pdf, []
+
+    def record(*args, **kw):
+        seen.append((args, kw))
+        return real(*args, **kw)
+
+    bc = batch_to_device(batch, "cpu")
+    render.sample_pdf = record
+    try:
+        with torch.no_grad():
+            render.render_rays_planar(cpu.field, cpu.field, bc["rays_o"], bc["rays_d"], bc["t_near"], bc["t_far"],
+                                      settings.n_samples, settings.n_importance, train=True, dtype=torch.float32,
+                                      u_strat=u_strat, u_pdf=u_pdf)
+    finally:
+        render.sample_pdf = real
+    (bins, w, n), kw = seen[0]
+    z_imp = real(bins, w, n, **kw)
+    zerr = float((real(bins.cuda(), w.cuda(), n, u=u_pdf.cuda()).cpu() - z_imp).abs().max())
+    if zerr > 5e-5:
+        raise AssertionError(f"sample_pdf card vs cpu on the same weights: {zerr}")
+    render.sample_pdf = lambda bins, w, n, *, u=None, generator=None: z_imp.to(bins.device)
+    try:
+        m_cpu = train_step(cpu, bc, u_strat=u_strat, u_pdf=u_pdf)
+        m_card = train_step(card, batch_to_device(batch, "cuda"), u_strat=u_strat.cuda(), u_pdf=u_pdf.cuda())
+    finally:
+        render.sample_pdf = real
+    lerr, worst = _steps_agree(cpu, card, m_cpu, m_card, cfg["lr"], ("loss_fine", "loss_coarse"))
+    phase(f"drop-in train step card vs cpu (fp32, small): sample_pdf max |err| {zerr:.2g} on the same weights; "
+          f"losses rel err {lerr:.2g}, gradients within rtol 1e-4, parameters after AdamW within {worst:.2g} "
+          f"(bound {1e-3 * cfg['lr']:.1g})")
+
+
+def render_card_vs_cpu(final: Path) -> None:
+    """One 32 x 32 render_image of phase 7's trained ball in float32 on the
+    card (head kernel) and on the CPU (its plain version) with the same
+    uniforms (the draws hook): max |diff| <= 1e-2 and mean <= 1e-4. The
+    coarse weights differ by float32 rounding, which moves importance
+    depths within bins of low pdf, empty space where the weights and so the
+    colors are small."""
+    import torch
+
+    from nerfjax_torch.checkpoint import load_field
+    from nerfjax_torch.render_image import orbit_poses, render_image
+
+    H = W = 32
+    K = np.array([[W, 0.0, W / 2], [0.0, W, H / 2], [0.0, 0.0, 1.0]], np.float32)
+    c2w = orbit_poses(EVAL_POSES)[1]
+
+    def draws(s, B):
+        rng = np.random.default_rng(SEED + s)
+        return rng.uniform(size=(B, 64)).astype(np.float32), rng.uniform(size=(B, 128)).astype(np.float32)
+
+    imgs = [render_image(load_field(final, TUNED_CFG, device=dev), K, c2w, H, W, chunk_rays=256,
+                         dtype=torch.float32, draws=draws) for dev in ("cuda", "cpu")]
+    err = np.abs(imgs[0] - imgs[1])
+    if err.max() > 1e-2 or err.mean() > 1e-4:
+        raise AssertionError(f"32x32 render card vs cpu: max |diff| {err.max():.3g}, mean {err.mean():.3g}")
+    phase(f"32x32 f32 render card vs cpu: max |diff| {err.max():.3g}, mean {err.mean():.3g}; PSNR card "
+          f"{_psnr(imgs[0], _ball_image(K, c2w, H, W)):.2f} dB")
 
 
 def main() -> int:
@@ -1075,19 +1513,41 @@ def main() -> int:
         card_vs_cpu_128(ckpt_path)
     hstats = hash_kernels_vs_plain()
     dense_kernels_vs_plain(hstats)
+    pstats = probes_vs_plain()
     with tempfile.TemporaryDirectory() as tmp:
         trained = train_full(Path(tmp))
-        cap = trained.pop("step_inputs")
-        scatters_at_step_shapes(cap, hstats)
-        for name, t in dense_at_step_shapes(cap, "tuned").items():
+        (cap,) = trained.pop("step_inputs").values()
+        for name, t in step_kernels_vs_plain(cap, "tuned step", hstats, STEP_KERNELS).items():
             hstats[name].update(t)
         del cap
-        knobs = {label: train_dense_knob(Path(tmp), label) for label in DENSE_KNOBS}
+        knobs = {label: train_dense_knob(Path(tmp), label, hstats) for label in DENSE_KNOBS}
+        dropin = train_dropin(Path(tmp))
+        passes = dropin.pop("step_inputs")
+        for N in sorted(passes):  # the timings at the fine pass are extra lines
+            fine = N == max(passes)
+            step_kernels_vs_plain(passes[N], f"drop-in step's {'fine' if fine else 'coarse'} pass", hstats,
+                                  DROP_IN_KERNELS if fine else ())
+        del passes
         extract_trained(trained["cfg"], trained["final"])
+        evals = {"tuned": eval_render(trained["final"], TUNED_CFG, "tuned", stats, hstats),
+                 "drop-in": eval_render(dropin["final"], DROP_IN_TRAIN, "drop-in", stats, hstats)}
         for label in ("tuned", *DENSE_KNOBS):
             step_card_vs_cpu(Path(tmp), label)
+        dropin_step_card_vs_cpu(Path(tmp))
+        render_card_vs_cpu(trained["final"])
     phase("warm ms/step: tuned " + f"{trained['ms_per_step']:.2f}, "
-          + ", ".join(f"{k} {v['ms_per_step']:.2f}" for k, v in knobs.items()))
+          + ", ".join(f"{k} {v['ms_per_step']:.2f}" for k, v in knobs.items())
+          + f", drop-in {dropin['ms_per_step']:.2f}; eval render, 64+128: "
+          + ", ".join(f"{k} {v['rays_per_s']:,.0f} rays/s" for k, v in evals.items()))
+    # launches on the main paths, each counted from 0 around its run: the
+    # 512^3 extraction, the tuned and the drop-in train(), the eval renders
+    paths = {"extraction": extract_launches, "tuned train": trained["launches"], "drop-in train": dropin["launches"],
+             **{f"eval render ({k})": v["launches"] for k, v in evals.items()}}
+    launches = {}
+    for counts in paths.values():
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+    phase("main-path launches: " + "; ".join(f"{k} {v}" for k, v in paths.items()))
     kernels = []
     for name, line in (("fused_ngp_head", 28), ("fused_ngp_density", 98)):
         N, E = MAIN_SHAPE[0], MAIN_SHAPE[1]
@@ -1096,21 +1556,29 @@ def main() -> int:
         bound, by = _bound(nbytes + 4 * 9408, 2 * macs * N, "bf16")
         kernels.append({
             "name": name, "route": "cuda", "source": "nerfjax_torch/csrc/fused_mlp.cu",
-            "replaces": f"nerfjax/ops/pallas_mlp.py:{line}", "launches": extract_launches[name],
+            "replaces": f"nerfjax/ops/pallas_mlp.py:{line}", "launches": launches[name],
             "max_abs_err": stats[name]["max_abs_err"], "ms": stats[name]["ms"],
             "plain_ms": stats[name]["plain_ms"], "bound_ms": bound, "bound_by": by, "library_ms": None,
         })
     for name, replaces in (("hash_levels_fwd", "nerfjax/ops/hash_encode.py:304"),
                            ("hash_levels_bwd", "nerfjax/ops/hash_encode.py:335"),
-                           ("table_grad_scatter", "benchmarks/micro_onehot.py:99"),
+                           ("table_grad_scatter", "benchmarks/micro_onehot.py:44, benchmarks/micro_onehot.py:99"),
                            ("dense_levels_fwd", "benchmarks/micro_pallas_gather.py:97"),
                            ("dense_levels_bwd", "benchmarks/micro_pallas_gather.py:71")):
         h = hstats[name]
         kernels.append({
             "name": name, "route": "cuda", "source": "nerfjax_torch/csrc/hash_encode.cu", "replaces": replaces,
-            "launches": trained["launches"][name], "max_abs_err": h["max_abs_err"], "ms": h["ms"],
+            "launches": launches[name], "max_abs_err": h["max_abs_err"], "ms": h["ms"],
             "plain_ms": h["plain_ms"], "bound_ms": h["bound"][0], "bound_by": h["bound"][1],
             "library_ms": h.get("library_ms"),
+        })
+    for name, line in PROBE_LINES.items():
+        t = pstats[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "nerfjax_torch/csrc/micro_probe.cu",
+            "replaces": f"benchmarks/micro_probe.py:{line}", "launches": t["launches"], "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": t["library_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

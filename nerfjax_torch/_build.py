@@ -37,7 +37,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 EXTRA_FLAGS = {"hash_encode": ("-fmad=false",)}
-SOURCES = ("fused_mlp", "hash_encode")
+SOURCES = ("fused_mlp", "hash_encode", "micro_probe")
 
 
 def find_nvcc() -> str:

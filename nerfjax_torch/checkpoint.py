@@ -208,6 +208,14 @@ def load_field_params(path: str | Path, cfg: Mapping, which: str = "fine") -> di
     return {"model": ngp_from_state_dict(field, obj[key])}
 
 
+def load_field(path: str | Path, cfg: Mapping, device, which: str = "fine") -> InstantNGP:
+    """The NGP field of a checkpoint on ``device`` (no default: the field's
+    device decides where render_image runs), built by ``build_fields(cfg)``
+    (the exact forward) and loaded with its weights."""
+    _, field, _ = build_fields(cfg, device=device)
+    return field.load_params(load_field_params(path, cfg, which)["model"])
+
+
 # -- train state ----------------------------------------------------------------
 
 

@@ -2,10 +2,9 @@
 
 A dense density grid (128^3 by default) kept as an EMA of field queries at
 jittered cell centers, per-ray piecewise-constant weights over uniform
-segments, and the stratified arithmetic inverse-CDF sampler
-(``occ_fast_cdf: true``). The reference-shaped ``sample_pdf`` path
-(``fast_cdf: false``) is not ported (ROADMAP Queue 1, the coarse->pdf->fine
-twin).
+segments, and two samplers over them: the stratified arithmetic inverse-CDF
+(``occ_fast_cdf: true``) and the reference-shaped one (``fast_cdf: false``:
+``render.sample_pdf`` over the segment weights, then a sort).
 
 Random numbers: nerfjax draws the cell jitter and the sampler's ``xi`` from
 ``jax.random``; here they come from a ``torch.Generator``, or the caller
@@ -23,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -95,6 +95,19 @@ def update_grid(
     return g2.reshape(-1)
 
 
+def linspace01(n: int, device) -> torch.Tensor:
+    """``jnp.linspace(0, 1, n)`` in float32 bit for bit: i times the float32
+    reciprocal of n - 1 (XLA turns the division by a constant into that
+    product), then the end point 1. ``torch.linspace`` computes its upper
+    half from the end and differs in the last bit for many n."""
+    if n == 1:
+        return torch.zeros(1, dtype=torch.float32, device=device)
+    step = float(np.float32(1.0) / np.float32(n - 1))
+    t = torch.arange(n, dtype=torch.float32, device=device) * step
+    t[-1] = 1.0
+    return t
+
+
 def _grid_lookup(spec: OccupancyGridSpec, grid, px, py, pz):
     """Density at positions in [-1, 1] (nearest cell)."""
     r = spec.resolution
@@ -110,9 +123,7 @@ def segment_weights(spec: OccupancyGridSpec, grid, rays_o, rays_d, t_near, t_far
     (bin_edges [B, M+1], weights [B, M])."""
     B, M = rays_o.shape[0], spec.n_segments
     near, far = t_near.reshape(-1, 1), t_far.reshape(-1, 1)
-    # i/M: exact in float32 for the power-of-two M of the configs, so equal
-    # to jnp.linspace's values
-    t = torch.linspace(0.0, 1.0, M + 1, dtype=torch.float32, device=rays_o.device)[None, :]
+    t = linspace01(M + 1, rays_o.device)[None, :]
     edges = near * (1.0 - t) + far * t
     mid = 0.5 * (edges[:, 1:] + edges[:, :-1])
     px = rays_o[:, 0:1] + rays_d[:, 0:1] * mid
@@ -123,7 +134,7 @@ def segment_weights(spec: OccupancyGridSpec, grid, rays_o, rays_d, t_near, t_far
     return edges, w
 
 
-def _running_sum(a: torch.Tensor) -> torch.Tensor:
+def running_sum(a: torch.Tensor) -> torch.Tensor:
     """Cumulative sum along the last axis, added column by column in order."""
     cols = [a[..., 0]]
     for m in range(1, a.shape[-1]):
@@ -138,8 +149,8 @@ def _sample_cdf_fast(t_near, t_far, w: torch.Tensor, n_samples: int, xi: torch.T
     index. xi: [B, n] uniforms in [0, 1). Returns sorted depths [B, n]."""
     B, M = w.shape
     w = w + 1e-5
-    pdf = w / _running_sum(w)[:, -1:]
-    cdf = _running_sum(pdf)
+    pdf = w / running_sum(w)[:, -1:]
+    cdf = running_sum(pdf)
     s = torch.arange(n_samples, dtype=torch.float32, device=w.device)[None, :]
     u = (s + xi) * (1.0 / n_samples)
     below = (u[:, :, None] >= cdf[:, None, : M - 1]).sum(dim=-1)  # [B, n] in 0..M-1
@@ -166,15 +177,15 @@ def occupancy_sample(
     xi: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
 ) -> torch.Tensor:
-    """Occupancy-weighted stratified depths z [B, n_samples] (sorted).
-    ``xi`` [B, n_samples] uniforms in [0, 1) are drawn from ``generator``
-    when None."""
-    if not spec.fast_cdf:
-        raise NotImplementedError(
-            "occ_fast_cdf: false (the sample_pdf + sort sampler) is not ported "
-            "(ROADMAP Queue 1 item 'the coarse->pdf->fine exact twin')"
-        )
-    _, w = segment_weights(spec, grid, rays_o, rays_d, t_near, t_far)
+    """Occupancy-weighted depths z [B, n_samples], sorted. ``xi``
+    [B, n_samples] uniforms in [0, 1) are drawn from ``generator`` when
+    None: the fast sampler's per-stratum offsets, or ``sample_pdf``'s iid
+    uniforms (``fast_cdf: false``)."""
+    edges, w = segment_weights(spec, grid, rays_o, rays_d, t_near, t_far)
     if xi is None:
         xi = torch.rand(rays_o.shape[0], n_samples, generator=generator, device=rays_o.device)
-    return _sample_cdf_fast(t_near, t_far, w, n_samples, xi)
+    if spec.fast_cdf:
+        return _sample_cdf_fast(t_near, t_far, w, n_samples, xi)
+    from nerfjax_torch.render import sample_pdf
+
+    return torch.sort(sample_pdf(edges, w, n_samples, u=xi), dim=-1).values

@@ -3,20 +3,25 @@
 ``onecycle_lr_host`` :291-317, ``make_optimizer`` :320-327, ``loss_fn``
 :330-373, the step :392-425, ``init_occupancy`` :486-492, ``train`` :500-).
 
-The step follows nerfjax's order: every ``occ_update_every``-th step first
-refreshes the occupancy grid (1/P of its cells, rotating), then the
-single-pass render draws all samples from the occupancy CDF, the field runs
-in ``precision`` (bf16 matmuls with float32 parameters), compositing and
-the MSE loss run in float32, the backward runs the hashed levels' gradient
-kernel, and AdamW steps with the OneCycle learning rate.
+The step follows nerfjax's order: with the occupancy grid on, every
+``occ_update_every``-th step first refreshes it (1/P of its cells,
+rotating); then the render draws its samples (single pass: all from the
+occupancy CDF, one field pass; otherwise coarse samples, stratified or from
+the grid, then importance samples from the coarse weights, and a fine pass
+at all of them), the field runs in ``precision`` (bf16 matmuls with float32
+parameters), compositing and the MSE losses (fine, plus coarse when not
+single pass) run in float32, the backward runs the hash-grid gradient
+kernels once per field pass, and AdamW steps with the OneCycle learning
+rate.
 
 Ported: the tuned single-pass NGP path (``cfg/blender_scene_tuned.yml``),
-also with ``hash_dense_grad_levels`` > 0 or ``hash_dense_corners: 1``.
-Not ported, each raising ``NotImplementedError``: the coarse->pdf->fine
-render (``single_pass: false``), ``hash_fwd_corners``/``hash_grad_corners``
-and ``hash_dense_corners`` of 2..7, ``occ_fast_cdf: false``, vanilla NeRF
-(``ngp: false``) and more than one card (``mesh_shape``,
-``shard_hash_table``).
+also with ``hash_dense_grad_levels`` > 0 or ``hash_dense_corners: 1``, and
+the coarse->pdf->fine path of the reference's configs
+(``cfg/blender_scene.yml``: ``single_pass: false``, with or without the
+grid, either CDF sampler, the exact estimators). Not ported, each raising
+``NotImplementedError``: ``hash_fwd_corners``/``hash_grad_corners`` and
+``hash_dense_corners`` of 2..7, vanilla NeRF (``ngp: false``) and more than
+one card (``mesh_shape``, ``shard_hash_table``).
 
 Randomness: nerfjax folds the step into its key (``fold_in(key, step)``),
 so a resumed run draws what an uninterrupted one would. The port reseeds
@@ -217,14 +222,10 @@ def _validated_single_pass(cfg: Mapping) -> bool:
 
 
 def _check_ported(s: TrainSettings) -> None:
-    if not (s.single_pass and s.use_occupancy):
-        raise NotImplementedError(
-            "only the single-pass occupancy path is ported; the coarse->pdf->fine render "
-            "is ROADMAP Queue 1 item 'the coarse->pdf->fine exact twin'"
-        )
     if s.shard_hash_table:
         raise NotImplementedError("shard_hash_table (multi-GPU) is ROADMAP Queue 1 item 'multi-GPU'")
-    s.occ_spec()
+    if s.use_occupancy:
+        s.occ_spec()
 
 
 def onecycle_lr_host(s: TrainSettings, count: int) -> float:
@@ -276,36 +277,44 @@ def clip_by_global_norm_(params, max_norm: float) -> None:
 
 
 def loss_fn(field, batch: Mapping[str, torch.Tensor], settings: TrainSettings, occ_grid, *,
-            xi=None, generator=None):
+            u_strat=None, u_pdf=None, generator=None):
     """(total, {loss_coarse, loss_fine, psnr}): MSE of the fine render
-    against the batch colors, in float32; single pass reports a coarse loss
-    of 0 (nerfjax ``loss_fn``)."""
+    against the batch colors plus, when not single pass, MSE of the coarse
+    render, in float32; single pass reports a coarse loss of 0 (nerfjax
+    ``loss_fn``). The one field serves both passes (``ngp: true``)."""
     from nerfjax_torch.render import render_rays_planar
 
     _check_ported(settings)
+    occ = settings.use_occupancy
     out = render_rays_planar(
-        field, batch["rays_o"], batch["rays_d"], batch["t_near"], batch["t_far"],
-        settings.n_samples, settings.n_importance,
-        occ_spec=settings.occ_spec(), occ_grid=occ_grid, white_bg=settings.white_bg,
-        dist_last=settings.dist_last, dtype=settings.dtype, single_pass=settings.single_pass,
-        xi=xi, generator=generator,
+        field, field, batch["rays_o"], batch["rays_d"], batch["t_near"], batch["t_far"],
+        settings.n_samples, settings.n_importance, white_bg=settings.white_bg, train=True,
+        dist_last=settings.dist_last, dtype=settings.dtype,
+        occ_spec=settings.occ_spec() if occ else None, occ_grid=occ_grid if occ else None,
+        single_pass=settings.single_pass, u_strat=u_strat, u_pdf=u_pdf, generator=generator,
     )
     loss_f = torch.mean((out["rgb_fine"].to(torch.float32) - batch["rgb"]) ** 2)
-    loss_c = torch.zeros_like(loss_f)
+    if settings.single_pass:
+        loss_c = torch.zeros_like(loss_f)
+        total = loss_f
+    else:
+        loss_c = torch.mean((out["rgb_coarse"].to(torch.float32) - batch["rgb"]) ** 2)
+        total = loss_c + loss_f
     psnr = -10.0 * torch.log10(loss_f)
-    return loss_f, {"loss_coarse": loss_c, "loss_fine": loss_f, "psnr": psnr}
+    return total, {"loss_coarse": loss_c, "loss_fine": loss_f, "psnr": psnr}
 
 
 @dataclasses.dataclass
 class TrainState:
     """Everything a step changes: the field, AdamW and its schedule, the
-    occupancy grid, the step count, and the generator of the step's draws."""
+    occupancy grid (None with ``occupancy_grid: false``), the step count,
+    and the generator of the step's draws."""
 
     settings: TrainSettings
     field: InstantNGP
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LRScheduler
-    occ_grid: torch.Tensor
+    occ_grid: torch.Tensor | None
     generator: torch.Generator
     seed: int = 0
     step: int = 0
@@ -313,7 +322,7 @@ class TrainState:
 
 def make_train_state(cfg: Mapping, settings: TrainSettings, *, seed: int = 0, device="cuda") -> TrainState:
     """A fresh state: field with tcnn's init from ``seed``, AdamW at step 0,
-    the all-ones occupancy grid."""
+    the all-ones occupancy grid (none with the grid off)."""
     from nerfjax_torch.ops.occupancy import init_grid
 
     _check_ported(settings)
@@ -321,15 +330,18 @@ def make_train_state(cfg: Mapping, settings: TrainSettings, *, seed: int = 0, de
     _, field, _ = build_fields(cfg, train=True, device=dev)
     field.init(torch.Generator().manual_seed(seed))
     opt, sched = make_optimizer(field, settings)
-    return TrainState(settings, field, opt, sched, init_grid(settings.occ_spec(), dev),
-                      torch.Generator(device=dev), seed=seed)
+    grid = init_grid(settings.occ_spec(), dev) if settings.use_occupancy else None
+    return TrainState(settings, field, opt, sched, grid, torch.Generator(device=dev), seed=seed)
 
 
 def update_occupancy(state: TrainState, *, jitter=None) -> None:
-    """Refresh the grid if this step is an update step (nerfjax: lax.cond on
-    step % update_every == 0; the phase advances once per update)."""
+    """Refresh the grid if there is one and this step is an update step
+    (nerfjax: lax.cond on step % update_every == 0; the phase advances once
+    per update)."""
     from nerfjax_torch.ops.occupancy import update_grid
 
+    if not state.settings.use_occupancy:
+        return
     spec = state.settings.occ_spec()
     if state.step % spec.update_every == 0:
         phase = (state.step // spec.update_every) % spec.update_partitions
@@ -337,16 +349,18 @@ def update_occupancy(state: TrainState, *, jitter=None) -> None:
                                      generator=state.generator, dtype=state.settings.dtype)
 
 
-def train_step(state: TrainState, batch: Mapping[str, torch.Tensor], *, xi=None, occ_jitter=None) -> dict:
+def train_step(state: TrainState, batch: Mapping[str, torch.Tensor], *, u_strat=None, u_pdf=None,
+               occ_jitter=None) -> dict:
     """One step on a batch of tensors on the field's device: occupancy
-    update (every update_every steps), render, loss, backward, AdamW.
-    ``xi``/``occ_jitter`` override the generator's draws (the parity tests
-    pass nerfjax's). Returns the step's metrics as 0-d tensors (no host
-    sync)."""
+    update (every update_every steps, with the grid on), render, loss,
+    backward, AdamW. ``u_strat``/``u_pdf`` (the render's) and
+    ``occ_jitter`` override the generator's draws (the parity tests pass
+    nerfjax's). Returns the step's metrics as 0-d tensors (no host sync)."""
     s = state.settings
     state.generator.manual_seed(state.seed * 1_000_003 + state.step)
     update_occupancy(state, jitter=occ_jitter)
-    total, aux = loss_fn(state.field, batch, s, state.occ_grid, xi=xi, generator=state.generator)
+    total, aux = loss_fn(state.field, batch, s, state.occ_grid, u_strat=u_strat, u_pdf=u_pdf,
+                         generator=state.generator)
     state.optimizer.zero_grad(set_to_none=True)
     total.backward()
     if s.grad_clip is not None:
@@ -354,13 +368,14 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor], *, xi=None,
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1
-    return {"loss_total": total.detach(), "loss_coarse": aux["loss_coarse"],
+    return {"loss_total": total.detach(), "loss_coarse": aux["loss_coarse"].detach(),
             "loss_fine": aux["loss_fine"].detach(), "psnr": aux["psnr"].detach()}
 
 
 def restore(state: TrainState, path, steps_per_epoch: int) -> int:
     """Resume ``state`` from a port checkpoint: field, AdamW, schedule, grid
-    and step count. Returns the checkpoint's epoch."""
+    (when the state has one) and step count. Returns the checkpoint's
+    epoch."""
     from nerfjax_torch import checkpoint as ckpt
 
     epoch = ckpt.restore_train_state(path, state.field, state.optimizer)
@@ -368,9 +383,10 @@ def restore(state: TrainState, path, steps_per_epoch: int) -> int:
     state.scheduler.last_epoch = state.step
     for group in state.optimizer.param_groups:
         group["lr"] = onecycle_lr_host(state.settings, state.step)
-    grid = ckpt.load_occ_grid(path)
-    if grid is not None and grid.shape == tuple(state.occ_grid.shape):
-        state.occ_grid = torch.from_numpy(grid).to(state.occ_grid.device)
+    if state.occ_grid is not None:
+        grid = ckpt.load_occ_grid(path)
+        if grid is not None and grid.shape == tuple(state.occ_grid.shape):
+            state.occ_grid = torch.from_numpy(grid).to(state.occ_grid.device)
     return epoch
 
 

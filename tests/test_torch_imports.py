@@ -61,11 +61,14 @@ def test_every_port_module_imports_without_nerfjax_and_jax():
         "for m in mods: importlib.import_module(m)\n"
         f"spec = importlib.util.spec_from_file_location('chip_smoke', {str(ROOT / 'chip_smoke.py')!r})\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
-        "print(len(mods))\n"
+        "print(' '.join(mods))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20
+    mods = out.stdout.split()
+    assert len(mods) >= 24
+    for name in ("render", "render_image", "rays", "probes", "cli.render", "cli.eval_psnr"):
+        assert f"nerfjax_torch.{name}" in mods
 
 
 @pytest.mark.parametrize("name", sorted(p.name for p in (ROOT / "cfg").glob("*.yml")))

@@ -238,3 +238,60 @@ def test_train_step_launches_the_kernels(cuda_device, knob):
     torch.cuda.synchronize()
     assert np.isfinite(float(m["loss_fine"]))
     assert all(n >= 1 for n in hash_encode.launch_counts.values()), hash_encode.launch_counts
+
+
+def test_dropin_step_launches_the_kernels_twice(cuda_device):
+    """An exact two-pass step (the drop-in sampler, no grid) runs each hash
+    kernel once per field pass: K1 and K4 in both forwards, K5, K3 and K2
+    in both backwards."""
+    from nerfjax_torch.train import TrainSettings, make_train_state, train_step
+
+    cfg = {"ngp": True, "nerf_type": "small", "hash_n_levels": 8, "single_pass": False, "occupancy_grid": False,
+           "N_samples": 8, "N_importance": 16}
+    state = make_train_state(cfg, TrainSettings.from_cfg(cfg, 10), device=cuda_device)
+    rng = np.random.default_rng(31)
+    o = rng.normal(size=(64, 3)).astype(np.float32)
+    o = 2.5 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    d = -o / np.linalg.norm(o, axis=1, keepdims=True)
+    batch = {"rays_o": o, "rays_d": d, "rgb": rng.uniform(size=(64, 3)).astype(np.float32),
+             "t_near": np.full(64, 1.5, np.float32), "t_far": np.full(64, 3.5, np.float32)}
+    hash_encode.reset_launch_counts()
+    m = train_step(state, {k: torch.from_numpy(v).to(cuda_device) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert np.isfinite(float(m["loss_fine"])) and float(m["loss_coarse"]) > 0
+    assert hash_encode.launch_counts == {k: 2 for k in hash_encode.launch_counts}, hash_encode.launch_counts
+
+
+def test_render_image_runs_the_head_kernel(cuda_device):
+    """Eval rendering on the card goes through the fused head in both
+    passes (one launch per pass and chunk)."""
+    from nerfjax_torch.render_image import orbit_poses, render_image
+    from nerfjax_torch.train import build_fields
+
+    field = build_fields({"ngp": True, "nerf_type": "small", "hash_n_levels": 8}, device=cuda_device)[1]
+    field.init(torch.Generator().manual_seed(0))
+    K = np.array([[25.6, 0.0, 16.0], [0.0, 25.6, 16.0], [0.0, 0.0, 1.0]], np.float32)
+    fused_mlp.reset_launch_counts()
+    img = render_image(field, K, orbit_poses(2)[0], 32, 32, n_samples=8, n_importance=16, chunk_rays=256)
+    assert img.shape == (32, 32, 3) and np.isfinite(img).all()
+    assert fused_mlp.launch_counts["fused_ngp_head"] >= 2 and fused_mlp.launch_counts["fused_ngp_head"] % 2 == 0
+
+
+# -- the probe kernels ---------------------------------------------------------------
+
+from nerfjax_torch import probes  # noqa: E402
+
+
+@pytest.mark.parametrize("i", range(6), ids=list(probes.launch_counts))
+def test_probe_kernel_matches_plain(cuda_device, i):
+    """Each probe kernel against its plain version on micro_probe.py's
+    inputs: equal (the dots within K * 2^-24 * sum |a||b| per element)."""
+    name, kernel, wrapper, plain, args, bound = probes.probes(*probes.probe_inputs(cuda_device))[i]
+    before = probes.launch_counts[kernel]
+    probes.check(name, wrapper(*args), plain(*args), bound)
+    assert probes.launch_counts[kernel] == before + 1
+
+
+def test_probes_main_on_the_card(cuda_device, capsys):
+    assert probes.main(device="cuda") == 0
+    assert sum(line.endswith(" OK") for line in capsys.readouterr().out.splitlines()) == 6

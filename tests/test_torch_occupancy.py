@@ -95,7 +95,15 @@ def test_sample_cdf_fast_matches_nerfjax(M, atol):
 
 
 def test_slow_cdf_sampler_is_not_ported():
+    """The reference-shaped sampler (fast_cdf: false) runs: sample_pdf over
+    the segment weights with the given uniforms, sorted, inside [near, far]
+    (tests/test_torch_render_hier.py holds it against nerfjax's)."""
+    from nerfjax_torch.render import sample_pdf
+
     spec = occ.OccupancyGridSpec(resolution=R, fast_cdf=False)
-    o, d, near, far, grid = _rays(1, B=4)
-    with pytest.raises(NotImplementedError):
-        occ.occupancy_sample(spec, *map(torch.from_numpy, (grid, o, d, near, far)), 8)
+    o, d, near, far, grid = map(torch.from_numpy, _rays(1, B=4))
+    xi = torch.rand(4, 8, generator=torch.Generator().manual_seed(0))
+    z = occ.occupancy_sample(spec, grid, o, d, near, far, 8, xi=xi)
+    edges, w = occ.segment_weights(spec, grid, o, d, near, far)
+    assert torch.equal(z, torch.sort(sample_pdf(edges, w, 8, u=xi), dim=-1).values)
+    assert (z >= near[:, None]).all() and (z <= far[:, None]).all()

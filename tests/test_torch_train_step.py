@@ -2,7 +2,9 @@
 around it (schedule, AdamW, batches), at a small size of the tuned
 single-pass configuration (NGP small, 8 levels, 1 promoted dense level,
 24 samples per ray, 16^3 occupancy grid in 4 partitions, 8 segments, k = 1
-forward and backward over 2 drawn levels).
+forward and backward over 2 drawn levels) and of the drop-in configuration
+of cfg/blender_scene.yml (two passes, 8 stratified + 16 importance samples,
+no grid, the exact estimators; 2 dense and 6 hashed levels).
 
 nerfjax's step runs under ``jax.disable_jit()``, as the body of
 ``make_train_step``'s step (train.py:392-425) spells it: the occupancy
@@ -10,9 +12,13 @@ update, ``jax.value_and_grad(loss_fn)`` and the optax AdamW update. Compiled,
 XLA's CPU backend contracts ``o + d*z`` into an FMA, which moves the
 position bits the k = 1 draws are keyed on; op by op, JAX rounds the
 product and the sum separately, as the port does. The port gets the
-uniforms nerfjax draws (``xi`` of the sampler, the jitter of the occupancy
-update), recomputed here from nerfjax's key splits.
+uniforms nerfjax draws (``u_strat`` of the first sampler, ``u_pdf`` of the
+importance sampler, the jitter of the occupancy update), recomputed here
+from nerfjax's key splits.
 """
+
+import contextlib
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +27,7 @@ import optax
 import pytest
 import torch
 
+from nerfjax import render as jrender
 from nerfjax.config import ConfigNode
 from nerfjax.data import RayDataset as JaxRayDataset
 from nerfjax.ops.occupancy import update_grid
@@ -29,6 +36,7 @@ from nerfjax.train import build_fields as jax_build_fields
 from nerfjax.train import init_occupancy, init_params, loss_fn, make_optimizer
 from nerfjax.train import onecycle_lr_host as jax_onecycle
 from nerfjax_torch import checkpoint as ckpt
+from nerfjax_torch import render as R
 from nerfjax_torch import train as T
 from nerfjax_torch.data import RayDataset
 from tests.synthetic import make_ray_npz
@@ -42,12 +50,17 @@ CFG = {
     "occ_resolution": 16, "occ_update_every": 16, "occ_update_partitions": 4,
     "occ_fast_cdf": True, "occ_segments": 8,
 }
+# cfg/blender_scene.yml's sampler and estimators (its keys over CFG's)
+DROP_IN = {"occupancy_grid": False, "single_pass": False, "occ_fast_cdf": False, "hash_extra_dense_levels": 0,
+           "hash_grad_corners": 8, "hash_fwd_corners": 8, "hash_grad_levels": 0}
 CASES = {
     "fp32": {"precision": "fp32"},
     "fp32_twin": {"precision": "fp32", "dist_last": 1e6, "grad_clip": 1.0},
     "bf16": {},
     "bf16_dgl1": {"hash_dense_grad_levels": 1},
     "bf16_dc1": {"hash_dense_corners": 1},
+    "dropin_fp32": {**DROP_IN, "precision": "fp32"},
+    "dropin_bf16": DROP_IN,
 }
 
 
@@ -59,16 +72,36 @@ def batch(tmp_path_factory):
 
 
 def _nerfjax_draws(settings, skey):
-    """The sampler's xi and the occupancy update's jitter that nerfjax's
-    step draws from skey = fold_in(key, step) (render.py:218,
-    occupancy.py:77,99-101, _sample_cdf_fast's xi)."""
-    k_strat = jax.random.split(skey, 4)[0]
-    xi = jax.random.uniform(k_strat, (B, settings.n_samples + settings.n_importance), jnp.float32)
+    """The render's u_strat and u_pdf and the occupancy update's jitter that
+    nerfjax's step draws from skey = fold_in(key, step) (render.py:218 and
+    :274, sample_pdf's u; occupancy.py:77,99-101, _sample_cdf_fast's xi).
+    u_pdf and the jitter are None where the step draws none."""
+    k_strat, k_pdf = jax.random.split(skey, 4)[:2]
+    n_first = settings.n_samples + (settings.n_importance if settings.single_pass else 0)
+    u_strat = torch.from_numpy(np.array(jax.random.uniform(k_strat, (B, n_first), jnp.float32)))
+    u_pdf = None if settings.single_pass else torch.from_numpy(
+        np.array(jax.random.uniform(k_pdf, (B, settings.n_importance), jnp.float32)))
+    if not settings.use_occupancy:
+        return u_strat, u_pdf, None
     spec = settings.occ_spec()
     n = spec.resolution**3 // spec.update_partitions
     keys = jax.random.split(jax.random.fold_in(skey, 777), 3)
     jitter = np.stack([np.asarray(jax.random.uniform(k, (n,), jnp.float32, -0.5, 0.5)) for k in keys])
-    return torch.from_numpy(np.asarray(xi)), torch.from_numpy(jitter)
+    return u_strat, u_pdf, torch.from_numpy(jitter)
+
+
+def _port_importance_depths(state, batch, u_strat, u_pdf, monkeypatch) -> np.ndarray:
+    """The importance depths [B, n_importance] of the port's render at the
+    state's field with these uniforms (its sample_pdf's output, recorded)."""
+    real, seen = R.sample_pdf, []
+    monkeypatch.setattr(R, "sample_pdf", lambda *a, **kw: seen.append(real(*a, **kw)) or seen[-1])
+    s = state.settings
+    with torch.no_grad():
+        R.render_rays_planar(state.field, state.field, batch["rays_o"], batch["rays_d"], batch["t_near"],
+                             batch["t_far"], s.n_samples, s.n_importance, train=True, dtype=s.dtype,
+                             u_strat=u_strat, u_pdf=u_pdf)
+    assert len(seen) == 1 and seen[0].shape == (B, s.n_importance)
+    return seen[0].numpy()
 
 
 def _flat(tree) -> dict[str, np.ndarray]:
@@ -77,7 +110,7 @@ def _flat(tree) -> dict[str, np.ndarray]:
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_train_step_matches_nerfjax(case, batch):
+def test_train_step_matches_nerfjax(case, batch, monkeypatch):
     """Loss, PSNR, every gradient and every parameter after AdamW.
 
     fp32: rtol 1e-4 (the MLP products sum in another order on each side;
@@ -89,10 +122,28 @@ def test_train_step_matches_nerfjax(case, batch):
     relative, with a floor of 2e-2 x the largest entry. Parameters after
     AdamW: the first update is lr * g/(|g| + eps), so an entry moves by
     lr x (sign of g) unless |g| is near eps; the bound is 1e-3 x lr (fp32)
-    and 5e-2 x lr (bf16) absolute, at entries where |g| > 1e-6.
+    and 5e-2 x lr (bf16) absolute, at entries where |g| > 1e-6. The bf16
+    drop-in case also needs |g| above the gradient check's floor, 2e-2 x
+    the largest entry: only there does that check fix the sign of g, and
+    its two passes sum more cancelling terms (a gradient of 1e-6 came out
+    5e-8, near eps, on the other side). That still holds 32% of the table's
+    entries with |g| > 1e-6 and 86-100% of each MLP layer's; at least a
+    quarter of each array's is asserted.
+
+    The drop-in cases pin the importance depths: both steps get the ones
+    the port's sampler draws from its own coarse weights with nerfjax's
+    u_pdf. An importance depth in a bin of low pdf moves by the coarse
+    weights' rounding over that pdf (at init the inner weights are ~1e-6,
+    where 1 - exp(-sigma*delta) carries ~6e-8 of rounding: up to 2e-3 in
+    depth), which would move points across grid cells;
+    tests/test_torch_render_hier.py holds the sampler to nerfjax's on the
+    same weights. nerfjax's drop-in step is compiled (the exact encode keys
+    on no position bits; an FMA moves a position by an ulp, and the
+    trilinear weights are continuous in it).
     """
     cfg = {**CFG, **CASES[case]}
-    bf16 = case.startswith("bf16")
+    bf16 = cfg["precision"] == "bf16"
+    settings = T.TrainSettings.from_cfg(cfg, total_steps=100)
     settings_j = JaxSettings.from_cfg(ConfigNode(cfg), total_steps=100)
     fc, ff, _ = jax_build_fields(ConfigNode(cfg), train=True)
     key = jax.random.PRNGKey(7)
@@ -100,28 +151,43 @@ def test_train_step_matches_nerfjax(case, batch):
     params_j = init_params(ConfigNode(cfg), k_init)
     tx = make_optimizer(settings_j)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     skey = jax.random.fold_in(k_train, 0)
-    with jax.disable_jit():
+    state = T.make_train_state(cfg, settings, device="cpu")
+    state.field.load_params(ckpt.params_from_jax(params_j["model"]))
+    u_strat, u_pdf, jitter = _nerfjax_draws(settings, skey)
+    if not settings.single_pass:
+        z_imp = _port_importance_depths(state, tbatch, u_strat, u_pdf, monkeypatch)
+        monkeypatch.setattr(jrender, "sample_pdf", lambda key, bins, w, n, u=None: jnp.asarray(z_imp))
+        monkeypatch.setattr(R, "sample_pdf", lambda bins, w, n, *, u=None, generator=None: torch.from_numpy(z_imp))
+
+    def grads(params, occ):
+        return jax.value_and_grad(loss_fn, has_aux=True)(params, jbatch, skey, fc, ff, settings_j, occ)
+
+    with jax.disable_jit() if settings.single_pass else contextlib.nullcontext():
         # step 0 of make_train_step's step_fn: update (phase 0), grads, AdamW
-        occ_j = update_grid(settings_j.occ_spec(), init_occupancy(settings_j), ff, params_j["model"],
-                            jax.random.fold_in(skey, 777), phase=0)
-        (total_j, aux_j), grads_j = jax.value_and_grad(loss_fn, has_aux=True)(
-            params_j, jbatch, skey, fc, ff, settings_j, occ_j)
+        occ_j = init_occupancy(settings_j)
+        if settings_j.use_occupancy:
+            occ_j = update_grid(settings_j.occ_spec(), occ_j, ff, params_j["model"],
+                                jax.random.fold_in(skey, 777), phase=0)
+        (total_j, aux_j), grads_j = (grads if settings.single_pass else jax.jit(grads))(params_j, occ_j)
         updates, _ = tx.update(grads_j, tx.init(params_j), params_j)
         new_j = optax.apply_updates(params_j, updates)
     metrics_j = {"loss_total": total_j, **aux_j}
+    metrics = T.train_step(state, tbatch, u_strat=u_strat, u_pdf=u_pdf, occ_jitter=jitter)
 
-    settings = T.TrainSettings.from_cfg(cfg, total_steps=100)
-    state = T.make_train_state(cfg, settings, device="cpu")
-    state.field.load_params(ckpt.params_from_jax(params_j["model"]))
-    xi, jitter = _nerfjax_draws(settings, skey)
-    metrics = T.train_step(state, {k: torch.from_numpy(v) for k, v in batch.items()}, xi=xi, occ_jitter=jitter)
-
-    np.testing.assert_array_equal(state.occ_grid.numpy() > 0.01, np.asarray(occ_j) > 0.01)
+    if settings.use_occupancy:
+        np.testing.assert_array_equal(state.occ_grid.numpy() > 0.01, np.asarray(occ_j) > 0.01)
+    else:
+        assert state.occ_grid is None
     rtol = 2e-2 if bf16 else 1e-4
     for name in ("loss_total", "loss_fine", "psnr"):
         np.testing.assert_allclose(float(metrics[name]), float(metrics_j[name]), rtol=rtol)
-    assert float(metrics["loss_coarse"]) == 0.0
+    if settings.single_pass:
+        assert float(metrics["loss_coarse"]) == 0.0
+    else:
+        np.testing.assert_allclose(float(metrics["loss_coarse"]), float(metrics_j["loss_coarse"]), rtol=rtol)
+        assert float(metrics["loss_coarse"]) > 0.0
     if case != "fp32_twin":  # the twin's gradients are clipped in the step
         grads_t = {"table": state.field.table.grad,
                    **{f"{n}{i}": w.grad for n in ("dmlp", "cmlp") for i, w in enumerate(getattr(state.field, n))}}
@@ -132,7 +198,9 @@ def test_train_step_matches_nerfjax(case, batch):
     gref = _flat(grads_j["model"])
     after = _flat(ckpt.params_to_numpy(state.field.params()))
     for name, pj in _flat(new_j["model"]).items():
-        sure = np.abs(gref[name]) > 1e-6
+        floor = max(1e-6, rtol * np.abs(gref[name]).max()) if bf16 and not settings.single_pass else 1e-6
+        sure = np.abs(gref[name]) > floor
+        assert sure.sum() >= 0.25 * (np.abs(gref[name]) > 1e-6).sum(), (name, sure.mean())
         err = np.abs(after[name] - pj)[sure]
         assert err.max(initial=0.0) <= (5e-2 if bf16 else 1e-3) * lr, (name, err.max())
 
@@ -192,3 +260,29 @@ def test_epoch_batches_match_nerfjax(tmp_path):
         assert a.keys() == b.keys()
         for k in a:
             np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_train_without_grid_writes_no_grid_and_resumes(tmp_path):
+    """train() on the drop-in sampler (no occupancy grid): the checkpoints
+    hold no occ_grid.npy record, the coarse loss is trained, and a run
+    resumed from its epoch-2 checkpoint ends equal to one run straight
+    through."""
+    make_ray_npz(tmp_path / "r.npz", n_rays=256, seed=2)
+
+    def cfg(name):
+        out = tmp_path / name
+        return {**CFG, **DROP_IN, "batch_size": 128, "num_epochs": 3, "rays_file": str(tmp_path / "r.npz"),
+                "output_dir": str(out), "checkpoint_dir": str(out / "ckpt")}
+
+    a, b = cfg("a"), cfg("b")
+    ref = T.train(a, device="cpu", log_every=1000)
+    epoch2 = Path(a["checkpoint_dir"]) / "nerf_epoch_000002.pth"
+    final = Path(a["checkpoint_dir"]) / "nerf_final.pth"
+    assert ref["steps"] == 6 and np.isfinite(ref["psnr"]).all() and ref["metrics"]["loss_coarse"] > 0
+    assert ckpt.load_occ_grid(epoch2) is None and ckpt.load_occ_grid(final) is None
+    Path(b["checkpoint_dir"]).mkdir(parents=True)
+    (Path(b["checkpoint_dir"]) / epoch2.name).write_bytes(epoch2.read_bytes())
+    got = T.train(b, device="cpu", resume=True, log_every=1000)
+    assert got["steps"] == 6 and len(got["psnr"]) == 2
+    for name, want in _flat(ref["params"]).items():
+        np.testing.assert_array_equal(_flat(got["params"])[name], want, err_msg=name)
