@@ -75,9 +75,17 @@ Added for the hierarchical path, each printed as it ends:
   9b. one drop-in step at the CPU tests' small size and one 32 x 32 render
      in float32, card against CPU, with the same draws.
 
+Added for the kernel redesigns (the dot, K2 exact):
+
+  P. also each dot's max error as a fraction of K*2^-24*sum|a||b|;
+  7c. K2 exact timed at both drop-in passes beside the atomics it issues
+     (the first design's 16*Lh*N float adds, k2_atomic_count's float2
+     runs).
+
 The last two lines are a JSON object with each kernel's launches (summed
 over the main paths: the 512^3 extraction, both train() runs, the eval
-render, the probe entry point), error, times and bound, then
+render, the probe entry point), error, times and bound (K2 also its exact
+mode's times, bounds and atomics at the drop-in passes), then
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -184,22 +192,24 @@ def _time_ms(fn, iters: int = 20) -> float:
     """Device ms per call of fn: the summed durations of the kernels (and
     copies) it runs over iters calls, from a torch.profiler trace of the
     card alone; the host's time between them is left out. A trace that
-    came back without device events (seen once in ~100 traces) is taken
-    again, up to 3 times."""
+    came back without device events (seen about once in 100 traces, and
+    once three times in a row on a kernel of ~6 us) is taken again, up to
+    5 times, each over twice the calls."""
     import torch
     from torch.autograd import DeviceType
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(5):
+        n = iters << attempt
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            for _ in range(n):
                 fn()
             torch.cuda.synchronize()
         us = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
         if us > 0:
-            return us / 1e3 / iters
-    raise AssertionError("3 profiler traces in a row show no device time")
+            return us / 1e3 / n
+    raise AssertionError("5 profiler traces in a row show no device time")
 
 
 def kernels_vs_plain() -> dict:
@@ -849,6 +859,12 @@ def step_kernels_vs_plain(cap: dict, label: str, stats: dict, timed=()) -> dict:
                zeroed(buf[:, base:], lambda: he.hash_levels_bwd_plain(spec, g, x, y, z, buf)), None, k2_bound)
         checked.append(f"K2 {['exact', 'k=1', f'k=1 over {gl} of {Lh} levels'][mode]} within the atomic-order "
                        f"bound, max |err| {err:.3g}")
+        if mode == 0:
+            atomics = {"first": 16 * Lh * N, "runs": he.k2_atomic_count(spec, x, y, z)}
+            checked.append(f"K2 exact's atomics: {atomics['runs']:,} float2 adds of merged runs (the first design's "
+                           f"16*Lh*N: {atomics['first']:,} float adds)")
+            if "hash_levels_bwd" in out:
+                out["hash_levels_bwd"]["atomics"] = atomics
 
     phase(f"hash kernels at the {label} (N={N:,}, {Ld} dense + {Lh} hashed levels): " + "; ".join(checked))
     for name, t in out.items():
@@ -1217,6 +1233,11 @@ def probes_vs_plain() -> dict:
         phase(f"{kernel} ({name.strip()}): kernel == plain {rule}, max |err| {err:.3g}; main-path launches "
               f"{launches[kernel]}")
         phase("  " + _timing_line(t))
+        if dot_bound is not None:
+            frac = float(((wrapper(*args) - plain(*args)).abs() / dot_bound.clamp_min(1e-30)).max())
+            mma = kernel == "k_dot_dim0_bf16"
+            note = ": mma.sync, whose f32 sums round otherwise than sequential adds" if mma else ""
+            phase(f"  {kernel}: max |err| / (K*2^-24*sum|a||b|) = {frac:.3g} at K={K}{note}")
     return stats
 
 
@@ -1523,10 +1544,13 @@ def main() -> int:
         knobs = {label: train_dense_knob(Path(tmp), label, hstats) for label in DENSE_KNOBS}
         dropin = train_dropin(Path(tmp))
         passes = dropin.pop("step_inputs")
-        for N in sorted(passes):  # the timings at the fine pass are extra lines
-            fine = N == max(passes)
-            step_kernels_vs_plain(passes[N], f"drop-in step's {'fine' if fine else 'coarse'} pass", hstats,
-                                  DROP_IN_KERNELS if fine else ())
+        k2 = {}  # K2 exact at the drop-in passes; the kernels line carries it beside the tuned step's K2
+        for N in sorted(passes):  # the timings at the drop-in passes are extra lines
+            which = "fine" if N == max(passes) else "coarse"
+            label = f"drop-in step's {which} pass"
+            timed = step_kernels_vs_plain(passes[N], label, hstats,
+                                          DROP_IN_KERNELS if which == "fine" else ("hash_levels_bwd",))
+            k2[which] = timed["hash_levels_bwd"]
         del passes
         extract_trained(trained["cfg"], trained["final"])
         evals = {"tuned": eval_render(trained["final"], TUNED_CFG, "tuned", stats, hstats),
@@ -1572,6 +1596,12 @@ def main() -> int:
             "plain_ms": h["plain_ms"], "bound_ms": h["bound"][0], "bound_by": h["bound"][1],
             "library_ms": h.get("library_ms"),
         })
+        if name == "hash_levels_bwd":  # ms above: the tuned step's k = 1 modes; the exact mode at the drop-in passes
+            for which in ("fine", "coarse"):
+                t = k2[which]
+                kernels[-1].update({f"exact_{which}_ms": t["ms"], f"exact_{which}_bound_ms": t["bound"][0],
+                                    f"exact_{which}_atomics": t["atomics"]["runs"],
+                                    f"exact_{which}_atomics_first_design": t["atomics"]["first"]})
     for name, line in PROBE_LINES.items():
         t = pstats[name]
         kernels.append({

@@ -22,7 +22,7 @@
 //                         8-corner trilinear sum, or the k = 1 dithered
 //                         estimate (one corner drawn with P = its weight)
 //   hash_levels_bwd    <- the XLA backward _hash_levels_bwd (:335-406): the
-//                         scatter-add of g*w to all 8 corners (exact), of g
+//   (+ _exact, fold)      scatter-add of g*w to all 8 corners (exact), of g
 //                         to the planned corner (k = 1), or of g*Lh/gl to
 //                         the planned corner of gl drawn levels
 //   table_grad_scatter <- the Pallas kernels grad_onehot (_onehot_kernel)
@@ -49,10 +49,32 @@
 // the function needs. The backward's atomicAdds land at the same random
 // addresses (the L2 performs them). The hashed levels of the tuned model
 // hold 2 x 7 x 2^19 f32 = 29 MB, which fits the 50 MB L2, so most sectors
-// come from L2 rather than HBM. This first version is simple: one thread
-// per (level, point) in the forward, per (drawn level, point) in the
-// backward, positions and outputs coalesced along points, no shared-memory
-// staging, no sorting of indices. PERF.md has its times beside its bounds.
+// come from L2 rather than HBM. K1 and the k = 1 modes of K2 are simple:
+// one thread per (level, point), or per (drawn level, point), positions
+// and outputs coalesced along points, no shared-memory staging, no sorting
+// of indices. PERF.md has their times beside their bounds.
+//
+// K2 exact is bound by the L2's atomic rate, not by bytes. The first design
+// issued 16 float atomics per (level, point), one per corner and
+// plane: 302M at the drop-in step's fine pass (12 hashed levels, N =
+// 1,572,864), ~3.1 ms, ~95G atomics/s, against a 66 us bound on bytes. Two
+// facts of that data make the count larger than it needs to be: the two
+// planes of an entry lie 4*total bytes apart, in two sectors; and a fine
+// pass is ray-major with each ray's depths sorted, so neighbouring lanes of
+// a warp are neighbouring samples of one ray, which share all 8 corners at
+// the coarse hashed levels. The design: per corner, each warp merges runs
+// of equal indices (a shuffle scan, merge_run) and only a run's last lane
+// adds; that add is one float2 atomic into an interleaved [T, 2] scratch,
+// which a coalesced pass (scratch_fold_kernel) adds into the two planes.
+// The level-major thread order stays: the hashed gradient (12 x 2^19
+// entries x 8 B = 50 MB) is the size of the L2, and one level's 4 MB is
+// live at a time. On an H100 80GB HBM3 (700 W), at that fine pass: the
+// first design 3.1 ms, merge only 2.4 ms (230M float adds), float2 only
+// 1.75 ms (151M float2 adds), both 1.36 ms (115M float2 adds, the scratch
+// zeroing and fold ~75 us of it); the time follows the count of atomics,
+// ~90-97G a second whatever their width, not their contention (PERF.md
+// keeps each variant's times and counts). The k = 1 modes issue ~0.8M atomics a call: the scratch pass would cost them more
+// than it saves, and they add straight into the planes (scatter_add2).
 //
 // The dense levels (K4, K5) are collision free and small: the tuned model's
 // five hold 753,488 entries, 6.0 MB in the two f32 planes, which stay in L2,
@@ -176,12 +198,39 @@ __device__ __forceinline__ int draw_level(uint32_t seed, int j, int Lh) {
 }
 
 // out0[i] += v0, out1[i] += v1 for 0 <= i < T; an index outside is dropped.
-// The one add of K2 and K3.
+// The add of K3 and of K2's k = 1 modes.
 __device__ __forceinline__ void scatter_add2(float* out0, float* out1, int64_t T, int64_t i,
                                              float v0, float v1) {
   if (i < 0 || i >= T) return;
   atomicAdd(out0 + i, v0);
   atomicAdd(out1 + i, v1);
+}
+
+constexpr unsigned FULL_WARP = 0xFFFFFFFFu;
+
+// K2 exact's merge. The lanes of the warp whose indices i are equal in a
+// row form a run (a lane starts one where its index differs from the
+// previous lane's). Returns true on each run's last lane, which then holds
+// the run's sums of v0 and of v1, and false on the others. A segmented
+// inclusive scan: lane L adds the partial sum of lane L - d while L - d
+// lies in its run (d = 1, 2, ..., 16), both planes together; a warp whose
+// 32 lanes are 32 runs skips it. Called by all 32 lanes.
+__device__ __forceinline__ bool merge_run(int64_t i, float& v0, float& v1) {
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int64_t prev = __shfl_up_sync(FULL_WARP, i, 1);
+  const unsigned heads = __ballot_sync(FULL_WARP, lane == 0 || prev != i);
+  if (heads == FULL_WARP) return true;
+  const int start = 31 - __clz(heads & (FULL_WARP >> (31 - lane)));  // the first lane of this lane's run
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float u0 = __shfl_up_sync(FULL_WARP, v0, d);
+    const float u1 = __shfl_up_sync(FULL_WARP, v1, d);
+    if (lane - d >= start) {
+      v0 = __fadd_rn(v0, u0);
+      v1 = __fadd_rn(v1, u1);
+    }
+  }
+  return lane == 31 || ((heads >> (lane + 1)) & 1u);
 }
 
 // K1. planes: [2, total] f32; the hashed levels start at column base.
@@ -225,10 +274,66 @@ hash_levels_fwd_kernel(const float* __restrict__ planes, int64_t total, int64_t 
   out[Lh * N + t] = e1;
 }
 
-// K2. g: [2, Lh, N] f32 upstream gradient; grad: [2, total] f32 that the
-// hashed levels' gradient is added into, at columns base.. (the encode's
-// backward hands K3 and K2 one zeroed gradient).
-//   MODE 0: exact, one thread per (level, point), g*w to all 8 corners
+// K2 exact. g: [2, Lh, N] f32 upstream gradient; grad: [2, total] f32 that
+// the hashed levels' gradient is added into, at columns base.. (the encode's
+// backward hands K3 and K2 one zeroed gradient). One thread per (level,
+// point), t = l*N + n (level-major: the live part of the gradient is about
+// one level's table at a time), g*w to all 8 corners. Per corner, the lanes
+// of a warp whose indices are equal in a row (neighbouring samples of one
+// ray in one cell) sum their terms with a shuffle scan (merge_run), and
+// each run's last lane adds the sums with one float2 atomic into scratch,
+// the zeroed interleaved [T, 2] (both planes of an entry in one 8-byte
+// word); scratch_fold_kernel then adds it into grad's two planes. Lanes
+// past the end stay in the warp's shuffles with no index.
+__global__ void __launch_bounds__(THREADS)
+hash_levels_bwd_exact_kernel(const float* __restrict__ g, const float* __restrict__ xs,
+                             const float* __restrict__ ys, const float* __restrict__ zs, int64_t N,
+                             int Lh, Levels L, uint32_t mask, int64_t T,
+                             float2* __restrict__ scratch) {
+  int64_t t = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+  const bool live = t < Lh * N;
+  int r = 0, ix = 0, iy = 0, iz = 0;
+  float tx = 0.0f, ty = 0.0f, tz = 0.0f, g0 = 0.0f, g1 = 0.0f;
+  if (live) {
+    r = static_cast<int>(t / N);
+    int64_t n = t - r * N;
+    lattice(xs[n], L.scale[r], ix, tx);
+    lattice(ys[n], L.scale[r], iy, ty);
+    lattice(zs[n], L.scale[r], iz, tz);
+    g0 = g[r * N + n];
+    g1 = g[(Lh + r) * N + n];
+  }
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    int64_t i = -1;  // -1: no add (a lane past the end, or an index outside the table)
+    float v0 = 0.0f, v1 = 0.0f;
+    if (live) {
+      const float w = corner_weight(c, tx, ty, tz);
+      i = hash_index(ix, iy, iz, c, mask) + L.offset[r];
+      if (i >= T) i = -1;
+      v0 = __fmul_rn(g0, w);
+      v1 = __fmul_rn(g1, w);
+    }
+    if (merge_run(i, v0, v1) && i >= 0) atomicAdd(scratch + i, make_float2(v0, v1));
+  }
+}
+
+// grad[p][base + i] += scratch[i] (x: plane 0, y: plane 1) for i < T;
+// entries no add reached (both zero) are left as they are.
+__global__ void __launch_bounds__(THREADS)
+scratch_fold_kernel(const float2* __restrict__ scratch, int64_t T, int64_t total, int64_t base,
+                    float* __restrict__ grad) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x; i < T;
+       i += static_cast<int64_t>(gridDim.x) * THREADS) {
+    const float2 v = scratch[i];
+    if (v.x != 0.0f || v.y != 0.0f) {
+      grad[base + i] = __fadd_rn(grad[base + i], v.x);
+      grad[total + base + i] = __fadd_rn(grad[total + base + i], v.y);
+    }
+  }
+}
+
+// K2, k = 1. g, grad as for K2 exact.
 //   MODE 1: k = 1, one thread per (level, point), g to the planned corner
 //   MODE 2: k = 1 with the level subset, one thread per (draw, point): the
 //           draw's level l, g[l]*scale (scale = Lh/gl) to its planned corner;
@@ -248,21 +353,6 @@ hash_levels_bwd_kernel(const float* __restrict__ g, int64_t total, int64_t base,
   float* o0 = grad + base;
   float* o1 = grad + total + base;
   int64_t T = total - base;
-  if (MODE == 0) {
-    int ix, iy, iz;
-    float tx, ty, tz;
-    lattice(x, L.scale[r], ix, tx);
-    lattice(y, L.scale[r], iy, ty);
-    lattice(z, L.scale[r], iz, tz);
-    float g0 = g[r * N + n], g1 = g[(Lh + r) * N + n];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      float w = corner_weight(c, tx, ty, tz);
-      scatter_add2(o0, o1, T, hash_index(ix, iy, iz, c, mask) + L.offset[r], __fmul_rn(g0, w),
-                   __fmul_rn(g1, w));
-    }
-    return;
-  }
   int l = MODE == 2 ? draw_level(position_seed(x, y, z, LEVEL_SALT), r, Lh) : r;
   int64_t i = plan_k1(L, l, mask, x, y, z, position_seed(x, y, z, 0u));
   float g0 = g[l * N + n], g1 = g[(Lh + l) * N + n];
@@ -478,19 +568,26 @@ extern "C" int nerf_hash_levels_fwd(const float* planes, int64_t total, int64_t 
   return static_cast<int>(cudaGetLastError());
 }
 
-// mode: 0 exact, 1 k = 1, 2 k = 1 with gl drawn levels scaled by `scale`
+// mode: 0 exact, 1 k = 1, 2 k = 1 with gl drawn levels scaled by `scale`.
+// Exact only: scratch, a zeroed [total - base, 2] f32 buffer, which K2 exact
+// adds into and the fold kernel launched after it adds into grad.
 extern "C" int nerf_hash_levels_bwd(const float* g, int64_t total, int64_t base, const float* x,
                                     const float* y, const float* z, int64_t N, int Lh,
                                     const float* scales, const int64_t* offsets, uint32_t mask,
-                                    int mode, int gl, float scale, float* grad, void* stream) {
+                                    int mode, int gl, float scale, float* grad, float* scratch,
+                                    void* stream) {
   Levels L;
-  if (!fill_levels(L, Lh, scales, offsets) || mode < 0 || mode > 2 || (mode == 2 && gl < 1)) {
+  if (!fill_levels(L, Lh, scales, offsets) || mode < 0 || mode > 2 || (mode == 2 && gl < 1) ||
+      (mode == 0 && scratch == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == 0) {
-    hash_levels_bwd_kernel<0><<<blocks(Lh * N), THREADS, 0, s>>>(g, total, base, x, y, z, N, Lh,
-                                                                 gl, scale, L, mask, grad);
+    float2* sc = reinterpret_cast<float2*>(scratch);
+    const int64_t T = total - base;
+    hash_levels_bwd_exact_kernel<<<blocks(Lh * N), THREADS, 0, s>>>(g, x, y, z, N, Lh, L, mask, T, sc);
+    const int64_t nb = blocks(T) < 4096 ? blocks(T) : 4096;
+    scratch_fold_kernel<<<static_cast<unsigned>(nb), THREADS, 0, s>>>(sc, T, total, base, grad);
   } else if (mode == 1) {
     hash_levels_bwd_kernel<1><<<blocks(Lh * N), THREADS, 0, s>>>(g, total, base, x, y, z, N, Lh,
                                                                  gl, scale, L, mask, grad);

@@ -352,6 +352,27 @@ def hash_levels_bwd_plain(spec: HashGridSpec, g: torch.Tensor, x, y, z, out: tor
     return table_grad_scatter_plain((idx + base).reshape(-1), v0.reshape(-1), v1.reshape(-1), out)
 
 
+def k2_runs(spec: HashGridSpec, x, y, z) -> torch.Tensor:
+    """[8, Lh*N] bool: True where the exact K2 lane t = l*N + n starts a run
+    of its warp for that corner (a warp is 32 lanes in a row of t; a run
+    starts at its first lane and wherever the index differs from the
+    previous lane's). The design sums each run and adds it once."""
+    _, hashed = _split_levels(spec)
+    idx = torch.stack(_hash_level_indices(spec, hashed, x, y, z)).reshape(8, -1)  # [8, Lh*N], level-major
+    head = torch.ones_like(idx, dtype=torch.bool)
+    head[:, 1:] = idx[:, 1:] != idx[:, :-1]
+    head[:, ::32] = True
+    return head
+
+
+def k2_atomic_count(spec: HashGridSpec, x, y, z) -> int:
+    """The atomic adds the exact K2 issues on the card for positions x, y, z
+    (merged runs, one float2 add each): its (level, corner, warp-run)
+    groups. The first design issued 16 * Lh * N float adds: one per (level,
+    point, corner, plane)."""
+    return int(k2_runs(spec, x, y, z).sum())
+
+
 def dense_levels_fwd_plain(spec: HashGridSpec, planes: torch.Tensor, x, y, z, dtype=torch.float32):
     """(out [2, Ld, N], sel [Ld, N] int64 or None): the dense levels' exact
     forward in ``dtype`` (every op rounds to it), or (``dense_corners`` = 1)
@@ -420,7 +441,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("hash_encode")
     vp, i32, i64, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32, ctypes.c_float
     lib.nerf_hash_levels_fwd.argtypes = [vp, i64, i64, vp, vp, vp, i64, i32, vp, vp, u32, i32, vp, vp, vp]
-    lib.nerf_hash_levels_bwd.argtypes = [vp, i64, i64, vp, vp, vp, i64, i32, vp, vp, u32, i32, i32, f32, vp, vp]
+    lib.nerf_hash_levels_bwd.argtypes = [vp, i64, i64, vp, vp, vp, i64, i32, vp, vp, u32, i32, i32, f32, vp, vp, vp]
     lib.nerf_table_grad_scatter.argtypes = [vp, vp, vp, i64, i64, vp, vp]
     lib.nerf_dense_levels_fwd.argtypes = [vp, i64, vp, vp, vp, i64, i32, vp, vp, vp, i32, vp, vp, vp]
     lib.nerf_dense_levels_bwd.argtypes = [vp, i64, i32, vp, vp, vp, i64, i32, vp, vp, vp, i32, i32, f32,
@@ -518,7 +539,12 @@ def hash_levels_bwd(spec: HashGridSpec, g: torch.Tensor, x, y, z, out: torch.Ten
     [2, Lh, N] float32, added into the hashed columns of the [2, total]
     float32 planes ``out`` and returned: exact, k = 1, or k = 1 over
     ``spec.grad_levels`` drawn levels scaled Lh/gl, replaying the forward's
-    plan."""
+    plan.
+
+    The exact mode on the card merges each warp's runs of equal indices and
+    adds each run's sums with one float2 atomic into a zeroed interleaved
+    scratch ``[total - base, 2]`` float32, allocated here and added into
+    ``out`` by a second pass; the k = 1 modes add straight into ``out``."""
     _, hashed = _split_levels(spec)
     if _device_kind("hash_levels_bwd", x) == "cpu":
         return hash_levels_bwd_plain(spec, g, x, y, z, out)
@@ -532,10 +558,11 @@ def hash_levels_bwd(spec: HashGridSpec, g: torch.Tensor, x, y, z, out: torch.Ten
     if N:
         base, scales, offsets, mask = _level_arrays(spec, hashed)
         scale = float(np.float32(Lh / gl)) if mode == 2 else 1.0
+        scratch = torch.zeros(total - base, 2, dtype=torch.float32, device=x.device) if mode == 0 else None
         err = _lib().nerf_hash_levels_bwd(
             g.data_ptr(), total, base, x.data_ptr(), y.data_ptr(), z.data_ptr(), N, Lh,
             scales.ctypes.data, offsets.ctypes.data, mask, mode, gl, scale, out.data_ptr(),
-            _stream(x),
+            0 if scratch is None else scratch.data_ptr(), _stream(x),
         )
         _raise_if_failed("hash_levels_bwd", err)
         launch_counts["hash_levels_bwd"] += 1

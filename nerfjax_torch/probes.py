@@ -155,8 +155,9 @@ def _dot(name: str, a: torch.Tensor, b: torch.Tensor, bf16: bool) -> torch.Tenso
         raise ValueError(f"{name}: a [K, M] and b [K, N] must share K, got {tuple(a.shape)} {tuple(b.shape)}")
     (K, M), N = a.shape, b.shape[1]
     out = torch.empty(M, N, dtype=torch.float32, device=a.device)
-    _launched(name, _lib().nerf_probe_dot_dim0(a.data_ptr(), b.data_ptr(), out.data_ptr(), K, M, N, int(bf16),
-                                               _stream(a)))
+    if out.numel():
+        _launched(name, _lib().nerf_probe_dot_dim0(a.data_ptr(), b.data_ptr(), out.data_ptr(), K, M, N, int(bf16),
+                                                   _stream(a)))
     return out
 
 

@@ -135,6 +135,55 @@ def test_hash_levels_bwd_matches_plain(cuda_device, est):
     assert bool(((into - (prior + ref)).abs() <= 1e-6 * (mass + 1) + 1e-30).all())
 
 
+def _ray_samples(n_rays: int, n_samples: int, seed: int, device):
+    """Ray-major sorted samples along rays through [0, 1]^3, as the drop-in
+    fine pass lays them out (neighbouring lanes share cells)."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(0.2, 0.8, (n_rays, 3))
+    d = rng.normal(size=(n_rays, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    z = np.sort(rng.uniform(-0.4, 0.4, (n_rays, n_samples)), axis=1)
+    p = np.clip(o[:, None, :] + d[:, None, :] * z[:, :, None], 0.0, 1.0).reshape(-1, 3).T.astype(np.float32)
+    return [torch.from_numpy(c.copy()).to(device) for c in p]
+
+
+@pytest.mark.parametrize("inputs", ["one_position", "rays", "one_point"])
+def test_k2_exact_matches_plain_under_contention(cuda_device, inputs):
+    """K2 exact (merged runs, float2 adds into the scratch) within the
+    atomic-order bound 2 * max(n, 8) * 2^-24 * sum|terms| per entry of n
+    terms, under the worst contention: every point at one position (N =
+    100,003: warps straddle levels), ray-major sorted samples, and N = 1;
+    also adding into planes that hold values."""
+    spec = HashGridSpec(**TUNED)
+    _, hashed = hash_encode._split_levels(spec)
+    Lh, base, total = len(hashed), hashed[0]["offset"], spec.total_table_size
+    if inputs == "one_position":
+        x, y, z = (torch.full((100_003,), v, device=cuda_device) for v in (0.3, 0.6, 0.2))
+    elif inputs == "rays":
+        x, y, z = _ray_samples(521, 192, 32, cuda_device)
+    else:
+        x, y, z = _positions(1, 33, cuda_device)
+    N = x.shape[0]
+    g = torch.from_numpy(np.random.default_rng(34).normal(size=(2, Lh, N)).astype(np.float32)).to(cuda_device)
+    zeros = lambda: torch.zeros(2, total, device=cuda_device)  # noqa: E731
+    before = hash_encode.launch_counts["hash_levels_bwd"]
+    got = hash_encode.hash_levels_bwd(spec, g, x, y, z, zeros())
+    torch.cuda.synchronize()
+    assert hash_encode.launch_counts["hash_levels_bwd"] == before + 1
+    ref = hash_encode.hash_levels_bwd_plain(spec, g, x, y, z, zeros())
+    mass = hash_encode.hash_levels_bwd_plain(spec, g.abs(), x, y, z, zeros())
+    idx = (torch.stack(hash_encode._hash_level_indices(spec, hashed, x, y, z)) + base).reshape(-1)
+    one = torch.ones(idx.shape[0], device=cuda_device)
+    count = hash_encode.table_grad_scatter_plain(idx, one, one, zeros())
+    bound = 2.0 * count.clamp_min(8.0) * 2.0**-24 * mass + 1e-30
+    assert bool(((got - ref).abs() <= bound).all())
+    assert got[:, :base].abs().max() == 0 and bool((got != 0).any())
+    prior = torch.from_numpy(np.random.default_rng(35).normal(size=(2, total)).astype(np.float32)).to(cuda_device)
+    into = hash_encode.hash_levels_bwd(spec, g, x, y, z, prior.clone())
+    bound = 2.0 * (count + 1).clamp_min(8.0) * 2.0**-24 * (mass + prior.abs()) + 1e-30
+    assert bool(((into - (prior + ref)).abs() <= bound).all())
+
+
 def test_table_grad_scatter_matches_plain_and_drops(cuda_device):
     rng = np.random.default_rng(25)
     T, K = 1 << 15, 300_001
@@ -290,6 +339,24 @@ def test_probe_kernel_matches_plain(cuda_device, i):
     before = probes.launch_counts[kernel]
     probes.check(name, wrapper(*args), plain(*args), bound)
     assert probes.launch_counts[kernel] == before + 1
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("K,M,N", [(1, 37, 45), (17, 130, 70), (300, 64, 33), (300, 96, 40), (128, 512, 128)])
+def test_dot_ragged_shapes_within_bound(cuda_device, K, M, N, bf16):
+    """The dot at shapes off its tiles (M, N not multiples of the tile nor,
+    for some, of 4: the 4-byte staging path), K below one mma step, and K
+    beyond one stage (300: three chunks through two buffers): within K *
+    2^-24 * sum|a||b| per element of the plain version."""
+    rng = np.random.default_rng(K * 1000 + M + N)
+    a = torch.from_numpy(rng.normal(size=(K, M)).astype(np.float32)).to(cuda_device)
+    b = torch.from_numpy(rng.normal(size=(K, N)).astype(np.float32)).to(cuda_device)
+    name = "k_dot_dim0_bf16" if bf16 else "k_dot_dim0"
+    plain = probes.k_dot_dim0_bf16_plain if bf16 else probes.k_dot_dim0_plain
+    ra, rb = (probes._bf16(a), probes._bf16(b)) if bf16 else (a, b)
+    got = probes._dot(name, a, b, bf16)
+    torch.cuda.synchronize()
+    probes.check(name, got, plain(a, b), probes.dot_bound(ra, rb))
 
 
 def test_probes_main_on_the_card(cuda_device, capsys):
