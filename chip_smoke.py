@@ -15,8 +15,8 @@ final line:
   2. build the CUDA kernels from nerfjax_torch/csrc, one nvcc per source,
      all at once (ptxas report);
   3. the MLP kernels against their plain PyTorch versions at the
-     extraction's shapes (N = 524,288 and 1,000,003; E = 24 and 32; bf16
-     and f32), with per-call times;
+     extraction's shapes (N = 524,288 and 1,000,003; E = 24, 32, 40 and
+     64; bf16 and f32), with per-call times;
   4. a synthetic NGP-large checkpoint (seeded sphere field, written with
      nerfjax_torch.checkpoint.save_field_params) ->
      nerfjax_torch.extract.extract_volume at 512^3 on the card ->
@@ -82,10 +82,24 @@ Added for the kernel redesigns (the dot, K2 exact):
      (the first design's 16*Lh*N float adds, k2_atomic_count's float2
      runs).
 
+Added for the wide heads and the redesigns of K3 and K1 exact:
+
+  3. also at E = 40 and 64 (two 32-row chunks of W1; timed at N =
+     524,288, extra lines), and at E = 24 and 32 the outputs' digests
+     against HEAD_DIGESTS, those of the kernels before the chunked layout;
+  4. K1 exact equal to its plain version on the 512^3 extraction's calls;
+  7, 7b, 7c. K3's merged float2 adds (k3_atomic_count) beside the first
+     design's 2*K float adds at every captured pass; K1 exact and K3 timed
+     at both drop-in passes;
+  P. the bf16 dot also beside casts + bf16 torch.matmul (the function it
+     computes from its f32 inputs), the matmul on bf16 inputs an extra
+     line.
+
 The last two lines are a JSON object with each kernel's launches (summed
 over the main paths: the 512^3 extraction, both train() runs, the eval
-render, the probe entry point), error, times and bound (K2 also its exact
-mode's times, bounds and atomics at the drop-in passes), then
+render, the probe entry point), error, times and bound (K1, K2 and K3
+also their times, bounds and atomics at the drop-in passes; the head at E
+= 40 and 64 and at the eval renders' fine passes), then
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -109,8 +123,20 @@ SEED = 0
 TUNED_CFG = {"ngp": True, "nerf_type": "large", "hash_n_levels": 12, "hash_extra_dense_levels": 1}
 SPHERE_CENTER = np.array([0.10, -0.05, 0.0])
 SPHERE_RADIUS = 0.5
-KERNEL_SHAPES = [(n, e, dt) for n in (524_288, 1_000_003) for e in (24, 32) for dt in ("bf16", "f32")]
+KERNEL_SHAPES = [(n, e, dt) for n in (524_288, 1_000_003) for e in (24, 32, 40, 64) for dt in ("bf16", "f32")]
 MAIN_SHAPE = (524_288, 24, "bf16")  # the fine pass's call: 8192 cells x 64 voxels
+WIDE_SHAPES = [(524_288, 40, "bf16"), (524_288, 64, "bf16")]  # timed beside MAIN_SHAPE: 20 and 32 levels
+# sha-256 prefixes of (rgb, sigma, density sigma) of the MLP kernels at E = 24
+# and 32 on _head_inputs, as the kernels computed them before the first layer
+# was split into 32-row chunks (W1 staged as one [64, 32] block) on an H100:
+# at E <= 32 the chunked kernels run the same sums and must reproduce them
+# bit for bit
+HEAD_DIGESTS = {
+    (524_288, 24, "bf16"): "82bf2da56d4c1c0c", (524_288, 24, "f32"): "2a21ea1846941ddd",
+    (524_288, 32, "bf16"): "85097ae0699aa3f7", (524_288, 32, "f32"): "c4fb4edeb8dce1ae",
+    (1_000_003, 24, "bf16"): "37aa55a0d38f46b6", (1_000_003, 24, "f32"): "276ab8e05a8b9298",
+    (1_000_003, 32, "bf16"): "997fbf70c7fd5957", (1_000_003, 32, "f32"): "1066bfe6a9dc1cff",
+}
 
 
 def phase(msg: str) -> None:
@@ -212,19 +238,39 @@ def _time_ms(fn, iters: int = 20) -> float:
     raise AssertionError("5 profiler traces in a row show no device time")
 
 
+def _head_inputs(N: int, E: int, dt: str):
+    """(params, enc [E, N], sh [16, N]) on the card, seeded by the shape."""
+    import torch
+
+    rng = np.random.default_rng([SEED, N, E, dt == "bf16"])
+    tdt = torch.bfloat16 if dt == "bf16" else torch.float32
+    params = _weights(E, rng)
+    enc = torch.from_numpy(rng.uniform(-1, 1, (E, N)).astype(np.float32)).cuda().to(tdt)
+    sh = torch.from_numpy(rng.uniform(-1, 1, (16, N)).astype(np.float32)).cuda().to(tdt)
+    return params, enc, sh
+
+
+def _digest(*tensors) -> str:
+    """The first 16 hex digits of the sha-256 of the tensors' bytes."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def kernels_vs_plain() -> dict:
     import torch
 
     from nerfjax_torch.ops import fused_mlp as fm
 
-    rng = np.random.default_rng(SEED)
-    stats = {"fused_ngp_head": {"max_abs_err": 0.0}, "fused_ngp_density": {"max_abs_err": 0.0}}
+    stats = {"fused_ngp_head": {"max_abs_err": 0.0, "wide": {}}, "fused_ngp_density": {"max_abs_err": 0.0}}
     for N, E, dt in KERNEL_SHAPES:
-        tdt = torch.bfloat16 if dt == "bf16" else torch.float32
-        params = _weights(E, rng)
-        enc = torch.from_numpy(rng.uniform(-1, 1, (E, N)).astype(np.float32)).cuda().to(tdt)
-        sh = torch.from_numpy(rng.uniform(-1, 1, (16, N)).astype(np.float32)).cuda().to(tdt)
-        packed = fm.pack_weights(params, tdt, enc.device)  # once per field, as InstantNGP does
+        params, enc, sh = _head_inputs(N, E, dt)
+        packed = fm.pack_weights(params, enc.dtype, enc.device)  # once per field, as InstantNGP does
         rgb_k, sig_k = fm.fused_ngp_head(params, enc, sh, packed=packed)
         dsig_k = fm.fused_ngp_density(params, enc, packed=packed)
         rgb_p, sig_p = fm.fused_ngp_head_plain(params, enc, sh)
@@ -241,6 +287,19 @@ def kernels_vs_plain() -> dict:
                     raise AssertionError(f"{name} disagrees with its plain version at N={N} E={E} {dt}: {err}")
                 stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
         line = f"N={N} E={E} {dt}: kernel == plain (bf16: <= 1 ulp; f32: <= 2e-5); density sigma == head sigma"
+        if E <= 32:
+            digest = _digest(rgb_k, sig_k, dsig_k)
+            if HEAD_DIGESTS.get((N, E, dt)) != digest:
+                raise AssertionError(f"the MLP kernels' outputs at N={N} E={E} {dt} changed: digest {digest}, before "
+                                     f"the chunked layout {HEAD_DIGESTS.get((N, E, dt))}")
+            line += f"; outputs bit-identical to the single-chunk kernels' (digest {digest})"
+        if (N, E, dt) in WIDE_SHAPES:
+            macs = E * 64 + 64 * 16 + 32 * 64 + 64 * 64 + 64 * 3
+            t = _time_kernel(lambda: fm.fused_ngp_head(params, enc, sh, packed=packed),
+                             lambda: fm.fused_ngp_head_plain(params, enc, sh), None,
+                             _bound((2 * E + 2 * 16 + 2 * 4) * N + 4 * fm.weights_size(E), 2 * macs * N, "bf16"))
+            stats["fused_ngp_head"]["wide"][E] = t
+            line += f"\n  fused_ngp_head E={E} (extra line): " + _timing_line(t)
         if (N, E, dt) == MAIN_SHAPE:
             runs = {
                 "fused_ngp_head": (lambda: fm.fused_ngp_head(params, enc, sh, packed=packed),
@@ -304,9 +363,10 @@ def extract_full(ckpt_path: Path, out_dir: Path) -> dict:
     torch.cuda.reset_peak_memory_stats()
     fm.reset_launch_counts()
     he.reset_launch_counts()
-    t0 = time.perf_counter()
-    vol = extract_volume(cfg, device="cuda")
-    wall = time.perf_counter() - t0
+    with _recorded((he, "hash_levels_fwd")) as k1_calls:
+        t0 = time.perf_counter()
+        vol = extract_volume(cfg, device="cuda")
+        wall = time.perf_counter() - t0
     launches = {**fm.launch_counts, **{k: he.launch_counts[k] for k in ("hash_levels_fwd", "dense_levels_fwd")}}
     peak = torch.cuda.max_memory_allocated() / 2**30
     md = vol["metadata"]
@@ -316,6 +376,12 @@ def extract_full(ckpt_path: Path, out_dir: Path) -> dict:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
+    for N, calls in sorted(k1_calls.items()):  # K1 exact on the last call of each size
+        (spec, planes, x, y, z), _ = calls["hash_levels_fwd"]
+        if not torch.equal(he.hash_levels_fwd(spec, planes, x, y, z), he.hash_levels_fwd_plain(spec, planes, x, y, z)[0]):
+            raise AssertionError(f"hash_levels_fwd at the {res}^3 extraction (N={N:,}): kernel != plain")
+    phase(f"hash_levels_fwd exact at the {res}^3 extraction's calls (N = " + ", ".join(f"{n:,}" for n in sorted(k1_calls))
+          + "): kernel == plain (torch.equal)")
     out = out_dir / "volume.pth"
     save_volume(vol, out)
     back = load_volume(out)
@@ -830,12 +896,17 @@ def step_kernels_vs_plain(cap: dict, label: str, stats: dict, timed=()) -> dict:
         if got[:, base:].abs().max() != 0 or int(hits.sum()) != K:
             raise AssertionError(f"table_grad_scatter ({label}): the dense-level gradient reached outside the dense columns")
         fold("table_grad_scatter", err)
-        vv = torch.stack([v0, v1])
-        timing("table_grad_scatter", zeroed(buf[:, :base], lambda: he.table_grad_scatter(idx, v0, v1, buf)),
-               zeroed(buf[:, :base], lambda: he.table_grad_scatter_plain(idx, v0, v1, buf)),
-               zeroed(buf[:, :base], lambda: buf.index_add_(1, idx, vv)), lambda: _bound(12 * K + 8 * base, 2 * K))
+        vv, cols = torch.stack([v0, v1]), buf[:, :base]  # the encode's backward hands K3 the dense columns
+        timing("table_grad_scatter", zeroed(cols, lambda: he.table_grad_scatter(idx, v0, v1, cols)),
+               zeroed(cols, lambda: he.table_grad_scatter_plain(idx, v0, v1, cols)),
+               zeroed(cols, lambda: buf.index_add_(1, idx, vv)), lambda: _bound(12 * K + 8 * base, 2 * K))
         checked.append(f"K3: {K:,} entries into {base:,} dense entries (at most {int(hits.max()):,} adds to one, median "
                        f"{int(hits[hits > 0].median())}) within the atomic-order bound, max |err| {err:.3g}")
+        atomics = {"first": 2 * K, "runs": he.k3_atomic_count(idx, base)}
+        checked.append(f"K3's atomics: {atomics['runs']:,} float2 adds of merged runs (the first design's 2*K: "
+                       f"{atomics['first']:,} float adds)")
+        if "table_grad_scatter" in out:
+            out["table_grad_scatter"]["atomics"] = atomics
 
     if "hash_levels_bwd" in cap:
         _, g, x, y, z, _ = cap["hash_levels_bwd"]
@@ -914,7 +985,7 @@ def _idle_share(state, batches) -> tuple[float, float, float]:
             train_step(state, b)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=12)
+    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=20)
     print(table)
     m = re.search(r"Self CUDA time total:\s*([\d.]+)(us|ms|s)", table)
     if m is None:
@@ -1220,9 +1291,13 @@ def probes_vs_plain() -> dict:
         "k_onehot_row": _bound(4 * x.shape[1] + 4 * rows * x.shape[1], rows * x.shape[1]),
         "k_col_slice": _bound(4 * x.shape[1] + 4 * rows * x.shape[1], rows * x.shape[1]),
     }
+    # the bf16 dot's yardstick computes its function from its f32 inputs: both
+    # casts and the matmul; the matmul alone on inputs already in bf16 is an
+    # extra line
     libraries = {"k_transpose": (lambda: x.t().to(torch.float32), "x.t().to(float32)"),
                  "k_dot_dim0": (lambda: torch.matmul(a.t(), b), "torch.matmul f32"),
-                 "k_dot_dim0_bf16": (lambda: torch.matmul(a16.t(), b16), "torch.matmul bf16")}
+                 "k_dot_dim0_bf16": (lambda: torch.matmul(a.t().to(torch.bfloat16), b.to(torch.bfloat16)),
+                                     "casts + torch.matmul bf16")}
     stats = {}
     for name, kernel, wrapper, plain, args, dot_bound in probes.probes(x, a, b):
         err = probes.check(name, wrapper(*args), plain(*args), dot_bound)
@@ -1233,6 +1308,11 @@ def probes_vs_plain() -> dict:
         phase(f"{kernel} ({name.strip()}): kernel == plain {rule}, max |err| {err:.3g}; main-path launches "
               f"{launches[kernel]}")
         phase("  " + _timing_line(t))
+        if kernel == "k_dot_dim0_bf16":
+            bf16_in = [_time_ms(lambda: torch.matmul(a16.t(), b16)) for _ in range(2)]
+            stats[kernel]["library_bf16_inputs_ms"] = sum(bf16_in) / 2
+            phase(f"  {kernel}: torch.matmul on inputs already in bf16 (no casts; extra line) "
+                  f"{sum(bf16_in) / 2 * 1e3:.2f} us per call (runs l,l: {bf16_in[0] * 1e3:.2f}, {bf16_in[1] * 1e3:.2f})")
         if dot_bound is not None:
             frac = float(((wrapper(*args) - plain(*args)).abs() / dot_bound.clamp_min(1e-30)).max())
             mma = kernel == "k_dot_dim0_bf16"
@@ -1428,7 +1508,8 @@ def eval_render(final: Path, cfg: dict, label: str, stats: dict, hstats: dict) -
     macs = E * 64 + 64 * 16 + 32 * 64 + 64 * 64 + 64 * 3
     result["head_timing"] = _time_kernel(lambda: fm.fused_ngp_head(params, enc, sh, **kw),
                                          lambda: fm.fused_ngp_head_plain(params, enc, sh), None,
-                                         _bound((2 * E + 2 * 16 + 2 * 4) * N + 4 * 9408, 2 * macs * N, "bf16"))
+                                         _bound((2 * E + 2 * 16 + 2 * 4) * N + 4 * fm.weights_size(E), 2 * macs * N,
+                                                "bf16"))
     phase(f"  fused_ngp_head at the {label} eval render's fine pass (E={E}, N={N:,}, bf16; extra line): "
           + _timing_line(result["head_timing"]))
     return result
@@ -1544,13 +1625,14 @@ def main() -> int:
         knobs = {label: train_dense_knob(Path(tmp), label, hstats) for label in DENSE_KNOBS}
         dropin = train_dropin(Path(tmp))
         passes = dropin.pop("step_inputs")
-        k2 = {}  # K2 exact at the drop-in passes; the kernels line carries it beside the tuned step's K2
+        # K1, K3 and K2 exact at the drop-in passes; the kernels line carries them beside the tuned step's times
+        dropin_timed = {}
         for N in sorted(passes):  # the timings at the drop-in passes are extra lines
             which = "fine" if N == max(passes) else "coarse"
             label = f"drop-in step's {which} pass"
-            timed = step_kernels_vs_plain(passes[N], label, hstats,
-                                          DROP_IN_KERNELS if which == "fine" else ("hash_levels_bwd",))
-            k2[which] = timed["hash_levels_bwd"]
+            dropin_timed[which] = step_kernels_vs_plain(
+                passes[N], label, hstats,
+                DROP_IN_KERNELS if which == "fine" else ("hash_levels_fwd", "table_grad_scatter", "hash_levels_bwd"))
         del passes
         extract_trained(trained["cfg"], trained["final"])
         evals = {"tuned": eval_render(trained["final"], TUNED_CFG, "tuned", stats, hstats),
@@ -1572,18 +1654,26 @@ def main() -> int:
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     phase("main-path launches: " + "; ".join(f"{k} {v}" for k, v in paths.items()))
+    from nerfjax_torch.ops import fused_mlp as fm
+
     kernels = []
     for name, line in (("fused_ngp_head", 28), ("fused_ngp_density", 98)):
         N, E = MAIN_SHAPE[0], MAIN_SHAPE[1]
         macs = E * 64 + 64 * 16 + 32 * 64 + 64 * 64 + 64 * 3 if name == "fused_ngp_head" else E * 64 + 64
         nbytes = (2 * E + 2 * 16 + 2 * 4) * N if name == "fused_ngp_head" else (2 * E + 2) * N
-        bound, by = _bound(nbytes + 4 * 9408, 2 * macs * N, "bf16")
+        bound, by = _bound(nbytes + 4 * fm.weights_size(E), 2 * macs * N, "bf16")
         kernels.append({
             "name": name, "route": "cuda", "source": "nerfjax_torch/csrc/fused_mlp.cu",
             "replaces": f"nerfjax/ops/pallas_mlp.py:{line}", "launches": launches[name],
             "max_abs_err": stats[name]["max_abs_err"], "ms": stats[name]["ms"],
             "plain_ms": stats[name]["plain_ms"], "bound_ms": bound, "bound_by": by, "library_ms": None,
         })
+        if name == "fused_ngp_head":  # the extra lines: E = 40 and 64, and the eval renders' fine passes
+            for E, t in stats[name]["wide"].items():
+                kernels[-1].update({f"E{E}_ms": t["ms"], f"E{E}_plain_ms": t["plain_ms"], f"E{E}_bound_ms": t["bound"][0]})
+            for label, ev in evals.items():
+                t = ev["head_timing"]
+                kernels[-1].update({f"eval_{label}_fine_ms": t["ms"], f"eval_{label}_fine_bound_ms": t["bound"][0]})
     for name, replaces in (("hash_levels_fwd", "nerfjax/ops/hash_encode.py:304"),
                            ("hash_levels_bwd", "nerfjax/ops/hash_encode.py:335"),
                            ("table_grad_scatter", "benchmarks/micro_onehot.py:44, benchmarks/micro_onehot.py:99"),
@@ -1596,12 +1686,18 @@ def main() -> int:
             "plain_ms": h["plain_ms"], "bound_ms": h["bound"][0], "bound_by": h["bound"][1],
             "library_ms": h.get("library_ms"),
         })
-        if name == "hash_levels_bwd":  # ms above: the tuned step's k = 1 modes; the exact mode at the drop-in passes
+        # ms above: K1 k = 1 seeded, K2 and K3 at the tuned step; K1 exact, K2 exact and K3 at the drop-in passes
+        if name in ("hash_levels_fwd", "hash_levels_bwd", "table_grad_scatter"):
             for which in ("fine", "coarse"):
-                t = k2[which]
-                kernels[-1].update({f"exact_{which}_ms": t["ms"], f"exact_{which}_bound_ms": t["bound"][0],
-                                    f"exact_{which}_atomics": t["atomics"]["runs"],
-                                    f"exact_{which}_atomics_first_design": t["atomics"]["first"]})
+                t = dropin_timed[which][name]
+                kernels[-1].update({f"dropin_{which}_ms": t["ms"], f"dropin_{which}_plain_ms": t["plain_ms"],
+                                    f"dropin_{which}_bound_ms": t["bound"][0]})
+                if "atomics" in t:
+                    kernels[-1].update({f"dropin_{which}_atomics": t["atomics"]["runs"],
+                                        f"dropin_{which}_atomics_first_design": t["atomics"]["first"]})
+        if name == "table_grad_scatter":
+            kernels[-1]["atomics"] = h["atomics"]["runs"]
+            kernels[-1]["atomics_first_design"] = h["atomics"]["first"]
     for name, line in PROBE_LINES.items():
         t = pstats[name]
         kernels.append({
@@ -1610,6 +1706,8 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"],
         })
+        if "library_bf16_inputs_ms" in t:  # library_ms: casts + matmul, the function the kernel computes
+            kernels[-1]["library_bf16_inputs_ms"] = t["library_bf16_inputs_ms"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

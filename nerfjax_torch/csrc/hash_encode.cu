@@ -43,16 +43,30 @@
 // same bit for bit. The file is also built with -fmad=false.
 //
 // What bounds them on an H100: the table gathers and the atomics. Each
-// (level, point) reads one (k = 1) or eight (exact) 4-byte values from each
-// of the two planes at hashed, i.e. random, addresses: every read pulls a
-// 32-byte sector for 4 useful bytes, so the sector traffic is 8x the bytes
-// the function needs. The backward's atomicAdds land at the same random
-// addresses (the L2 performs them). The hashed levels of the tuned model
-// hold 2 x 7 x 2^19 f32 = 29 MB, which fits the 50 MB L2, so most sectors
-// come from L2 rather than HBM. K1 and the k = 1 modes of K2 are simple:
+// (level, point) reads one (k = 1) or eight (exact) table entries at hashed,
+// i.e. random, addresses: every read pulls a 32-byte sector for a few
+// useful bytes, so the sector traffic is many times the bytes the function
+// needs. The backward's atomicAdds land at the same random addresses (the
+// L2 performs them). The hashed levels of the tuned model hold 2 x 7 x 2^19
+// f32 = 29 MB, which fits the 50 MB L2; the drop-in model's 12 levels hold
+// 50 MB, the size of the L2. K1 k = 1 and the k = 1 modes of K2 are simple:
 // one thread per (level, point), or per (drawn level, point), positions
 // and outputs coalesced along points, no shared-memory staging, no sorting
 // of indices. PERF.md has their times beside their bounds.
+//
+// K1 exact first read both planes of each of the 8 corners with two 4-byte
+// loads from planes 4*total bytes apart (two sectors per corner, ~9 per
+// (level, point) where the x-neighbours share one). It rounds every table
+// value to bf16 anyway, so a coalesced pass (pack_pairs_bf16_kernel) packs
+// the hashed columns into one 32-bit word per entry, plane 0 in the low
+// half and plane 1 in the high half (nerfjax's _pack_pairs_bf16 layout),
+// and K1 exact loads one word per corner and widens each half by a shift.
+// That halves the table K1 reads (25 MB at the drop-in spec, half the L2)
+// and the sectors per (level, point); the pack moves 12 bytes per entry
+// (~75 MB at the drop-in spec) and its time counts in K1's. The arithmetic
+// and its order do not change, so K1 exact equals its plain version bit
+// for bit. K1 k = 1 reads one corner per (level, point) and keeps the
+// planes: a pack would cost it about as much as it takes.
 //
 // K2 exact is bound by the L2's atomic rate, not by bytes. The first design
 // issued 16 float atomics per (level, point), one per corner and
@@ -84,6 +98,16 @@
 // point): 94 MB per exact tuned step, its bound; fusing it into K3 would
 // save writing and reading them back. One thread per (level, point), or per
 // (drawn level, point).
+//
+// K3 adds K5's staged entries into the dense columns. Its first design
+// issued two float atomics per entry (100.7M at the drop-in fine pass,
+// 1.83 ms on an H100 80GB HBM3 at 700 W, ~54G a second), and K5's order
+// (level, corner, point) puts neighbouring samples of one ray side by side,
+// so neighbouring lanes add to the same dense entry again and again. K3 now
+// takes K2 exact's design: each warp merges its runs of equal indices
+// (merge_run) and adds each run with one float2 atomic into an interleaved
+// [T, 2] scratch, which scratch_fold_kernel adds into the planes. Its bound
+// is then the 12 bytes per entry it reads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -198,7 +222,7 @@ __device__ __forceinline__ int draw_level(uint32_t seed, int j, int Lh) {
 }
 
 // out0[i] += v0, out1[i] += v1 for 0 <= i < T; an index outside is dropped.
-// The add of K3 and of K2's k = 1 modes.
+// The add of K2's k = 1 modes.
 __device__ __forceinline__ void scatter_add2(float* out0, float* out1, int64_t T, int64_t i,
                                              float v0, float v1) {
   if (i < 0 || i >= T) return;
@@ -208,13 +232,14 @@ __device__ __forceinline__ void scatter_add2(float* out0, float* out1, int64_t T
 
 constexpr unsigned FULL_WARP = 0xFFFFFFFFu;
 
-// K2 exact's merge. The lanes of the warp whose indices i are equal in a
+// K2 exact's and K3's merge. The lanes of the warp whose indices i are equal in a
 // row form a run (a lane starts one where its index differs from the
 // previous lane's). Returns true on each run's last lane, which then holds
 // the run's sums of v0 and of v1, and false on the others. A segmented
 // inclusive scan: lane L adds the partial sum of lane L - d while L - d
 // lies in its run (d = 1, 2, ..., 16), both planes together; a warp whose
-// 32 lanes are 32 runs skips it. Called by all 32 lanes.
+// 32 lanes are 32 runs skips it. Called by all 32 lanes; a lane with no
+// add holds i = -1.
 __device__ __forceinline__ bool merge_run(int64_t i, float& v0, float& v1) {
   const int lane = static_cast<int>(threadIdx.x & 31);
   const int64_t prev = __shfl_up_sync(FULL_WARP, i, 1);
@@ -233,42 +258,67 @@ __device__ __forceinline__ bool merge_run(int64_t i, float& v0, float& v1) {
   return lane == 31 || ((heads >> (lane + 1)) & 1u);
 }
 
-// K1. planes: [2, total] f32; the hashed levels start at column base.
-// out: [2, Lh, N] f32. sel (optional): [Lh, N] int32 planned index (k = 1).
-template <bool K1>
+// K1, k = 1. planes: [2, total] f32; the hashed levels start at column
+// base. out: [2, Lh, N] f32. sel (optional): [Lh, N] int32 planned index.
+// One thread per (level, point), t = l*N + n.
 __global__ void __launch_bounds__(THREADS)
-hash_levels_fwd_kernel(const float* __restrict__ planes, int64_t total, int64_t base,
-                       const float* __restrict__ xs, const float* __restrict__ ys,
-                       const float* __restrict__ zs, int64_t N, int Lh, Levels L,
-                       uint32_t mask, float* __restrict__ out, int32_t* __restrict__ sel) {
+hash_levels_fwd_k1_kernel(const float* __restrict__ planes, int64_t total, int64_t base,
+                          const float* __restrict__ xs, const float* __restrict__ ys,
+                          const float* __restrict__ zs, int64_t N, int Lh, Levels L, uint32_t mask,
+                          float* __restrict__ out, int32_t* __restrict__ sel) {
   int64_t t = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
   if (t >= Lh * N) return;
   int l = static_cast<int>(t / N);
   int64_t n = t - l * N;
   float x = xs[n], y = ys[n], z = zs[n];
-  const float* p0 = planes + base;
-  const float* p1 = planes + total + base;
-  float e0, e1;
-  if (K1) {
-    int64_t i = plan_k1(L, l, mask, x, y, z, position_seed(x, y, z, 0u));
-    e0 = bf16_round(p0[i]);
-    e1 = bf16_round(p1[i]);
-    if (sel != nullptr) sel[t] = static_cast<int32_t>(i);
-  } else {
-    int ix, iy, iz;
-    float tx, ty, tz;
-    lattice(x, L.scale[l], ix, tx);
-    lattice(y, L.scale[l], iy, ty);
-    lattice(z, L.scale[l], iz, tz);
-    e0 = 0.0f;
-    e1 = 0.0f;
+  int64_t i = plan_k1(L, l, mask, x, y, z, position_seed(x, y, z, 0u));
+  out[t] = bf16_round(planes[base + i]);
+  out[Lh * N + t] = bf16_round(planes[total + base + i]);
+  if (sel != nullptr) sel[t] = static_cast<int32_t>(i);
+}
+
+// The pack in front of K1 exact: word[i] = bf16(p0[i]) | bf16(p1[i]) << 16
+// for the T hashed entries (nerfjax's _pack_pairs_bf16 layout: plane 0 in
+// the low half, plane 1 in the high half, a __nv_bfloat162), rounded as
+// bf16_round rounds. Coalesced: one thread per entry.
+__global__ void __launch_bounds__(THREADS)
+pack_pairs_bf16_kernel(const float* __restrict__ p0, const float* __restrict__ p1, int64_t T,
+                       uint32_t* __restrict__ words) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x; i < T;
+       i += static_cast<int64_t>(gridDim.x) * THREADS) {
+    const uint32_t lo = __bfloat16_as_ushort(__float2bfloat16_rn(p0[i]));
+    const uint32_t hi = __bfloat16_as_ushort(__float2bfloat16_rn(p1[i]));
+    words[i] = lo | (hi << 16);
+  }
+}
+
+// K1 exact. words: the packed hashed table ([T] bf16 pairs, pack above);
+// out: [2, Lh, N] f32. One thread per (level, point), t = l*N + n
+// (level-major: one level's 2 MB of words is live at a time). Each corner
+// is one 4-byte load, both planes widened from it by a shift, where it was
+// two loads from planes 4*total bytes apart; the arithmetic and its order
+// are the plain version's: e += table * w over the corners in _CORNERS
+// order, f32, no contraction.
+__global__ void __launch_bounds__(THREADS)
+hash_levels_fwd_exact_kernel(const uint32_t* __restrict__ words, const float* __restrict__ xs,
+                             const float* __restrict__ ys, const float* __restrict__ zs, int64_t N,
+                             int Lh, Levels L, uint32_t mask, float* __restrict__ out) {
+  int64_t t = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+  if (t >= Lh * N) return;
+  int l = static_cast<int>(t / N);
+  int64_t n = t - l * N;
+  int ix, iy, iz;
+  float tx, ty, tz;
+  lattice(xs[n], L.scale[l], ix, tx);
+  lattice(ys[n], L.scale[l], iy, ty);
+  lattice(zs[n], L.scale[l], iz, tz);
+  float e0 = 0.0f, e1 = 0.0f;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      int64_t i = hash_index(ix, iy, iz, c, mask) + L.offset[l];
-      float w = corner_weight(c, tx, ty, tz);
-      e0 = __fadd_rn(e0, __fmul_rn(bf16_round(p0[i]), w));
-      e1 = __fadd_rn(e1, __fmul_rn(bf16_round(p1[i]), w));
-    }
+  for (int c = 0; c < 8; ++c) {
+    const uint32_t word = words[hash_index(ix, iy, iz, c, mask) + L.offset[l]];
+    const float w = corner_weight(c, tx, ty, tz);
+    e0 = __fadd_rn(e0, __fmul_rn(__uint_as_float(word << 16), w));
+    e1 = __fadd_rn(e1, __fmul_rn(__uint_as_float(word & 0xFFFF0000u), w));
   }
   out[t] = e0;
   out[Lh * N + t] = e1;
@@ -363,15 +413,31 @@ hash_levels_bwd_kernel(const float* __restrict__ g, int64_t total, int64_t base,
   scatter_add2(o0, o1, T, i, g0, g1);
 }
 
-// K3. out: [2, T] f32 that the entries are added into; one thread per
-// entry k.
+// K3. out: plane 0 at out[0..T), plane 1 at out[stride..stride + T), f32,
+// added into through scratch. One thread per entry k, in the order the
+// entries come (K5 stages them (level, corner, point): neighbouring lanes
+// are neighbouring samples of one ray at one corner, which often share a
+// dense entry). As in K2 exact, the lanes of a warp whose indices are equal
+// in a row sum their values (merge_run) and each run's last lane adds both
+// sums with one float2 atomic into scratch, the zeroed interleaved [T, 2];
+// scratch_fold_kernel then adds it into out. An index outside [0, T) and a
+// lane past K take part as "no add".
 __global__ void __launch_bounds__(THREADS)
 table_grad_scatter_kernel(const int32_t* __restrict__ idx, const float* __restrict__ g0,
                           const float* __restrict__ g1, int64_t K, int64_t T,
-                          float* __restrict__ out) {
-  int64_t k = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
-  if (k >= K) return;
-  scatter_add2(out, out + T, T, idx[k], g0[k], g1[k]);
+                          float2* __restrict__ scratch) {
+  const int64_t k = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+  int64_t i = -1;
+  float v0 = 0.0f, v1 = 0.0f;
+  if (k < K) {
+    const int64_t j = idx[k];
+    if (j >= 0 && j < T) {
+      i = j;
+      v0 = g0[k];
+      v1 = g1[k];
+    }
+  }
+  if (merge_run(i, v0, v1) && i >= 0) atomicAdd(scratch + i, make_float2(v0, v1));
 }
 
 // -- the dense levels ---------------------------------------------------------
@@ -523,6 +589,10 @@ dense_levels_bwd_kernel(const void* __restrict__ g, int64_t gs, const float* __r
 
 unsigned blocks(int64_t work) { return static_cast<unsigned>((work + THREADS - 1) / THREADS); }
 
+// blocks of a grid-stride pass over T entries (the pack, the fold): at
+// least one, at most 4096
+unsigned stride_blocks(int64_t T) { return blocks(T) < 1 ? 1 : blocks(T) < 4096 ? blocks(T) : 4096; }
+
 bool fill_levels(Levels& L, int Lh, const float* scales, const int64_t* offsets) {
   if (Lh < 1 || Lh > MAX_LEVELS) return false;
   for (int l = 0; l < Lh; ++l) {
@@ -548,22 +618,26 @@ bool fill_dense_levels(DenseLevels& L, int Ld, const float* scales, const int32_
 
 extern "C" int nerf_hash_max_levels() { return MAX_LEVELS; }
 
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
-// level count outside 1..MAX_LEVELS).
+// Returns cudaGetLastError() after the launches (cudaErrorInvalidValue for a
+// level count outside 1..MAX_LEVELS). Exact (k1 = 0) only: words, a
+// [total - base] uint32 buffer that the pack fills and K1 exact reads.
 extern "C" int nerf_hash_levels_fwd(const float* planes, int64_t total, int64_t base,
                                     const float* x, const float* y, const float* z, int64_t N,
                                     int Lh, const float* scales, const int64_t* offsets,
-                                    uint32_t mask, int k1, float* out, int32_t* sel,
+                                    uint32_t mask, int k1, float* out, int32_t* sel, uint32_t* words,
                                     void* stream) {
   Levels L;
-  if (!fill_levels(L, Lh, scales, offsets)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!fill_levels(L, Lh, scales, offsets) || (!k1 && words == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k1) {
-    hash_levels_fwd_kernel<true><<<blocks(Lh * N), THREADS, 0, s>>>(planes, total, base, x, y, z,
-                                                                    N, Lh, L, mask, out, sel);
+    hash_levels_fwd_k1_kernel<<<blocks(Lh * N), THREADS, 0, s>>>(planes, total, base, x, y, z, N, Lh, L,
+                                                                 mask, out, sel);
   } else {
-    hash_levels_fwd_kernel<false><<<blocks(Lh * N), THREADS, 0, s>>>(planes, total, base, x, y, z,
-                                                                     N, Lh, L, mask, out, sel);
+    const int64_t T = total - base;
+    pack_pairs_bf16_kernel<<<stride_blocks(T), THREADS, 0, s>>>(planes + base, planes + total + base, T, words);
+    hash_levels_fwd_exact_kernel<<<blocks(Lh * N), THREADS, 0, s>>>(words, x, y, z, N, Lh, L, mask, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -586,8 +660,7 @@ extern "C" int nerf_hash_levels_bwd(const float* g, int64_t total, int64_t base,
     float2* sc = reinterpret_cast<float2*>(scratch);
     const int64_t T = total - base;
     hash_levels_bwd_exact_kernel<<<blocks(Lh * N), THREADS, 0, s>>>(g, x, y, z, N, Lh, L, mask, T, sc);
-    const int64_t nb = blocks(T) < 4096 ? blocks(T) : 4096;
-    scratch_fold_kernel<<<static_cast<unsigned>(nb), THREADS, 0, s>>>(sc, T, total, base, grad);
+    scratch_fold_kernel<<<stride_blocks(T), THREADS, 0, s>>>(sc, T, total, base, grad);
   } else if (mode == 1) {
     hash_levels_bwd_kernel<1><<<blocks(Lh * N), THREADS, 0, s>>>(g, total, base, x, y, z, N, Lh,
                                                                  gl, scale, L, mask, grad);
@@ -598,10 +671,17 @@ extern "C" int nerf_hash_levels_bwd(const float* g, int64_t total, int64_t base,
   return static_cast<int>(cudaGetLastError());
 }
 
+// out: plane 0 at out[0..T), plane 1 at out[stride..stride + T); scratch: a
+// zeroed [T, 2] f32 buffer that K3 adds into and the fold kernel launched
+// after it adds into out.
 extern "C" int nerf_table_grad_scatter(const int32_t* idx, const float* g0, const float* g1,
-                                       int64_t K, int64_t T, float* out, void* stream) {
-  table_grad_scatter_kernel<<<blocks(K), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      idx, g0, g1, K, T, out);
+                                       int64_t K, int64_t T, int64_t stride, float* out, float* scratch,
+                                       void* stream) {
+  if (scratch == nullptr || stride < T) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float2* sc = reinterpret_cast<float2*>(scratch);
+  table_grad_scatter_kernel<<<blocks(K), THREADS, 0, s>>>(idx, g0, g1, K, T, sc);
+  scratch_fold_kernel<<<stride_blocks(T), THREADS, 0, s>>>(sc, T, stride, 0, out);
   return static_cast<int>(cudaGetLastError());
 }
 

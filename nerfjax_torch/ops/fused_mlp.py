@@ -17,7 +17,10 @@ Numerics (pallas_mlp.py:28-40): weights are rounded to enc's dtype; layer 1
 multiplies enc by W1 with float32 accumulation, layers 2-5 multiply float32
 activations by the rounded weights; ``sh`` is rounded to enc's dtype before
 the concat; rgb and sigma are rounded once to enc's dtype. The density
-kernel's sigma equals the head kernel's bit for bit.
+kernel's sigma equals the head kernel's bit for bit. The kernels take any
+encoding width E from 1 to ``E_MAX`` = 128 (32 dense and 32 hashed levels
+of 2 features, the most the port's encode produces), as nerfjax's
+full-height block takes any E.
 """
 
 from __future__ import annotations
@@ -30,8 +33,9 @@ import torch
 HIDDEN = 64
 GEO = 16
 SH = 16
-E_MAX = 32
-W_TOTAL = HIDDEN * E_MAX + GEO * HIDDEN + (GEO + SH) * HIDDEN + HIDDEN * HIDDEN + 3 * HIDDEN
+E_MAX = 128
+CHUNK = 32  # W1's fan-in columns per chunk of the packed buffer
+W_REST = GEO * HIDDEN + (GEO + SH) * HIDDEN + HIDDEN * HIDDEN + 3 * HIDDEN  # W2..W5
 _WIDTHS = {"dmlp": [(None, HIDDEN), (HIDDEN, GEO)],
            "cmlp": [(GEO + SH, HIDDEN), (HIDDEN, HIDDEN), (HIDDEN, 3)]}
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -111,21 +115,34 @@ def _lib() -> ctypes.CDLL:
     lib.nerf_fused_head.restype = i32
     lib.nerf_fused_density.argtypes = [vp, vp, vp, i32, i64, i32, i32, vp]
     lib.nerf_fused_density.restype = i32
-    for fn in (lib.nerf_fused_weights_size, lib.nerf_fused_threads):
+    for fn in (lib.nerf_fused_max_width, lib.nerf_fused_threads):
         fn.argtypes, fn.restype = [], i32
-    if lib.nerf_fused_weights_size() != W_TOTAL:
+    lib.nerf_fused_weights_size.argtypes, lib.nerf_fused_weights_size.restype = [i32], i32
+    if lib.nerf_fused_max_width() != E_MAX or any(
+            lib.nerf_fused_weights_size(E) != weights_size(E) for E in (1, 24, 32, 33, 64, 65, E_MAX)):
         raise RuntimeError("fused_mlp.cu and fused_mlp.py disagree on the weight layout")
     return lib
 
 
+def weights_size(E: int) -> int:
+    """Floats of the kernels' weight buffer for an encoding of E rows."""
+    return HIDDEN * CHUNK * -(-E // CHUNK) + W_REST
+
+
 def pack_weights(params: dict, dtype: torch.dtype, device) -> torch.Tensor:
-    """The kernels' weight buffer for enc of ``dtype``: W1 [64, 32] (fan-in
-    zero-padded), W2, W3, W4, W5, each row-major [out, in], float32 values
-    rounded to ``dtype``. The weights of a field are constant, so a caller
-    packs them once and passes the buffer as the wrappers' ``packed``."""
+    """The kernels' weight buffer for enc of ``dtype`` (``weights_size(E)``
+    floats): W1 [64, E] zero-padded to C = ceil(E / 32) chunks of 32 fan-in
+    columns and laid out chunk by chunk, each chunk [64, 32] row-major (at E
+    <= 32 simply W1 [64, 32]); then W2, W3, W4, W5, each row-major [out,
+    in]; float32 values rounded to ``dtype``. The weights of a field are
+    constant, so a caller packs them once and passes the buffer as the
+    wrappers' ``packed``."""
     ws = [w.to(device) for w in _weights(params, dtype)]
-    w1 = torch.zeros(HIDDEN, E_MAX, dtype=torch.float32, device=device)
-    w1[:, : ws[0].shape[1]] = ws[0]
+    E = ws[0].shape[1]
+    C = -(-E // CHUNK)
+    w1 = torch.zeros(HIDDEN, C * CHUNK, dtype=torch.float32, device=device)
+    w1[:, :E] = ws[0]
+    w1 = w1.reshape(HIDDEN, C, CHUNK).transpose(0, 1)
     return torch.cat([w1.reshape(-1)] + [w.reshape(-1) for w in ws[1:]]).contiguous()
 
 
@@ -141,9 +158,15 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
 def _weight_buffer(name: str, params: dict, enc: torch.Tensor, packed) -> torch.Tensor:
     if packed is None:
         return pack_weights(params, enc.dtype, enc.device)
-    if packed.shape != (W_TOTAL,) or packed.dtype != torch.float32:
-        raise ValueError(f"{name}: packed must be [{W_TOTAL}] float32, got {packed.dtype} {tuple(packed.shape)}")
+    size = weights_size(enc.shape[0])
+    if packed.shape != (size,) or packed.dtype != torch.float32:
+        raise ValueError(f"{name}: packed must be [{size}] float32, got {packed.dtype} {tuple(packed.shape)}")
     return packed
+
+
+def _check_width(E: int) -> None:
+    if E > E_MAX:
+        raise ValueError(f"encoding width {E} exceeds the kernels' limit E_MAX = {E_MAX}")
 
 
 def _grid(n: int, threads: int) -> int:
@@ -162,7 +185,7 @@ def fused_ngp_head(params: dict, enc: torch.Tensor, sh: torch.Tensor, *, packed=
     packed: ``pack_weights(params, enc.dtype, enc.device)``, made once by the
     caller; packed here on every call when None. The plain version ignores it.
     E is read from enc (24 for the tuned 12-level model, 32 at 16 levels),
-    at most 32; N is any length.
+    at most ``E_MAX`` = 128; N is any length.
     """
     if enc.device.type == "cpu":
         return fused_ngp_head_plain(params, enc, sh)
@@ -170,8 +193,7 @@ def fused_ngp_head(params: dict, enc: torch.Tensor, sh: torch.Tensor, *, packed=
         raise ValueError(f"fused_ngp_head runs on cpu or cuda, not {enc.device}")
     _check_enc(enc, params["dmlp"][0]["w"].shape[0])
     E, N = enc.shape
-    if E > E_MAX:
-        raise ValueError(f"encoding width {E} exceeds the kernel's {E_MAX}")
+    _check_width(E)
     if sh.shape != (SH, N) or sh.dtype != enc.dtype:
         raise ValueError(f"sh must be [16, {N}] {enc.dtype}, got {sh.dtype} {tuple(sh.shape)}")
     w = _weight_buffer("fused_ngp_head", params, enc, packed)
@@ -199,8 +221,7 @@ def fused_ngp_density(params: dict, enc: torch.Tensor, *, packed=None) -> torch.
         raise ValueError(f"fused_ngp_density runs on cpu or cuda, not {enc.device}")
     _check_enc(enc, params["dmlp"][0]["w"].shape[0])
     E, N = enc.shape
-    if E > E_MAX:
-        raise ValueError(f"encoding width {E} exceeds the kernel's {E_MAX}")
+    _check_width(E)
     w = _weight_buffer("fused_ngp_density", params, enc, packed)
     _check_cuda("fused_ngp_density", enc, w)
     out = torch.empty(N, dtype=enc.dtype, device=enc.device)

@@ -31,13 +31,17 @@ by ``nerfjax_torch._build`` and called through ctypes on PyTorch's current
 stream):
 
   * ``hash_levels_fwd`` (K1): the hashed levels' exact or k = 1 forward;
+    the exact one reads the hashed columns packed into bf16 pairs (one
+    word per entry, ``pack_pairs_bf16_plain``'s layout) by a pass in front
+    of it;
   * ``hash_levels_bwd`` (K2): their table gradient, exact, k = 1, or k = 1
     over ``grad_levels`` drawn levels scaled Lh/gl;
   * ``table_grad_scatter`` (K3): ``out[p][idx_k] += g_p[k]`` into two f32
     planes, out-of-range indices dropped; the function of the Pallas
     kernels ``grad_onehot``/``grad_rowscatter`` (benchmarks/micro_onehot.py).
-    The dense levels' table gradient goes through it, into the one
-    [2, total] gradient that K2 adds the hashed levels' into;
+    The dense levels' table gradient goes through it, into the dense
+    columns of the one [2, total] gradient that K2 adds the hashed levels'
+    into;
   * ``dense_levels_fwd`` (K4): the dense levels' exact or k = 1 forward, the
     cell-row gather of the Pallas kernel ``_dma_gather_fn``
     (benchmarks/micro_pallas_gather.py) with the blend around it;
@@ -142,6 +146,34 @@ def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
 def _bits(v: torch.Tensor) -> torch.Tensor:
     """The uint32 bit pattern of float32 v, in int64."""
     return v.contiguous().view(torch.int32).to(torch.int64) & M32
+
+
+def _int32(b: torch.Tensor) -> torch.Tensor:
+    """int64 b in [0, 2^32) as the int32 of the same 32 bits."""
+    return (b - ((b >> 31) << 32)).to(torch.int32)
+
+
+def _bf16_bits(v: torch.Tensor) -> torch.Tensor:
+    """The bf16 pattern (int64 in [0, 2^16)) of float32 v rounded to
+    nearest even, a NaN as its sign and the quiet NaN 0x7FC0 (as nerfjax's
+    ``astype(jnp.bfloat16)`` rounds; torch's CPU cast makes every NaN 0xFFFF)."""
+    b = _bits(v)
+    nan = (b & 0x7FFFFFFF) > 0x7F800000
+    return torch.where(nan, ((b >> 16) & 0x8000) | 0x7FC0, (b + 0x7FFF + ((b >> 16) & 1)) >> 16)
+
+
+def pack_pairs_bf16_plain(planes: torch.Tensor) -> torch.Tensor:
+    """[2, T] float32 -> [T] int32 words holding (bf16(plane 1) << 16) |
+    bf16(plane 0): nerfjax's ``_pack_pairs_bf16`` (its f32 words' bits), the
+    layout K1 exact reads (``pack_pairs_bf16_kernel``)."""
+    return _int32(_bf16_bits(planes[0]) | (_bf16_bits(planes[1]) << 16))
+
+
+def _unpack_pairs_plain(words: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[T] int32 bf16-pair words -> (plane 0, plane 1) [T] float32, each half
+    widened by a shift as K1 exact widens it."""
+    w = words.to(torch.int64) & M32
+    return _int32((w << 16) & M32).view(torch.float32), _int32(w & 0xFFFF0000).view(torch.float32)
 
 
 def _mix(h: torch.Tensor) -> torch.Tensor:
@@ -296,17 +328,18 @@ def hash_levels_fwd_plain(spec: HashGridSpec, planes: torch.Tensor, x, y, z):
     """(out [2, Lh, N] float32, sel [Lh, N] int64 or None): the hashed levels'
     exact forward, or (``fwd_corners`` = 1) the k = 1 estimate and its plan."""
     _, hashed = _split_levels(spec)
-    tbl = planes[:, hashed[0]["offset"]:].to(torch.bfloat16).to(torch.float32)
     if spec.fwd_corners == 1:
+        tbl = planes[:, hashed[0]["offset"]:].to(torch.bfloat16).to(torch.float32)
         sel = _plan_k1(spec, hashed, x, y, z)
         return torch.stack([tbl[0][sel], tbl[1][sel]]), sel
+    t0, t1 = _unpack_pairs_plain(pack_pairs_bf16_plain(planes[:, hashed[0]["offset"]:]))
     idx = _hash_level_indices(spec, hashed, x, y, z)
     w = _corner_weights(hashed, x, y, z)
     e0 = torch.zeros_like(w[0])
     e1 = torch.zeros_like(w[0])
     for c in range(8):
-        e0 = e0 + tbl[0][idx[c]] * w[c]
-        e1 = e1 + tbl[1][idx[c]] * w[c]
+        e0 = e0 + t0[idx[c]] * w[c]
+        e1 = e1 + t1[idx[c]] * w[c]
     return torch.stack([e0, e1]), None
 
 
@@ -318,11 +351,20 @@ def _check_out(name: str, out: torch.Tensor, device) -> int:
     return out.shape[1]
 
 
+def _check_rows(name: str, out: torch.Tensor, device) -> int:
+    """T of ``out``, checked to be a [2, T] float32 tensor on ``device``
+    whose rows are contiguous (a column slice of a [2, total] gradient)."""
+    if out.dim() != 2 or out.shape[0] != 2 or out.dtype != torch.float32 or out.device != device \
+            or out.stride(1) != 1 or out.stride(0) < out.shape[1]:
+        raise ValueError(f"{name}: out must be a [2, T] float32 tensor on {device} with contiguous rows")
+    return out.shape[1]
+
+
 def table_grad_scatter_plain(idx: torch.Tensor, g0: torch.Tensor, g1: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """out[p][idx_k] += g_p[k] into the [2, T] float32 planes ``out``,
-    returned; indices outside [0, T) are dropped (``mode="drop"``: torch's
-    ``index_add_`` would raise)."""
-    T = _check_out("table_grad_scatter_plain", out, g0.device)
+    """out[p][idx_k] += g_p[k] into the [2, T] float32 planes ``out``
+    (rows contiguous), returned; indices outside [0, T) are dropped
+    (``mode="drop"``: torch's ``index_add_`` would raise)."""
+    T = _check_rows("table_grad_scatter_plain", out, g0.device)
     keep = (idx >= 0) & (idx < T)
     i = idx[keep].to(torch.int64)
     out[0].index_add_(0, i, g0[keep].to(torch.float32))
@@ -371,6 +413,26 @@ def k2_atomic_count(spec: HashGridSpec, x, y, z) -> int:
     groups. The first design issued 16 * Lh * N float adds: one per (level,
     point, corner, plane)."""
     return int(k2_runs(spec, x, y, z).sum())
+
+
+def k3_runs(idx: torch.Tensor, T: int) -> torch.Tensor:
+    """[K] bool: True where K3's lane k starts a run of its warp (a warp is
+    32 lanes in a row of k; a run starts at its first lane and wherever the
+    index differs from the previous lane's, every index outside [0, T)
+    counting as one "no add" index). The design sums each run and adds it
+    once."""
+    key = torch.where((idx >= 0) & (idx < T), idx.to(torch.int64), -1)
+    head = torch.ones_like(key, dtype=torch.bool)
+    head[1:] = key[1:] != key[:-1]
+    head[::32] = True
+    return head
+
+
+def k3_atomic_count(idx: torch.Tensor, T: int) -> int:
+    """The float2 atomic adds K3 issues on the card for indices ``idx``
+    into [2, T] planes: its warp runs of an index in [0, T). The first
+    design issued two float adds per entry in range."""
+    return int((k3_runs(idx, T) & (idx >= 0) & (idx < T)).sum())
 
 
 def dense_levels_fwd_plain(spec: HashGridSpec, planes: torch.Tensor, x, y, z, dtype=torch.float32):
@@ -440,9 +502,9 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("hash_encode")
     vp, i32, i64, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32, ctypes.c_float
-    lib.nerf_hash_levels_fwd.argtypes = [vp, i64, i64, vp, vp, vp, i64, i32, vp, vp, u32, i32, vp, vp, vp]
+    lib.nerf_hash_levels_fwd.argtypes = [vp, i64, i64, vp, vp, vp, i64, i32, vp, vp, u32, i32, vp, vp, vp, vp]
     lib.nerf_hash_levels_bwd.argtypes = [vp, i64, i64, vp, vp, vp, i64, i32, vp, vp, u32, i32, i32, f32, vp, vp, vp]
-    lib.nerf_table_grad_scatter.argtypes = [vp, vp, vp, i64, i64, vp, vp]
+    lib.nerf_table_grad_scatter.argtypes = [vp, vp, vp, i64, i64, i64, vp, vp, vp]
     lib.nerf_dense_levels_fwd.argtypes = [vp, i64, vp, vp, vp, i64, i32, vp, vp, vp, i32, vp, vp, vp]
     lib.nerf_dense_levels_bwd.argtypes = [vp, i64, i32, vp, vp, vp, i64, i32, vp, vp, vp, i32, i32, f32,
                                           vp, vp, vp, vp]
@@ -504,6 +566,10 @@ def hash_levels_fwd(spec: HashGridSpec, planes: torch.Tensor, x, y, z, *, sel: t
     float32 planes and x, y, z [N] float32 in [0, 1]: the exact trilinear
     sum, or (``spec.fwd_corners`` = 1) the k = 1 estimate.
 
+    The exact mode on the card first packs the hashed columns into one
+    bf16-pair word per entry (a [total - base] int32 buffer allocated here)
+    and reads one word per corner.
+
     sel: optional [Lh, N] int32 that receives the k = 1 plan (indices
     relative to the first hashed level); the plain version fills it too.
     """
@@ -524,10 +590,11 @@ def hash_levels_fwd(spec: HashGridSpec, planes: torch.Tensor, x, y, z, *, sel: t
     out = torch.empty(2, Lh, N, dtype=torch.float32, device=x.device)
     if N:
         base, scales, offsets, mask = _level_arrays(spec, hashed)
+        words = None if k1 else torch.empty(planes.shape[1] - base, dtype=torch.int32, device=x.device)
         err = _lib().nerf_hash_levels_fwd(
             planes.data_ptr(), planes.shape[1], base, x.data_ptr(), y.data_ptr(), z.data_ptr(), N,
             Lh, scales.ctypes.data, offsets.ctypes.data, mask, int(k1), out.data_ptr(),
-            0 if sel is None else sel.data_ptr(), _stream(x),
+            0 if sel is None else sel.data_ptr(), 0 if words is None else words.data_ptr(), _stream(x),
         )
         _raise_if_failed("hash_levels_fwd", err)
         launch_counts["hash_levels_fwd"] += 1
@@ -570,9 +637,15 @@ def hash_levels_bwd(spec: HashGridSpec, g: torch.Tensor, x, y, z, out: torch.Ten
 
 
 def table_grad_scatter(idx: torch.Tensor, g0: torch.Tensor, g1: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """out[p][idx_k] += g_p[k] into the [2, T] float32 planes ``out``,
+    """out[p][idx_k] += g_p[k] into the [2, T] float32 planes ``out``
+    (rows contiguous: a column slice of a [2, total] gradient will do),
     returned, from idx [K] int32 and g0, g1 [K] float32; indices outside
-    [0, T) are dropped."""
+    [0, T) are dropped.
+
+    On the card each warp merges its runs of equal indices and adds each
+    run's sums with one float2 atomic into a zeroed interleaved scratch
+    ``[T, 2]`` float32, allocated here and added into ``out`` by a second
+    pass."""
     if _device_kind("table_grad_scatter", idx) == "cpu":
         return table_grad_scatter_plain(idx, g0, g1, out)
     K = idx.shape[0]
@@ -582,10 +655,12 @@ def table_grad_scatter(idx: torch.Tensor, g0: torch.Tensor, g1: torch.Tensor, ou
     _check_cuda("table_grad_scatter", {"g0": g0, "g1": g1})
     if g0.device != idx.device:
         raise ValueError(f"table_grad_scatter: g0 on {g0.device}, idx on {idx.device}")
-    T = _check_out("table_grad_scatter", out, idx.device)
-    if K:
+    T = _check_rows("table_grad_scatter", out, idx.device)
+    if K and T:  # T = 0: every index is dropped
+        scratch = torch.zeros(T, 2, dtype=torch.float32, device=idx.device)
         err = _lib().nerf_table_grad_scatter(
-            idx.data_ptr(), g0.data_ptr(), g1.data_ptr(), K, T, out.data_ptr(), _stream(idx)
+            idx.data_ptr(), g0.data_ptr(), g1.data_ptr(), K, T, out.stride(0), out.data_ptr(),
+            scratch.data_ptr(), _stream(idx)
         )
         _raise_if_failed("table_grad_scatter", err)
         launch_counts["table_grad_scatter"] += 1
@@ -690,7 +765,8 @@ class _HashEncode(torch.autograd.Function):
     in ``dtype``, k = 1 in float32), hashed levels through K1 in float32,
     each cast at the concat. The backward zeroes one [2, total] float32
     gradient; K5 stages the dense levels' table gradient, K3 adds it into
-    the dense columns and K2 the hashed levels' into the hashed columns."""
+    the dense columns (a column slice: its scratch spans them only) and K2
+    the hashed levels' into the hashed columns."""
 
     @staticmethod
     def forward(ctx, planes, x, y, z, spec, dtype):
@@ -711,7 +787,8 @@ class _HashEncode(torch.autograd.Function):
         g = g.contiguous()
         grad = torch.zeros(2, ctx.total, dtype=torch.float32, device=x.device)
         if dense:
-            table_grad_scatter(*dense_levels_bwd(ctx.spec, g[:, : len(dense)], x, y, z, ctx.dtype), grad)
+            dense_cols = grad[:, : _dense_width(dense)]
+            table_grad_scatter(*dense_levels_bwd(ctx.spec, g[:, : len(dense)], x, y, z, ctx.dtype), dense_cols)
         if hashed:
             g_hashed = g[:, len(dense) :].to(torch.float32).contiguous()
             hash_levels_bwd(ctx.spec, g_hashed, x, y, z, grad)

@@ -53,7 +53,7 @@ def _ulp_bound(ref: np.ndarray) -> np.ndarray:
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
 
-@pytest.mark.parametrize("E", [24, 32])
+@pytest.mark.parametrize("E", [24, 32, 40, 64])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_plain_versions_match_pallas(E, dt):
     """N = 1500 is not a multiple of the Pallas tile (1024). f32: atol 2e-5,
@@ -121,7 +121,7 @@ def test_pack_weights_layout(dt):
     _, tdt = DTYPES[dt]
     params = _params(24, seed=11)
     buf = fused_mlp.pack_weights(_torch_params(params), tdt, "cpu")
-    assert buf.dtype == torch.float32 and buf.shape == (fused_mlp.W_TOTAL,)
+    assert buf.dtype == torch.float32 and buf.shape == (fused_mlp.weights_size(24),)
     w1 = buf[: 64 * 32].reshape(64, 32)
     assert not w1[:, 24:].any()
     ws = [params["dmlp"][0]["w"], params["dmlp"][1]["w"]] + [l["w"] for l in params["cmlp"]]
@@ -131,7 +131,23 @@ def test_pack_weights_layout(dt):
         got = w1[:, :24] if i == 0 else buf[off : off + w.size].reshape(w.shape[1], w.shape[0])
         assert torch.equal(got, rounded)
         off += 64 * 32 if i == 0 else w.size
-    assert off == fused_mlp.W_TOTAL
+    assert off == fused_mlp.weights_size(24) == 9408
+
+
+@pytest.mark.parametrize("E", [33, 40, 64, 100, 128])
+def test_pack_weights_chunks_wide_encodings(E):
+    """Above E = 32, W1 is packed as ceil(E / 32) chunks of [64, 32] (fan-in
+    columns 32c..32c+31 of every row), zero past E, and W2..W5 follow."""
+    params = _params(E, seed=E)
+    buf = fused_mlp.pack_weights(_torch_params(params), torch.float32, "cpu")
+    C = -(-E // 32)
+    assert buf.shape == (fused_mlp.weights_size(E),) == (C * 64 * 32 + 7360,)
+    w1 = buf[: C * 64 * 32].reshape(C, 64, 32)
+    full = torch.cat(list(w1.unbind(0)), dim=1)  # [64, 32 C]
+    assert torch.equal(full[:, :E], torch.from_numpy(params["dmlp"][0]["w"].T.copy()))
+    assert not full[:, E:].any()
+    assert torch.equal(buf[C * 64 * 32 : C * 64 * 32 + 16 * 64],
+                       torch.from_numpy(params["dmlp"][1]["w"].T.copy()).reshape(-1))
 
 
 def test_wrapper_rejects_bad_packed_buffer():
@@ -140,3 +156,40 @@ def test_wrapper_rejects_bad_packed_buffer():
     bad = fused_mlp.pack_weights(tp, torch.float32, "cpu")[:-1]
     with pytest.raises(ValueError):
         fused_mlp._weight_buffer("fused_ngp_density", tp, enc, bad)
+
+
+def test_twenty_level_field_runs_the_fused_heads_like_nerfjax():
+    """A 20-level field (E = 40, wider than one 32-row chunk of W1) through
+    the port's apply_planar_fused and query_density_planar_fused against
+    nerfjax's (Pallas in interpret mode), the same weights carried over by
+    params_from_jax: f32 within atol 2e-5 (summation order only); the port's
+    bf16 density equal to its head's sigma."""
+    import jax
+
+    from nerfjax.fields.ngp import InstantNGP as JaxNGP
+    from nerfjax_torch.checkpoint import params_from_jax
+    from nerfjax_torch.fields.ngp import InstantNGP
+
+    jf = JaxNGP("small", n_levels=20)
+    params = jax.device_get(jf.init(jax.random.PRNGKey(3)))
+    params["table"] = params["table"] * 2000.0  # a field with structure, not ~0
+    tf = InstantNGP("small", n_levels=20).load_params(params_from_jax(params))
+    assert tf.spec.output_dim == 40
+    rng = np.random.default_rng(13)
+    pos = rng.uniform(-1.0, 1.0, (3, 600)).astype(np.float32)
+    view = pos / np.linalg.norm(pos, axis=0, keepdims=True)
+    pj, vj = (tuple(jnp.asarray(c) for c in a) for a in (pos, view))
+    pt, vt = (tuple(torch.from_numpy(c.copy()) for c in a) for a in (pos, view))
+
+    rgb_j, sig_j = jf.apply_planar_fused(params, pj, vj, dtype=jnp.float32, interpret=True)
+    rgb_t, sig_t = tf.apply_planar_fused(pt, vt, dtype=torch.float32)
+    assert rgb_t.shape == (3, 600) and sig_t.shape == (600,)
+    np.testing.assert_allclose(rgb_t.numpy(), np.asarray(rgb_j), rtol=0, atol=2e-5)
+    np.testing.assert_allclose(sig_t.numpy(), np.asarray(sig_j), rtol=0, atol=2e-5)
+
+    dsig_j = jf.query_density_planar_fused(params, pj, dtype=jnp.float32, interpret=True)
+    dsig_t = tf.query_density_planar_fused(pt, dtype=torch.float32)
+    assert torch.equal(dsig_t, sig_t)
+    np.testing.assert_allclose(dsig_t.numpy(), np.asarray(dsig_j), rtol=0, atol=2e-5)
+    dsig_bf16 = tf.query_density_planar_fused(pt)
+    assert dsig_bf16.dtype == torch.bfloat16 and torch.equal(dsig_bf16, tf.apply_planar_fused(pt, vt)[1])

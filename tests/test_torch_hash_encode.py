@@ -105,3 +105,40 @@ def test_sh4_matches_nerfjax():
     sj = np.asarray(sh4_jax(*[jnp.asarray(c) for c in d]))
     st = sh4_encode_planar(*[torch.from_numpy(c.copy()) for c in d]).numpy()
     np.testing.assert_allclose(st, sj, rtol=0, atol=1e-6)  # f32 elementwise, same op order
+
+
+# f32 bit patterns of the pack's edge cases: NaNs of both signs (quiet,
+# signalling, all payload bits), +-0, +-inf, the largest finite value, values
+# halfway between two bf16 values (ties to even both ways), values that round
+# up across a bf16 exponent, and subnormals
+PACK_EDGES = [0x7FC00000, 0xFFC00000, 0x7F800001, 0xFF800001, 0x7FFFFFFF, 0x7F8FFFFF, 0x00000000, 0x80000000,
+              0x7F800000, 0xFF800000, 0x7F7FFFFF, 0xFF7FFFFF, 0x3F808000, 0x3F818000, 0x3F7FFFFF, 0xBF7FFFFF,
+              0x3F80FFFF, 0x407FFFC0, 0x00000001, 0x807FFFFF, 0x007F8000, 0x3F800000]
+
+
+def test_pack_pairs_bf16_plain_equals_nerfjax_bit_for_bit():
+    """The port's plain pack (the layout K1 exact reads) against nerfjax's
+    _pack_pairs_bf16, compared as uint32 words: the edge cases in both
+    planes (each paired with every other), then seeded values of every
+    magnitude."""
+    from nerfjax.ops.hash_encode import _pack_pairs_bf16
+
+    from nerfjax_torch.ops.hash_encode import _unpack_pairs_plain, pack_pairs_bf16_plain
+
+    edges = np.array(PACK_EDGES, np.uint32)
+    a, b = np.meshgrid(edges, edges)
+    rng = np.random.default_rng(0)
+    wide = (rng.uniform(-1, 1, 4000) * 2.0 ** rng.integers(-140, 127, 4000)).astype(np.float32).view(np.uint32)
+    bits = np.stack([np.concatenate([a.ravel(), wide]), np.concatenate([b.ravel(), wide[::-1]])])
+    planes = bits.view(np.float32)
+    want = np.asarray(_pack_pairs_bf16(jnp.asarray(planes))).view(np.uint32)
+    got = pack_pairs_bf16_plain(torch.from_numpy(planes.copy()))
+    assert got.dtype == torch.int32 and got.shape == (planes.shape[1],)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    # unpacked, each half is the bf16 rounding widened to f32 (NaN stays NaN)
+    p0, p1 = _unpack_pairs_plain(got)
+    for half, plane in ((p0, planes[0]), (p1, planes[1])):
+        ref = torch.from_numpy(plane.copy()).to(torch.bfloat16).to(torch.float32)
+        assert torch.equal(half.isnan(), ref.isnan())
+        keep = ~ref.isnan()
+        assert torch.equal(half[keep].view(torch.int32), ref[keep].view(torch.int32))

@@ -44,12 +44,14 @@ def _ulp_bound(ref: np.ndarray) -> np.ndarray:
     return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(ref), 2.0**-14))) - 7)
 
 
-@pytest.mark.parametrize("E", [24, 32])
+@pytest.mark.parametrize("E", [24, 32, 40, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("N", [1, 100_003])
 def test_kernels_match_plain(cuda_device, E, dtype, N):
     """Each kernel against its plain version: one bf16 ulp (f32: atol 2e-5,
-    summation order only); the density sigma bit-identical to the head's."""
+    summation order only); the density sigma bit-identical to the head's.
+    Above E = 32 the first layer runs over several 32-row chunks, above 64
+    the weights take more than 48 KB of shared memory."""
     params = _params(E, 11, cuda_device)
     rng = np.random.default_rng(12)
     enc = torch.from_numpy(rng.uniform(-1, 1, (E, N)).astype(np.float32)).to(cuda_device, dtype)
@@ -72,9 +74,9 @@ def test_kernels_match_plain(cuda_device, E, dtype, N):
 
 
 def test_wrapper_rejects_wide_encoding(cuda_device):
-    params = _params(40, 13, cuda_device)
-    with pytest.raises(ValueError):
-        fused_mlp.fused_ngp_density(params, torch.zeros(40, 8, device=cuda_device))
+    params = _params(fused_mlp.E_MAX + 2, 13, cuda_device)
+    with pytest.raises(ValueError, match="E_MAX = 128"):
+        fused_mlp.fused_ngp_density(params, torch.zeros(fused_mlp.E_MAX + 2, 8, device=cuda_device))
 
 
 # -- the hash-encode kernels ---------------------------------------------------
@@ -184,6 +186,33 @@ def test_k2_exact_matches_plain_under_contention(cuda_device, inputs):
     assert bool(((into - (prior + ref)).abs() <= bound).all())
 
 
+@pytest.mark.parametrize("inputs", ["one_position", "one_point", "odd_total", "one_level", "32_levels"])
+def test_hash_levels_fwd_exact_packed_equals_plain(cuda_device, inputs):
+    """K1 exact, which reads the hashed columns packed into bf16-pair words,
+    equals its plain version bit for bit: at an odd count of hashed columns
+    (planes one column wider than the spec), at N = 1, with 1 and with 32
+    hashed levels, and with every point at one position."""
+    kw = {"one_level": dict(n_levels=6, log2_hashmap_size=19, extra_dense_levels=1),
+          "32_levels": dict(n_levels=33, log2_hashmap_size=12)}.get(inputs, TUNED)
+    spec = HashGridSpec(**kw)
+    _, hashed = hash_encode._split_levels(spec)
+    assert len(hashed) == {"one_level": 1, "32_levels": 32}.get(inputs, 7)
+    total = spec.total_table_size + (inputs == "odd_total")
+    assert (total - hashed[0]["offset"]) % 2 == (inputs == "odd_total")
+    rng = np.random.default_rng(40)
+    planes = torch.from_numpy(rng.uniform(-1, 1, (2, total)).astype(np.float32)).to(cuda_device)
+    if inputs == "one_position":
+        x, y, z = (torch.full((100_003,), v, device=cuda_device) for v in (0.3, 0.6, 0.2))
+    else:
+        x, y, z = _positions(1 if inputs == "one_point" else 100_003, 41, cuda_device)
+    before = hash_encode.launch_counts["hash_levels_fwd"]
+    got = hash_encode.hash_levels_fwd(spec, planes, x, y, z)
+    ref, _ = hash_encode.hash_levels_fwd_plain(spec, planes, x, y, z)
+    torch.cuda.synchronize()
+    assert hash_encode.launch_counts["hash_levels_fwd"] == before + 1
+    assert torch.equal(got, ref)
+
+
 def test_table_grad_scatter_matches_plain_and_drops(cuda_device):
     rng = np.random.default_rng(25)
     T, K = 1 << 15, 300_001
@@ -204,6 +233,57 @@ def test_table_grad_scatter_matches_plain_and_drops(cuda_device):
         hash_encode.table_grad_scatter(idx.long(), g0, g1, zeros())
     with pytest.raises(ValueError):
         hash_encode.table_grad_scatter(idx, g0, g1, torch.zeros(T, 2, device=cuda_device).t())
+
+
+@pytest.mark.parametrize("inputs", ["one_entry", "one_index", "sorted_runs", "ragged"])
+def test_table_grad_scatter_matches_plain_under_contention(cuda_device, inputs):
+    """K3 (merged warp runs, float2 adds into the scratch) within the
+    atomic-order bound 2 * max(n, 8) * 2^-24 * sum|terms| per entry of n
+    terms, under the worst contention: K = 1; all K = 100,003 entries on one
+    index; the dense levels' staged gradient of ray-major sorted samples
+    (runs of one index); a ragged K of sorted indices among a few entries
+    with dropped ones. Into a column slice of a wider gradient that holds
+    values, as the encode's backward hands it the dense columns; the
+    columns past the slice untouched; and K3's adds counted by
+    k3_atomic_count."""
+    spec = HashGridSpec(**TUNED)
+    dense, _ = hash_encode._split_levels(spec)
+    T = hash_encode._dense_width(dense)
+    rng = np.random.default_rng(42)
+    if inputs == "sorted_runs":
+        x, y, z = _ray_samples(521, 192, 43, cuda_device)
+        g = torch.from_numpy(rng.normal(size=(2, len(dense), x.shape[0])).astype(np.float32)).to(cuda_device)
+        idx, g0, g1 = hash_encode.dense_levels_bwd(spec, g, x, y, z)
+    else:
+        K = {"one_entry": 1, "one_index": 100_003, "ragged": 70_001}[inputs]
+        idx = np.full(K, 12_345) if inputs != "ragged" else np.sort(rng.integers(0, 300, K))
+        if inputs == "ragged":
+            idx[::29] = T + 1
+            idx[::31] = -3
+        idx = torch.from_numpy(idx.astype(np.int32)).to(cuda_device)
+        g0, g1 = (torch.from_numpy(rng.normal(size=K).astype(np.float32)).to(cuda_device) for _ in range(2))
+    zeros = lambda: torch.zeros(2, T, device=cuda_device)  # noqa: E731
+    prior = torch.from_numpy(rng.normal(size=(2, T + 64)).astype(np.float32)).to(cuda_device)
+    before = hash_encode.launch_counts["table_grad_scatter"]
+    got = hash_encode.table_grad_scatter(idx, g0, g1, zeros())
+    into = prior.clone()
+    hash_encode.table_grad_scatter(idx, g0, g1, into[:, :T])
+    torch.cuda.synchronize()
+    assert hash_encode.launch_counts["table_grad_scatter"] == before + 2
+    ref = hash_encode.table_grad_scatter_plain(idx, g0, g1, zeros())
+    mass = hash_encode.table_grad_scatter_plain(idx, g0.abs(), g1.abs(), zeros())
+    one = torch.ones_like(g0)
+    count = hash_encode.table_grad_scatter_plain(idx, one, one, zeros())
+    bound = 2.0 * count.clamp_min(8.0) * 2.0**-24 * mass + 1e-30
+    assert bool(((got - ref).abs() <= bound).all()) and bool((got != 0).any())
+    bound = 2.0 * (count + 1).clamp_min(8.0) * 2.0**-24 * (mass + prior[:, :T].abs()) + 1e-30
+    assert bool(((into[:, :T] - (prior[:, :T] + ref)).abs() <= bound).all())
+    assert torch.equal(into[:, T:], prior[:, T:])
+    adds = hash_encode.k3_atomic_count(idx, T)
+    in_range = int(((idx >= 0) & (idx < T)).sum())
+    if inputs in ("one_entry", "one_index"):
+        assert adds == -(-idx.shape[0] // 32)
+    assert adds <= in_range
 
 
 DENSE_MODES = {"exact": {}, "dgl1": dict(dense_grad_levels=1), "dgl2": dict(dense_grad_levels=2),
