@@ -95,6 +95,19 @@ Added for the wide heads and the redesigns of K3 and K1 exact:
      computes from its f32 inputs), the matmul on bf16 inputs an extra
      line.
 
+Added for the MLP heads on the tensor cores (the bf16 head and density
+kernels on mma.sync, f32 activations split into three bf16 terms):
+
+  3. the bf16 kernels within one bf16 ulp of plain at every shape, with
+     the share of bf16 outputs bit-equal to plain and the largest error in
+     bf16 ulps; HEAD_DIGESTS' bf16 entries are the redesigned kernels'
+     (the f32 ones unchanged); the head also timed at E = 32; each
+     kernel's dynamic shared memory;
+  8b. the 64 + 128 eval frame of each pose split by stage with CUDA
+     events around the render's own calls: rays and the stratified
+     sample, coarse encode, coarse head, composite + sample_pdf + sort,
+     fine encode, fine head, composite, the host's remainder.
+
 The last two lines are a JSON object with each kernel's launches (summed
 over the main paths: the 512^3 extraction, both train() runs, the eval
 render, the probe entry point), error, times and bound (K1, K2 and K3
@@ -125,17 +138,19 @@ SPHERE_CENTER = np.array([0.10, -0.05, 0.0])
 SPHERE_RADIUS = 0.5
 KERNEL_SHAPES = [(n, e, dt) for n in (524_288, 1_000_003) for e in (24, 32, 40, 64) for dt in ("bf16", "f32")]
 MAIN_SHAPE = (524_288, 24, "bf16")  # the fine pass's call: 8192 cells x 64 voxels
-WIDE_SHAPES = [(524_288, 40, "bf16"), (524_288, 64, "bf16")]  # timed beside MAIN_SHAPE: 20 and 32 levels
+# timed beside MAIN_SHAPE: 16, 20 and 32 levels
+WIDE_SHAPES = [(524_288, 32, "bf16"), (524_288, 40, "bf16"), (524_288, 64, "bf16")]
 # sha-256 prefixes of (rgb, sigma, density sigma) of the MLP kernels at E = 24
-# and 32 on _head_inputs, as the kernels computed them before the first layer
-# was split into 32-row chunks (W1 staged as one [64, 32] block) on an H100:
-# at E <= 32 the chunked kernels run the same sums and must reproduce them
-# bit for bit
+# and 32 on _head_inputs, on an H100. f32: as the FP32 kernels computed them
+# before the first layer was split into 32-row chunks (W1 staged as one [64,
+# 32] block); the chunked kernels run the same sums and must reproduce them
+# bit for bit. bf16: as the tensor-core kernels compute them (their order of
+# additions is fixed, so any change to it shows here)
 HEAD_DIGESTS = {
-    (524_288, 24, "bf16"): "82bf2da56d4c1c0c", (524_288, 24, "f32"): "2a21ea1846941ddd",
-    (524_288, 32, "bf16"): "85097ae0699aa3f7", (524_288, 32, "f32"): "c4fb4edeb8dce1ae",
-    (1_000_003, 24, "bf16"): "37aa55a0d38f46b6", (1_000_003, 24, "f32"): "276ab8e05a8b9298",
-    (1_000_003, 32, "bf16"): "997fbf70c7fd5957", (1_000_003, 32, "f32"): "1066bfe6a9dc1cff",
+    (524_288, 24, "bf16"): "50034c4833e3cc25", (524_288, 24, "f32"): "2a21ea1846941ddd",
+    (524_288, 32, "bf16"): "460680b3c25de4f7", (524_288, 32, "f32"): "c4fb4edeb8dce1ae",
+    (1_000_003, 24, "bf16"): "7edeb9394c4de77c", (1_000_003, 24, "f32"): "276ab8e05a8b9298",
+    (1_000_003, 32, "bf16"): "35b7e0b69abc0b0a", (1_000_003, 32, "f32"): "1066bfe6a9dc1cff",
 }
 
 
@@ -186,15 +201,33 @@ def _weights(E: int, rng) -> dict:
     return out
 
 
-def _ulp_ok(got, ref) -> bool:
-    """|got - ref| within one bf16 ulp of ref, elementwise. The ulp is taken
-    at no less than 2^-14: near zero (where relu cuts) the two summation
-    orders differ by float32 noise of O(1) sums, which lies below 2^-21."""
+def _ulps(got, ref):
+    """|got - ref| in bf16 ulps of ref, elementwise. The ulp is taken at no
+    less than 2^-14: near zero (where relu cuts) the two summation orders
+    differ by float32 noise of O(1) sums, which lies below 2^-21."""
     import torch
 
     got, ref = got.float(), ref.float()
-    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0**-14))) - 7)
-    return bool(((got - ref).abs() <= ulp).all())
+    return (got - ref).abs() / torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0**-14))) - 7)
+
+
+def _ulp_ok(got, ref) -> bool:
+    """|got - ref| within one bf16 ulp of ref, elementwise (_ulps)."""
+    return bool((_ulps(got, ref) <= 1).all())
+
+
+def _head_work(E: int, N: int, density: bool = False) -> tuple[float, float]:
+    """(bytes, operations) of the function that the head (density: the
+    density head) computes on N points of width E in bf16: enc (and sh)
+    read once, rgb and sigma (sigma) written once, nerfjax's bf16 W1..W5
+    (W1, W2) read once; two operations per multiply-add of its five
+    matmuls (W1, and W2's row 0). Neither the kernels' split into three
+    terms nor their padded weight layout is counted: the bound is the
+    function's."""
+    if density:
+        return 2 * ((E + 1) * N + E * 64 + 64 * 16), 2 * N * (E * 64 + 64)
+    macs = E * 64 + 64 * 16 + 32 * 64 + 64 * 64 + 64 * 3  # per point, and the weights' count
+    return 2 * ((E + 16 + 4) * N + macs), 2 * N * macs
 
 
 def _wall_ms(fn, iters: int = 20) -> float:
@@ -268,6 +301,12 @@ def kernels_vs_plain() -> dict:
     from nerfjax_torch.ops import fused_mlp as fm
 
     stats = {"fused_ngp_head": {"max_abs_err": 0.0, "wide": {}}, "fused_ngp_density": {"max_abs_err": 0.0}}
+    lib = fm._lib()
+    for dt, flag in (("bf16", 1), ("f32", 0)):
+        phase(f"{dt} MLP kernels' dynamic shared memory per block: head " + ", ".join(
+            f"E={E} {lib.nerf_fused_smem_bytes(E, flag, 0):,} B" for E in (24, 32, 64, 128))
+            + "; density " + ", ".join(f"E={E} {lib.nerf_fused_smem_bytes(E, flag, 1):,} B" for E in (24, 32)))
+    equal, total, worst = 0, 0, 0.0  # bf16 outputs bit-equal to plain, of all; the largest error in ulps
     for N, E, dt in KERNEL_SHAPES:
         params, enc, sh = _head_inputs(N, E, dt)
         packed = fm.pack_weights(params, enc.dtype, enc.device)  # once per field, as InstantNGP does
@@ -278,6 +317,7 @@ def kernels_vs_plain() -> dict:
         torch.cuda.synchronize()
         if not torch.equal(dsig_k, sig_k):
             raise AssertionError(f"density sigma != head sigma at N={N} E={E} {dt}")
+        shape_eq, shape_worst = 0, 0.0
         for name, pairs in (("fused_ngp_head", [(rgb_k, rgb_p), (sig_k, sig_p)]),
                             ("fused_ngp_density", [(dsig_k, dsig_p)])):
             for got, ref in pairs:
@@ -286,18 +326,23 @@ def kernels_vs_plain() -> dict:
                 if not ok:
                     raise AssertionError(f"{name} disagrees with its plain version at N={N} E={E} {dt}: {err}")
                 stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+                if dt == "bf16" and name == "fused_ngp_head":
+                    shape_eq += int(torch.eq(got, ref).sum())
+                    shape_worst = max(shape_worst, float(_ulps(got, ref).max()))
         line = f"N={N} E={E} {dt}: kernel == plain (bf16: <= 1 ulp; f32: <= 2e-5); density sigma == head sigma"
+        if dt == "bf16":
+            equal, total, worst = equal + shape_eq, total + 4 * N, max(worst, shape_worst)
+            line += (f"; head outputs bit-equal to plain {shape_eq / (4 * N):.4%}, largest error "
+                     f"{shape_worst:.3f} bf16 ulp")
         if E <= 32:
             digest = _digest(rgb_k, sig_k, dsig_k)
             if HEAD_DIGESTS.get((N, E, dt)) != digest:
-                raise AssertionError(f"the MLP kernels' outputs at N={N} E={E} {dt} changed: digest {digest}, before "
-                                     f"the chunked layout {HEAD_DIGESTS.get((N, E, dt))}")
-            line += f"; outputs bit-identical to the single-chunk kernels' (digest {digest})"
+                raise AssertionError(f"the MLP kernels' outputs at N={N} E={E} {dt} changed: digest {digest}, "
+                                     f"pinned {HEAD_DIGESTS.get((N, E, dt))}")
+            line += f"; outputs equal to the pinned ones (digest {digest})"
         if (N, E, dt) in WIDE_SHAPES:
-            macs = E * 64 + 64 * 16 + 32 * 64 + 64 * 64 + 64 * 3
             t = _time_kernel(lambda: fm.fused_ngp_head(params, enc, sh, packed=packed),
-                             lambda: fm.fused_ngp_head_plain(params, enc, sh), None,
-                             _bound((2 * E + 2 * 16 + 2 * 4) * N + 4 * fm.weights_size(E), 2 * macs * N, "bf16"))
+                             lambda: fm.fused_ngp_head_plain(params, enc, sh), None, _bound(*_head_work(E, N), "bf16"))
             stats["fused_ngp_head"]["wide"][E] = t
             line += f"\n  fused_ngp_head E={E} (extra line): " + _timing_line(t)
         if (N, E, dt) == MAIN_SHAPE:
@@ -308,9 +353,13 @@ def kernels_vs_plain() -> dict:
                                       lambda: fm.fused_ngp_density_plain(params, enc)),
             }
             for name, (kern, plain) in runs.items():
-                stats[name].update(_time_kernel(kern, plain, None, None))
+                bound = _bound(*_head_work(E, N, density=name == "fused_ngp_density"), "bf16")
+                stats[name].update(_time_kernel(kern, plain, None, bound))
                 line += f"\n  {name}: " + _timing_line(stats[name])
         phase(line)
+    stats["fused_ngp_head"].update(bit_equal_share=equal / total, max_err_ulp=worst)
+    phase(f"bf16 head outputs over all shapes: {equal / total:.4%} bit-equal to plain, largest error {worst:.3f} "
+          "bf16 ulp (bound: 1)")
     return stats
 
 
@@ -363,7 +412,7 @@ def extract_full(ckpt_path: Path, out_dir: Path) -> dict:
     torch.cuda.reset_peak_memory_stats()
     fm.reset_launch_counts()
     he.reset_launch_counts()
-    with _recorded((he, "hash_levels_fwd")) as k1_calls:
+    with _recorded((he, "hash_levels_fwd"), (fm, "fused_ngp_density"), (fm, "fused_ngp_head")) as calls:
         t0 = time.perf_counter()
         vol = extract_volume(cfg, device="cuda")
         wall = time.perf_counter() - t0
@@ -376,12 +425,31 @@ def extract_full(ckpt_path: Path, out_dir: Path) -> dict:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
-    for N, calls in sorted(k1_calls.items()):  # K1 exact on the last call of each size
-        (spec, planes, x, y, z), _ = calls["hash_levels_fwd"]
-        if not torch.equal(he.hash_levels_fwd(spec, planes, x, y, z), he.hash_levels_fwd_plain(spec, planes, x, y, z)[0]):
-            raise AssertionError(f"hash_levels_fwd at the {res}^3 extraction (N={N:,}): kernel != plain")
-    phase(f"hash_levels_fwd exact at the {res}^3 extraction's calls (N = " + ", ".join(f"{n:,}" for n in sorted(k1_calls))
-          + "): kernel == plain (torch.equal)")
+    k1_sizes, mlp_sizes = [], []
+    for N, seen in sorted(calls.items()):  # each kernel on its last call of each size
+        if "hash_levels_fwd" in seen:  # K1 exact
+            (spec, planes, x, y, z), _ = seen["hash_levels_fwd"]
+            if not torch.equal(he.hash_levels_fwd(spec, planes, x, y, z),
+                               he.hash_levels_fwd_plain(spec, planes, x, y, z)[0]):
+                raise AssertionError(f"hash_levels_fwd at the {res}^3 extraction (N={N:,}): kernel != plain")
+            k1_sizes.append(N)
+        if "fused_ngp_density" in seen:  # the marking pass: also the head's sigma on the same enc
+            (params, enc), kw = seen["fused_ngp_density"]
+            sigma = fm.fused_ngp_density(params, enc, **kw)
+            _, head_sigma = fm.fused_ngp_head(params, enc, torch.zeros(16, N, dtype=enc.dtype, device=enc.device), **kw)
+            if not (_ulp_ok(sigma, fm.fused_ngp_density_plain(params, enc)) and torch.equal(sigma, head_sigma)):
+                raise AssertionError(f"fused_ngp_density at the {res}^3 extraction (N={N:,}): beyond one ulp of "
+                                     "plain, or not the head's sigma")
+            mlp_sizes.append(f"density {N:,}")
+        if "fused_ngp_head" in seen:
+            (params, enc, sh), kw = seen["fused_ngp_head"]
+            for got, ref in zip(fm.fused_ngp_head(params, enc, sh, **kw), fm.fused_ngp_head_plain(params, enc, sh)):
+                if not _ulp_ok(got, ref):
+                    raise AssertionError(f"fused_ngp_head at the {res}^3 extraction (N={N:,}): beyond one ulp of plain")
+            mlp_sizes.append(f"head {N:,}")
+    phase(f"hash_levels_fwd exact at the {res}^3 extraction's calls (N = " + ", ".join(f"{n:,}" for n in k1_sizes)
+          + "): kernel == plain (torch.equal); the MLP kernels on their calls (" + ", ".join(mlp_sizes)
+          + "): within one bf16 ulp of plain, the density sigma == the head's on the same enc")
     out = out_dir / "volume.pth"
     save_volume(vol, out)
     back = load_volume(out)
@@ -756,7 +824,8 @@ def _recorded(*targets):
     """Within the block each (module, name) of ``targets`` records its
     calls. Yields {N: {name: (args, kwargs) of its last call at N}}: N is
     the call's point count, the last dimension of its third argument (x of
-    the hash-encode wrappers, sh of the head); table_grad_scatter, which
+    the hash-encode wrappers, sh of the head; enc, the second, of the
+    density head); table_grad_scatter, which
     takes no positions, is filed under the N of the call before it, the
     dense-level staging whose entries it adds."""
     seen, wrapped, n = {}, [], [None]
@@ -765,7 +834,7 @@ def _recorded(*targets):
 
         def record(*args, _name=name, _fn=fn, **kw):
             if _name != "table_grad_scatter":
-                n[0] = args[2].shape[-1]
+                n[0] = args[1 if _name == "fused_ngp_density" else 2].shape[-1]
             seen.setdefault(n[0], {})[_name] = (args, kw)
             return _fn(*args, **kw)
 
@@ -1428,6 +1497,68 @@ def _psnr(pred: np.ndarray, gt: np.ndarray) -> float:
     return float(-10.0 * np.log10(max(float(np.mean((pred - gt) ** 2)), 1e-12)))
 
 
+FRAME_STAGES = ("rays + stratified sample", "coarse encode", "coarse head", "composite + sample_pdf + sort",
+                "fine encode", "fine head", "composite", "host remainder")
+
+
+def _frame_split(field, K, c2w, H: int, W: int, seed: int) -> dict:
+    """One 64 + 128 render_image frame split by stage, ms on the card's
+    clock: CUDA events recorded around the render's own calls
+    (render_rays_planar per chunk, the field's encode and the head per
+    pass) and at the frame's start and end (it ends in a copy to the host,
+    which synchronises). Each interval between two marks goes to a stage:
+    up to a chunk's coarse encode to "rays + stratified sample" (the frame's
+    rays and ray-cube hits, then the chunk's draws, depths and positions),
+    from the coarse encode's end to the coarse head's end to "coarse head"
+    (the directions' SH encode included), from there to the fine encode to
+    "composite + sample_pdf + sort" (the fine positions included), after
+    the fine head to "composite", between chunks and after the last to
+    "host remainder". Where the card waits on the host an interval holds
+    the host's time: the stages add up to the frame's wall."""
+    import torch
+
+    from nerfjax_torch import render_image as ri
+    from nerfjax_torch.ops import fused_mlp as fm
+
+    marks = []
+
+    def mark(label):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append((label, e))
+
+    def around(label, fn):
+        def run(*args, **kw):
+            mark(label)
+            out = fn(*args, **kw)
+            mark(label + " end")
+            return out
+        return run
+
+    real_rays, real_head = ri.render_rays_planar, fm.fused_ngp_head
+    ri.render_rays_planar, fm.fused_ngp_head = around("chunk", real_rays), around("head", real_head)
+    field.encode = around("encode", field.encode)  # an instance attribute over the method
+    try:
+        mark("start")
+        ri.render_image(field, K, c2w, H, W, n_samples=64, n_importance=128, seed=seed)
+        mark("end")
+        torch.cuda.synchronize()
+    finally:
+        ri.render_rays_planar, fm.fused_ngp_head = real_rays, real_head
+        del field.encode
+    stage = {("encode", 0): 1, ("encode end", 0): 2, ("head", 0): 2, ("head end", 0): 3,
+             ("encode", 1): 4, ("encode end", 1): 5, ("head", 1): 5, ("head end", 1): 6}
+    split, fine = dict.fromkeys(FRAME_STAGES, 0.0), 0
+    for (label, e0), (_, e1) in zip(marks, marks[1:]):
+        if label == "chunk":
+            fine = 0
+        i = 0 if label in ("start", "chunk") else 7 if label in ("chunk end",) else stage[(label, fine)]
+        if label == "head end":
+            fine = 1
+        split[FRAME_STAGES[i]] += e0.elapsed_time(e1)
+    return split
+
+
 def eval_render(final: Path, cfg: dict, label: str, stats: dict, hstats: dict) -> dict:
     """render_image on the card from a trained ball (``cfg``'s model) at
     EVAL_SIZE^2 and EVAL_POSES held-out orbit poses (radius 2.5, height
@@ -1480,6 +1611,11 @@ def eval_render(final: Path, cfg: dict, label: str, stats: dict, hstats: dict) -
             if np.mean(psnrs) < EVAL_PSNR_DB:
                 raise AssertionError(f"eval render mean PSNR {np.mean(psnrs):.2f} dB < {EVAL_PSNR_DB}")
             result = {"launches": launches, "psnr": psnrs, "rays_per_s": EVAL_POSES * H * W / wall}
+            splits = [_frame_split(field, K, c2w, H, W, i) for i, c2w in enumerate(poses)]
+            for i, sp in enumerate(splits):
+                phase(f"  the {label} 64+128 frame {i} by stage (CUDA events), ms: "
+                      + ", ".join(f"{k} {v:.3f}" for k, v in sp.items()) + f"; frame {sum(sp.values()):.3f}")
+            result["frame_split"] = {k: float(np.mean([sp[k] for sp in splits])) for k in FRAME_STAGES}
 
     head_err = 0.0
     for N, calls in sorted(seen.items()):
@@ -1505,11 +1641,9 @@ def eval_render(final: Path, cfg: dict, label: str, stats: dict, hstats: dict) -
           f"version (max |err| {head_err:.3g}), hash_levels_fwd and dense_levels_fwd == plain")
     (params, enc, sh), kw = seen[max(seen)]["fused_ngp_head"]
     E, N = enc.shape
-    macs = E * 64 + 64 * 16 + 32 * 64 + 64 * 64 + 64 * 3
     result["head_timing"] = _time_kernel(lambda: fm.fused_ngp_head(params, enc, sh, **kw),
                                          lambda: fm.fused_ngp_head_plain(params, enc, sh), None,
-                                         _bound((2 * E + 2 * 16 + 2 * 4) * N + 4 * fm.weights_size(E), 2 * macs * N,
-                                                "bf16"))
+                                         _bound(*_head_work(E, N), "bf16"))
     phase(f"  fused_ngp_head at the {label} eval render's fine pass (E={E}, N={N:,}, bf16; extra line): "
           + _timing_line(result["head_timing"]))
     return result
@@ -1654,21 +1788,17 @@ def main() -> int:
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     phase("main-path launches: " + "; ".join(f"{k} {v}" for k, v in paths.items()))
-    from nerfjax_torch.ops import fused_mlp as fm
-
     kernels = []
     for name, line in (("fused_ngp_head", 28), ("fused_ngp_density", 98)):
-        N, E = MAIN_SHAPE[0], MAIN_SHAPE[1]
-        macs = E * 64 + 64 * 16 + 32 * 64 + 64 * 64 + 64 * 3 if name == "fused_ngp_head" else E * 64 + 64
-        nbytes = (2 * E + 2 * 16 + 2 * 4) * N if name == "fused_ngp_head" else (2 * E + 2) * N
-        bound, by = _bound(nbytes + 4 * fm.weights_size(E), 2 * macs * N, "bf16")
+        bound, by = stats[name]["bound"]
         kernels.append({
             "name": name, "route": "cuda", "source": "nerfjax_torch/csrc/fused_mlp.cu",
             "replaces": f"nerfjax/ops/pallas_mlp.py:{line}", "launches": launches[name],
             "max_abs_err": stats[name]["max_abs_err"], "ms": stats[name]["ms"],
             "plain_ms": stats[name]["plain_ms"], "bound_ms": bound, "bound_by": by, "library_ms": None,
         })
-        if name == "fused_ngp_head":  # the extra lines: E = 40 and 64, and the eval renders' fine passes
+        if name == "fused_ngp_head":  # the extra lines: E = 32, 40 and 64, and the eval renders' fine passes
+            kernels[-1].update(bit_equal_share=stats[name]["bit_equal_share"], max_err_ulp=stats[name]["max_err_ulp"])
             for E, t in stats[name]["wide"].items():
                 kernels[-1].update({f"E{E}_ms": t["ms"], f"E{E}_plain_ms": t["plain_ms"], f"E{E}_bound_ms": t["bound"][0]})
             for label, ev in evals.items():

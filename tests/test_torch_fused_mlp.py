@@ -113,49 +113,114 @@ def test_plain_path_launches_no_kernel():
     assert fused_mlp.launch_counts == {"fused_ngp_head": 0, "fused_ngp_density": 0}
 
 
+def _unfragment(buf: torch.Tensor, fan_in: int, fan_out: int) -> torch.Tensor:
+    """W [fan_out, fan_in] from the bf16 kernels' B fragments (k16 step s,
+    n8 tile j, in the order s * fan_out / 8 + j): lane 4g + t of fragment
+    (s, j) holds w[8j + g, 16s + 2t + (0, 1, 8, 9)]."""
+    w = torch.empty(fan_out, fan_in, dtype=buf.dtype)
+    frags = buf.reshape(fan_in // 16, fan_out // 8, 32, 4)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for q, dk in enumerate((0, 1, 8, 9)):
+            w[g::8, 2 * t + dk :: 16] = frags[:, :, lane, q].T
+    return w
+
+
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_pack_weights_layout(dt):
-    """The kernels' buffer (the OFF_W* offsets of csrc/fused_mlp.cu): W1..W5
-    row-major [out, in] in float32 holding values rounded to enc's dtype,
-    W1's fan-in zero-padded from E = 24 to 32."""
+    """The kernels' buffer at E = 24. f32 (the OFF_W* offsets of
+    csrc/fused_mlp.cu): W1..W5 row-major [out, in] in float32, W1's fan-in
+    zero-padded to 32. bf16 (the OFF_B* offsets): W1..W5 in bf16, each in
+    mma B-fragment order, W1's fan-in zero-padded to 32 and W5's 3 outputs
+    to 8."""
     _, tdt = DTYPES[dt]
     params = _params(24, seed=11)
     buf = fused_mlp.pack_weights(_torch_params(params), tdt, "cpu")
-    assert buf.dtype == torch.float32 and buf.shape == (fused_mlp.weights_size(24),)
-    w1 = buf[: 64 * 32].reshape(64, 32)
-    assert not w1[:, 24:].any()
+    assert buf.dtype == tdt and buf.shape == (fused_mlp.weights_size(24, tdt),)
     ws = [params["dmlp"][0]["w"], params["dmlp"][1]["w"]] + [l["w"] for l in params["cmlp"]]
     off = 0
-    for i, w in enumerate(ws):
-        rounded = torch.from_numpy(w.T.copy()).to(tdt).to(torch.float32)
-        got = w1[:, :24] if i == 0 else buf[off : off + w.size].reshape(w.shape[1], w.shape[0])
-        assert torch.equal(got, rounded)
-        off += 64 * 32 if i == 0 else w.size
-    assert off == fused_mlp.weights_size(24) == 9408
+    if dt == "f32":
+        w1 = buf[: 64 * 32].reshape(64, 32)
+        assert not w1[:, 24:].any()
+        for i, w in enumerate(ws):
+            rounded = torch.from_numpy(w.T.copy())
+            got = w1[:, :24] if i == 0 else buf[off : off + w.size].reshape(w.shape[1], w.shape[0])
+            assert torch.equal(got, rounded)
+            off += 64 * 32 if i == 0 else w.size
+        assert off == fused_mlp.weights_size(24, tdt) == 9408
+        return
+    for w, (fan_in, fan_out) in zip(ws, [(32, 64), (64, 16), (32, 64), (64, 64), (64, 8)]):
+        got = _unfragment(buf[off : off + fan_in * fan_out], fan_in, fan_out)
+        want = torch.zeros(fan_out, fan_in, dtype=torch.bfloat16)
+        want[: w.shape[1], : w.shape[0]] = torch.from_numpy(w.T.copy()).to(torch.bfloat16)
+        assert torch.equal(got, want)
+        off += fan_in * fan_out
+    assert off == fused_mlp.weights_size(24, tdt) == 9728
 
 
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("E", [33, 40, 64, 100, 128])
-def test_pack_weights_chunks_wide_encodings(E):
-    """Above E = 32, W1 is packed as ceil(E / 32) chunks of [64, 32] (fan-in
-    columns 32c..32c+31 of every row), zero past E, and W2..W5 follow."""
+def test_pack_weights_chunks_wide_encodings(E, dt):
+    """f32: above E = 32, W1 is packed as ceil(E / 32) chunks of [64, 32]
+    (fan-in columns 32c..32c+31 of every row), zero past E, and W2..W5
+    follow. bf16: W1's fan-in is padded to a multiple of 16 (ceil(E / 16)
+    k16 steps of fragments), zero past E, and W2..W5 follow."""
+    _, tdt = DTYPES[dt]
     params = _params(E, seed=E)
-    buf = fused_mlp.pack_weights(_torch_params(params), torch.float32, "cpu")
-    C = -(-E // 32)
-    assert buf.shape == (fused_mlp.weights_size(E),) == (C * 64 * 32 + 7360,)
-    w1 = buf[: C * 64 * 32].reshape(C, 64, 32)
-    full = torch.cat(list(w1.unbind(0)), dim=1)  # [64, 32 C]
-    assert torch.equal(full[:, :E], torch.from_numpy(params["dmlp"][0]["w"].T.copy()))
+    buf = fused_mlp.pack_weights(_torch_params(params), tdt, "cpu")
+    w1_ref = torch.from_numpy(params["dmlp"][0]["w"].T.copy()).to(tdt)
+    w2_ref = torch.from_numpy(params["dmlp"][1]["w"].T.copy()).to(tdt)
+    if dt == "f32":
+        C = -(-E // 32)
+        assert buf.shape == (fused_mlp.weights_size(E, tdt),) == (C * 64 * 32 + 7360,)
+        w1 = buf[: C * 64 * 32].reshape(C, 64, 32)
+        full = torch.cat(list(w1.unbind(0)), dim=1)  # [64, 32 C]
+        w2 = buf[C * 64 * 32 : C * 64 * 32 + 16 * 64].reshape(16, 64)
+    else:
+        E16 = -(-E // 16) * 16
+        assert buf.shape == (fused_mlp.weights_size(E, tdt),) == (E16 * 64 + 7680,)
+        full = _unfragment(buf[: E16 * 64], E16, 64)
+        w2 = _unfragment(buf[E16 * 64 : E16 * 64 + 16 * 64], 64, 16)
+    assert torch.equal(full[:, :E], w1_ref)
     assert not full[:, E:].any()
-    assert torch.equal(buf[C * 64 * 32 : C * 64 * 32 + 16 * 64],
-                       torch.from_numpy(params["dmlp"][1]["w"].T.copy()).reshape(-1))
+    assert torch.equal(w2, w2_ref)
+
+
+@pytest.mark.parametrize("E", [1, 17, 24, 32, 40, 100, 128])
+def test_bf16_pack_decodes_to_the_weights(E):
+    """The bf16 buffer decodes back to W1..W5 rounded to bf16, each zero-
+    padded as the kernels read it: W1's fan-in to a multiple of 16, W5's 3
+    outputs to 8."""
+    params = _params(E, seed=E)
+    buf = fused_mlp.pack_weights(_torch_params(params), torch.bfloat16, "cpu")
+    E16 = -(-E // 16) * 16
+    assert buf.dtype == torch.bfloat16 and buf.shape == (fused_mlp.weights_size(E, torch.bfloat16),)
+    assert buf.shape == (64 * E16 + 16 * 64 + 64 * 32 + 64 * 64 + 8 * 64,)
+    ws = [params["dmlp"][0]["w"], params["dmlp"][1]["w"]] + [l["w"] for l in params["cmlp"]]
+    pads = [(E16, 64), (64, 16), (32, 64), (64, 64), (64, 8)]
+    off = 0
+    for w, (fan_in, fan_out) in zip(ws, pads):
+        got = _unfragment(buf[off : off + fan_in * fan_out], fan_in, fan_out)
+        want = torch.zeros(fan_out, fan_in, dtype=torch.bfloat16)
+        want[: w.shape[1], : w.shape[0]] = torch.from_numpy(w.T.copy()).to(torch.bfloat16)
+        assert torch.equal(got, want)
+        off += fan_in * fan_out
+    assert off == buf.numel()
 
 
 def test_wrapper_rejects_bad_packed_buffer():
+    """A buffer of the wrong length, of the other dtype's layout, or off a
+    16-byte boundary."""
     tp = _torch_params(_params(24, seed=12))
     enc = torch.zeros(24, 8)
-    bad = fused_mlp.pack_weights(tp, torch.float32, "cpu")[:-1]
-    with pytest.raises(ValueError):
-        fused_mlp._weight_buffer("fused_ngp_density", tp, enc, bad)
+    f32 = fused_mlp.pack_weights(tp, torch.float32, "cpu")
+    bf16 = fused_mlp.pack_weights(tp, torch.bfloat16, "cpu")
+    shifted = torch.cat([bf16[:1], bf16])[1:]  # the right size and values, 2 bytes past a 16-byte boundary
+    for e, bad in ((enc, f32[:-1]), (enc, bf16), (enc.to(torch.bfloat16), f32), (enc.to(torch.bfloat16), bf16[:-8]),
+                   (enc.to(torch.bfloat16), shifted)):
+        with pytest.raises(ValueError):
+            fused_mlp._weight_buffer("fused_ngp_density", tp, e, bad)
+    assert fused_mlp._weight_buffer("fused_ngp_density", tp, enc.to(torch.bfloat16), bf16) is bf16
 
 
 def test_twenty_level_field_runs_the_fused_heads_like_nerfjax():

@@ -44,14 +44,23 @@ def _ulp_bound(ref: np.ndarray) -> np.ndarray:
     return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(ref), 2.0**-14))) - 7)
 
 
-@pytest.mark.parametrize("E", [24, 32, 40, 64, 128])
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    # torch.equal on the bits: equal values, and NaN where the other has NaN
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+@pytest.mark.parametrize("E", [1, 24, 32, 40, 64, 100, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("N", [1, 100_003])
+@pytest.mark.parametrize("N", [1, 15, 17, 4_104, 100_003])
 def test_kernels_match_plain(cuda_device, E, dtype, N):
     """Each kernel against its plain version: one bf16 ulp (f32: atol 2e-5,
     summation order only); the density sigma bit-identical to the head's.
-    Above E = 32 the first layer runs over several 32-row chunks, above 64
-    the weights take more than 48 KB of shared memory."""
+    E = 1 and 100 pad the bf16 kernels' first layer to whole k16 steps;
+    above E = 32 the f32 kernels' first layer runs over several 32-row
+    chunks, above 64 their weights take more than 48 KB of shared memory.
+    N = 4,104 is a multiple of 8 with a ragged last step (the bf16 kernels'
+    16-byte copies); the other N stage element by element."""
     params = _params(E, 11, cuda_device)
     rng = np.random.default_rng(12)
     enc = torch.from_numpy(rng.uniform(-1, 1, (E, N)).astype(np.float32)).to(cuda_device, dtype)
@@ -71,6 +80,43 @@ def test_kernels_match_plain(cuda_device, E, dtype, N):
             np.testing.assert_allclose(got, ref, rtol=0, atol=2e-5)
         else:
             assert (np.abs(got - ref) <= _ulp_bound(ref)).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E", [24, 100])
+def test_kernels_place_non_finite_outputs_as_plain(cuda_device, dtype, E):
+    """NaN, +inf and -inf in enc and sh (each at its own points): the
+    kernels' NaN and +-inf outputs sit exactly where the plain version's
+    do, the finite ones within one bf16 ulp (f32: atol 2e-5), and the
+    density sigma has the head sigma's bits, NaNs included."""
+    N = 1_000
+    params = _params(E, 14, cuda_device)
+    rng = np.random.default_rng(15)
+    enc = rng.uniform(-1, 1, (E, N)).astype(np.float32)
+    sh = rng.uniform(-1, 1, (16, N)).astype(np.float32)
+    for i, v in enumerate((np.nan, np.inf, -np.inf)):
+        enc[rng.integers(0, E, 40), 100 * i + np.arange(40)] = v
+        sh[rng.integers(0, 16, 40), 500 + 100 * i + np.arange(40)] = v
+    enc, sh = (torch.from_numpy(a).to(cuda_device, dtype) for a in (enc, sh))
+    rgb_k, sig_k = fused_mlp.fused_ngp_head(params, enc, sh)
+    dsig_k = fused_mlp.fused_ngp_density(params, enc)
+    rgb_p, sig_p = fused_mlp.fused_ngp_head_plain(params, enc, sh)
+    torch.cuda.synchronize()
+    assert _same_bits(dsig_k, sig_k)
+    nonfinite = 0
+    for got, ref in ((rgb_k, rgb_p), (sig_k, sig_p)):
+        got, ref = got.float().cpu(), ref.float().cpu()
+        assert torch.equal(torch.isnan(got), torch.isnan(ref))
+        assert torch.equal(torch.isposinf(got), torch.isposinf(ref))
+        assert torch.equal(torch.isneginf(got), torch.isneginf(ref))
+        fin = torch.isfinite(ref)
+        nonfinite += int((~fin).sum())
+        got, ref = got[fin].numpy(), ref[fin].numpy()
+        if dtype == torch.float32:
+            np.testing.assert_allclose(got, ref, rtol=0, atol=2e-5)
+        else:
+            assert (np.abs(got - ref) <= _ulp_bound(ref)).all()
+    assert nonfinite > 0
 
 
 def test_wrapper_rejects_wide_encoding(cuda_device):
