@@ -108,6 +108,29 @@ kernels on mma.sync, f32 activations split into three bf16 terms):
      sample, coarse encode, coarse head, composite + sample_pdf + sort,
      fine encode, fine head, composite, the host's remainder.
 
+Added for the redesigns of K4 (pair-packed table, one thread per point)
+and K2 k = 1 (one thread per point, the cotangent read in place):
+
+  4, 6, 7, 7b, 7c, 8b. K4 held bit for bit and timed at every main-path
+     call: the 512^3 extraction's (new: its own calls held to plain), the
+     tuned, dgl1 and dc1 steps', both drop-in passes', the eval renders'
+     coarse and fine passes', and exact f32 at the step's N on seeded
+     positions; its table pass (pack_pairs) held word for word and timed
+     at the tuned step and the drop-in fine pass on copies of the columns
+     that the L2 cannot hold all of (so its bytes bound holds), beside one
+     PyTorch call of the same function, a kernel of its own in the
+     kernels line;
+  7, 7c. K2 and K3 timed net of the caller's zero fill of the columns they
+     add into, the fill alone and fill + kernel (the figure these lines
+     printed before) beside it; K2's net bound counts positions, the g rows it reads and 8
+     B per distinct entry it adds to; one traced warm tuned and drop-in
+     step each must show no copy of the hashed levels' cotangent inside
+     the encode's backward.
+  Every device time comes from a profiler trace that holds every call's
+  device events, the calls between spin kernels that take the loss of a
+  trace's first or last few events (a trace that drops any of the calls'
+  is taken again).
+
 The last two lines are a JSON object with each kernel's launches (summed
 over the main paths: the 512^3 extraction, both train() runs, the eval
 render, the probe entry point), error, times and bound (K1, K2 and K3
@@ -120,6 +143,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -247,28 +271,52 @@ def _wall_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _time_ms(fn, iters: int = 20) -> float:
-    """Device ms per call of fn: the summed durations of the kernels (and
-    copies) it runs over iters calls, from a torch.profiler trace of the
-    card alone; the host's time between them is left out. A trace that
-    came back without device events (seen about once in 100 traces, and
-    once three times in a row on a kernel of ~6 us) is taken again, up to
-    5 times, each over twice the calls."""
+TRACE_PAD = 32  # spin kernels before and after a trace's calls: a trace may lose its first or last few events
+
+
+def _device_trace(fn, n: int, pad: int = TRACE_PAD) -> tuple[int, float]:
+    """(device events, summed device us) of fn's n calls, from a
+    torch.profiler trace of the card alone. The calls sit between two runs
+    of ``pad`` short spin kernels, left out of both counts: without them a
+    trace was seen to lose one or two events of the calls it measures, at
+    its start or its end (K1 exact's two kernels a call: 38 or 39 events
+    in 20 calls, 1 in one)."""
     import torch
     from torch.autograd import DeviceType
 
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(pad):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        for _ in range(n):
+            fn()
+        for _ in range(pad):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
+    return sum(e.count for e in events), sum(e.self_device_time_total for e in events)
+
+
+def _time_ms(fn, iters: int = 20) -> float:
+    """Device ms per call of fn: the summed durations of the kernels (and
+    copies) it runs over iters calls, from a torch.profiler trace of the
+    card alone (_device_trace); the host's time between them is left out.
+    The trace counts only if it holds every call's device events: iters
+    times those of one call, traced alone just before. A trace that drops
+    events (seen about once in 100, some with none, some with half the
+    calls) is taken again, up to 5 times."""
+    import torch
+
     fn()
     torch.cuda.synchronize()
+    seen = []
     for attempt in range(5):
-        n = iters << attempt
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / 1e3 / n
-    raise AssertionError("5 profiler traces in a row show no device time")
+        per_call, _ = _device_trace(fn, 1)
+        events, us = _device_trace(fn, iters)
+        if per_call > 0 and events == iters * per_call:
+            return us / 1e3 / iters
+        seen.append(f"{events} events in {iters} calls, {per_call} in one")
+    raise AssertionError(f"5 profiler traces in a row dropped device events: {'; '.join(seen)}")
 
 
 def _head_inputs(N: int, E: int, dt: str):
@@ -395,9 +443,10 @@ def synthetic_checkpoint(path: Path) -> None:
     ckpt.save_field_params(path, TUNED_CFG, params, iteration=1)
 
 
-def extract_full(ckpt_path: Path, out_dir: Path) -> dict:
+def extract_full(ckpt_path: Path, out_dir: Path, k4_shapes: dict) -> dict:
     """The main path: checkpoint -> extract_volume at 512^3 on the card ->
-    save_volume -> load_volume, checked."""
+    save_volume -> load_volume, checked; K4 on the extraction's own calls
+    equal to its plain version, timed at the largest (filed in k4_shapes)."""
     import torch
 
     from nerfjax_torch.extract import extract_volume, load_volume, save_volume
@@ -412,11 +461,13 @@ def extract_full(ckpt_path: Path, out_dir: Path) -> dict:
     torch.cuda.reset_peak_memory_stats()
     fm.reset_launch_counts()
     he.reset_launch_counts()
-    with _recorded((he, "hash_levels_fwd"), (fm, "fused_ngp_density"), (fm, "fused_ngp_head")) as calls:
+    with _recorded((he, "hash_levels_fwd"), (he, "dense_levels_fwd"), (fm, "fused_ngp_density"),
+                   (fm, "fused_ngp_head")) as calls:
         t0 = time.perf_counter()
         vol = extract_volume(cfg, device="cuda")
         wall = time.perf_counter() - t0
-    launches = {**fm.launch_counts, **{k: he.launch_counts[k] for k in ("hash_levels_fwd", "dense_levels_fwd")}}
+    launches = {**fm.launch_counts,
+                **{k: he.launch_counts[k] for k in ("hash_levels_fwd", "pack_pairs", "dense_levels_fwd")}}
     peak = torch.cuda.max_memory_allocated() / 2**30
     md = vol["metadata"]
     phase(f"{res}^3 extraction: {wall:.2f} s wall; " + _phases(md)
@@ -433,6 +484,18 @@ def extract_full(ckpt_path: Path, out_dir: Path) -> dict:
                                he.hash_levels_fwd_plain(spec, planes, x, y, z)[0]):
                 raise AssertionError(f"hash_levels_fwd at the {res}^3 extraction (N={N:,}): kernel != plain")
             k1_sizes.append(N)
+        if "dense_levels_fwd" in seen:
+            (spec, planes, x, y, z, dtype), _ = seen["dense_levels_fwd"]
+            got = he.dense_levels_fwd(spec, planes, x, y, z, dtype)
+            if got.dtype != dtype or not torch.equal(got, he.dense_levels_fwd_plain(spec, planes, x, y, z, dtype)[0]):
+                raise AssertionError(f"dense_levels_fwd at the {res}^3 extraction (N={N:,}): kernel != plain")
+    phase(f"dense_levels_fwd at the {res}^3 extraction's calls (N = "
+          + ", ".join(f"{n:,}" for n, seen in sorted(calls.items()) if "dense_levels_fwd" in seen)
+          + "): kernel == plain bit for bit")
+    N = max(n for n, seen in calls.items() if "dense_levels_fwd" in seen)
+    (spec, planes, x, y, z, dtype), _ = calls[N]["dense_levels_fwd"]
+    _k4_timed(k4_shapes, "extraction", spec, planes, x, y, z, dtype)
+    for N, seen in sorted(calls.items()):
         if "fused_ngp_density" in seen:  # the marking pass: also the head's sigma on the same enc
             (params, enc), kw = seen["fused_ngp_density"]
             sigma = fm.fused_ngp_density(params, enc, **kw)
@@ -543,6 +606,7 @@ SMALL_TRAIN = {
     "precision": "fp32", "occ_resolution": 16, "occ_segments": 8,
 }
 H100_BYTES_PER_S = 3.35e12
+H100_L2_BYTES = 50 * 2**20
 H100_FLOPS = {"f32": 67e12, "bf16": 989e12}  # non-tensor FP32; dense bf16 tensor cores
 
 
@@ -575,7 +639,7 @@ def hash_kernels_vs_plain() -> dict:
     _, hashed = he._split_levels(exact)
     Lh, base, total = len(hashed), hashed[0]["offset"], exact.total_table_size
     planes = _rand((2, total), rng)
-    stats = {n: {"max_abs_err": 0.0} for n in ("hash_levels_fwd", "hash_levels_bwd", "table_grad_scatter")}
+    stats = {n: {"max_abs_err": 0.0} for n in ("hash_levels_fwd", "hash_levels_bwd", "table_grad_scatter", "pack_pairs")}
 
     def timed(name, label, kern, plain, bound):
         stats[name].update(_time_kernel(kern, plain, None, bound))
@@ -665,6 +729,36 @@ def _dense_fwd_bound(Ld: int, touched: int, N: int, out_bytes: int, ops_per_row:
     return _bound(12 * N + 8 * touched + out_bytes * 2 * Ld * N, ops_per_row * Ld * N)
 
 
+def _k4_bound(spec, x, y, z, dtype):
+    """K4's bound at one call: exact, the cells' 8 corners (120 operations
+    per (level, point)); k = 1, the drawn entries (80)."""
+    import torch
+
+    from nerfjax_torch.ops import hash_encode as he
+
+    dense, _ = he._split_levels(spec)
+    Ld, N = len(dense), x.shape[0]
+    if he._dense_mode(spec, Ld)[0] == 1:
+        return _dense_fwd_bound(Ld, torch.unique(he._dense_plan_k1(dense, x, y, z)).numel(), N, 4, 80)
+    touched = torch.unique(he._dense_corner_arrays(dense, x, y, z, torch.float32)[0]).numel()
+    return _dense_fwd_bound(Ld, touched, N, torch.empty(0, dtype=dtype).element_size(), 120)
+
+
+def _k4_timed(shapes: dict, label: str, spec, planes, x, y, z, dtype) -> dict:
+    """K4 timed (runs p, k, k, p) beside its bound at one main-path call,
+    filed in ``shapes`` under ``label`` and printed (an extra line)."""
+    from nerfjax_torch.ops import hash_encode as he
+
+    t = _time_kernel(lambda: he.dense_levels_fwd(spec, planes, x, y, z, dtype),
+                     lambda: he.dense_levels_fwd_plain(spec, planes, x, y, z, dtype), None,
+                     _k4_bound(spec, x, y, z, dtype))
+    t["N"] = x.shape[0]
+    shapes[label] = t
+    mode = ["exact", "k=1", "exact"][he._dense_mode(spec, len(he._split_levels(spec)[0]))[0]]
+    phase(f"  dense_levels_fwd at {label} ({mode} {dtype}, N={x.shape[0]:,}): " + _timing_line(t))
+    return t
+
+
 def _dense_bwd_bound(spec, g, x, y, z, K: int):
     """K5's bound: positions in, the upstream gradient g [2, Ld, N] it reads
     (under a level subset only the drawn (level, point) pairs), 12 B (idx,
@@ -703,6 +797,7 @@ def dense_kernels_vs_plain(stats: dict) -> None:
     Ld, total = len(dense), exact.total_table_size
     planes = _rand((2, total), rng)
     stats.update({n: {"max_abs_err": 0.0} for n in ("dense_levels_fwd", "dense_levels_bwd")})
+    stats["dense_levels_fwd"]["shapes"] = {}
     for N in (196_608, 524_288):
         x, y, z = _positions(N, rng)
         for dt in (torch.float32, torch.bfloat16):
@@ -718,6 +813,8 @@ def dense_kernels_vs_plain(stats: dict) -> None:
         phase(f"dense_levels_fwd exact N={N}: kernel == plain bit for bit (f32 and bf16); "
               f"{touched:,} of {he._dense_width(dense):,} dense entries touched")
         phase(f"  dense_levels_fwd exact bf16 N={N}: " + _timing_line(t))
+        if N == 196_608:  # the --fp32 tuned step's call (exact f32), on seeded positions
+            _k4_timed(stats["dense_levels_fwd"]["shapes"], "fp32_seeded", exact, planes, x, y, z, torch.float32)
 
     N = 196_608
     x, y, z = _positions(N, rng)
@@ -795,16 +892,23 @@ def _check_scatter(label: str, got, ref, mass, count) -> float:
     return float(err.max())
 
 
-def _time_kernel(kern, plain, library, bound, library_name: str = "index_add_") -> dict:
+def _time_kernel(kern, plain, library, bound, library_name: str = "index_add_", fill=None) -> dict:
     """Device ms per call (_time_ms) of a kernel's wrapper and its plain
     version (runs p, k, k, p), of its one-call library yardstick where
     there is one (runs l, l), beside its bound (or None); and the wrapper's
-    wall ms per call (_wall_ms, the host's Python included)."""
+    wall ms per call (_wall_ms, the host's Python included). ``fill``: the
+    caller's zero fill of the columns a scatter adds into, which kern,
+    plain and library leave out (their adds pile up over the runs); it is
+    timed alone and in front of the wrapper (the combined figure)."""
     runs = (_time_ms(plain), _time_ms(kern), _time_ms(kern), _time_ms(plain))
     lib = (_time_ms(library), _time_ms(library)) if library is not None else ()
-    return {"ms": (runs[1] + runs[2]) / 2, "plain_ms": (runs[0] + runs[3]) / 2,
-            "library_ms": sum(lib) / 2 if lib else None, "library_name": library_name, "bound": bound,
-            "runs": runs + lib, "wall_ms": _wall_ms(kern)}
+    t = {"ms": (runs[1] + runs[2]) / 2, "plain_ms": (runs[0] + runs[3]) / 2,
+         "library_ms": sum(lib) / 2 if lib else None, "library_name": library_name, "bound": bound,
+         "runs": runs + lib, "wall_ms": _wall_ms(kern)}
+    if fill is not None:
+        t["fill_ms"] = _time_ms(fill)
+        t["with_fill_ms"] = _time_ms(lambda: (fill(), kern()))
+    return t
 
 
 def _timing_line(t: dict) -> str:
@@ -812,8 +916,10 @@ def _timing_line(t: dict) -> str:
     lib = "" if t["library_ms"] is None else f", {t['library_name']} {t['library_ms'] * 1e3:.1f} us"
     order = "p,k,k,p,l,l" if t["library_ms"] is not None else "p,k,k,p"
     bound = "" if t["bound"] is None else f", bound {t['bound'][0] * 1e3:.1f} us ({t['bound'][1]})"
+    fill = "" if "fill_ms" not in t else (f"; net of the caller's zero fill, which takes {t['fill_ms'] * 1e3:.1f} us "
+                                          f"alone; fill + kernel {t['with_fill_ms'] * 1e3:.1f} us")
     return (f"device: kernel {t['ms'] * 1e3:.1f} us, plain {t['plain_ms'] * 1e3:.1f} us{lib} per call "
-            f"(runs {order}: {r}){bound}; wall per kernel call {t['wall_ms'] * 1e3:.1f} us")
+            f"(runs {order}: {r}){bound}; wall per kernel call {t['wall_ms'] * 1e3:.1f} us{fill}")
 
 
 STEP_KERNELS = ("dense_levels_fwd", "dense_levels_bwd", "hash_levels_bwd", "table_grad_scatter")
@@ -866,6 +972,23 @@ def capture_step_inputs(state, batch, names=STEP_KERNELS) -> dict:
     return passes
 
 
+def _pack_library(f32: bool):
+    """(one PyTorch call computing pack_pairs, its name): the yardstick,
+    timed only; the port never calls it."""
+    import torch
+
+    if f32:
+        return (lambda c: c.t().contiguous()), "t().contiguous()"
+    return ((lambda c: c.t().to(torch.bfloat16, memory_format=torch.contiguous_format).view(torch.int32)),
+            "t().to(bfloat16).view(int32)")
+
+
+def _cycled(fn, inputs: list):
+    """A call of fn on each of ``inputs`` in turn."""
+    it = itertools.cycle(inputs)
+    return lambda: fn(next(it))
+
+
 def step_kernels_vs_plain(cap: dict, label: str, stats: dict, timed=()) -> dict:
     """The hash kernels on the arguments they got in one field pass of a
     warm train step (one entry of capture_step_inputs), each that was
@@ -889,15 +1012,9 @@ def step_kernels_vs_plain(cap: dict, label: str, stats: dict, timed=()) -> dict:
     def fold(name, err):
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
 
-    def timing(name, kern, plain, library, bound):  # bound: a function, called only when timed
+    def timing(name, kern, plain, library, bound, fill=None, library_name="index_add_"):  # bound: called only when timed
         if name in timed:
-            out[name] = _time_kernel(kern, plain, library, bound())
-
-    def zeroed(cols, fn):
-        def run():
-            cols.zero_()
-            fn()
-        return run
+            out[name] = _time_kernel(kern, plain, library, bound(), library_name, fill=fill)
 
     if "hash_levels_fwd" in cap:
         _, planes, x, y, z = cap["hash_levels_fwd"][:5]
@@ -921,20 +1038,33 @@ def step_kernels_vs_plain(cap: dict, label: str, stats: dict, timed=()) -> dict:
         planes, N = planes.detach(), x.shape[0]
         mode, _ = he._dense_mode(spec, Ld)
         got = he.dense_levels_fwd(spec, planes, x, y, z, dtype)
-        ref, plan = he.dense_levels_fwd_plain(spec, planes, x, y, z, dtype)
+        ref, _ = he.dense_levels_fwd_plain(spec, planes, x, y, z, dtype)
         if got.dtype != ref.dtype or not torch.equal(got, ref):
             raise AssertionError(f"dense_levels_fwd ({label}): kernel != plain")
         fold("dense_levels_fwd", 0.0)
 
-        def k4_bound():
-            if plan is None:
-                touched = torch.unique(he._dense_corner_arrays(dense, x, y, z, torch.float32)[0]).numel()
-                return _dense_fwd_bound(Ld, touched, N, got.element_size(), 120)
-            return _dense_fwd_bound(Ld, torch.unique(plan).numel(), N, 4, 80)
-
         timing("dense_levels_fwd", lambda: he.dense_levels_fwd(spec, planes, x, y, z, dtype),
-               lambda: he.dense_levels_fwd_plain(spec, planes, x, y, z, dtype), None, k4_bound)
+               lambda: he.dense_levels_fwd_plain(spec, planes, x, y, z, dtype), None,
+               lambda: _k4_bound(spec, x, y, z, dtype))
+        if "dense_levels_fwd" in out:
+            out["dense_levels_fwd"]["N"] = N
         checked.append(f"K4 {['exact', 'k=1', 'exact'][mode]} {dtype} == plain")
+        T = he._dense_width(dense)
+        cols, f32 = planes[:, :T], mode != 1 and dtype == torch.float32  # K4's table pass
+        words = he.pack_pairs_plain(cols, f32).view(torch.int32).reshape(-1)
+        if not torch.equal(he.pack_pairs(cols, f32).view(torch.int32).reshape(-1), words):
+            raise AssertionError(f"pack_pairs ({label}): kernel != plain")
+        fold("pack_pairs", 0.0)
+        library, library_name = _pack_library(f32)
+        if not torch.equal(library(cols).view(torch.int32).reshape(-1), words):
+            raise AssertionError(f"pack_pairs ({label}): {library_name} != plain")
+        if "pack_pairs" in timed:  # on copies that the L2 cannot hold all of: every call reads from HBM
+            copies = [cols.clone() for _ in range(-(-H100_L2_BYTES * 2 // (8 * T)))]
+            timing("pack_pairs", _cycled(lambda c: he.pack_pairs(c, f32), copies),
+                   _cycled(lambda c: he.pack_pairs_plain(c, f32), copies), _cycled(library, copies),
+                   lambda: _bound((16 if f32 else 12) * T, 2 * T), library_name=library_name)
+            del copies
+        checked.append(f"K4's pack of {T:,} dense columns == plain word for word")
 
     if "dense_levels_bwd" in cap:
         _, g, x, y, z, dtype = cap["dense_levels_bwd"]
@@ -966,9 +1096,10 @@ def step_kernels_vs_plain(cap: dict, label: str, stats: dict, timed=()) -> dict:
             raise AssertionError(f"table_grad_scatter ({label}): the dense-level gradient reached outside the dense columns")
         fold("table_grad_scatter", err)
         vv, cols = torch.stack([v0, v1]), buf[:, :base]  # the encode's backward hands K3 the dense columns
-        timing("table_grad_scatter", zeroed(cols, lambda: he.table_grad_scatter(idx, v0, v1, cols)),
-               zeroed(cols, lambda: he.table_grad_scatter_plain(idx, v0, v1, cols)),
-               zeroed(cols, lambda: buf.index_add_(1, idx, vv)), lambda: _bound(12 * K + 8 * base, 2 * K))
+        # net bound: the staged entries in, 8 B out per distinct entry added to
+        timing("table_grad_scatter", lambda: he.table_grad_scatter(idx, v0, v1, cols),
+               lambda: he.table_grad_scatter_plain(idx, v0, v1, cols), lambda: buf.index_add_(1, idx, vv),
+               lambda: _bound(12 * K + 8 * int((hits > 0).sum()), 2 * K), cols.zero_)
         checked.append(f"K3: {K:,} entries into {base:,} dense entries (at most {int(hits.max()):,} adds to one, median "
                        f"{int(hits[hits > 0].median())}) within the atomic-order bound, max |err| {err:.3g}")
         atomics = {"first": 2 * K, "runs": he.k3_atomic_count(idx, base)}
@@ -988,15 +1119,20 @@ def step_kernels_vs_plain(cap: dict, label: str, stats: dict, timed=()) -> dict:
         fold("hash_levels_bwd", err)
 
         def k2_bound():
-            # no one PyTorch call computes it: the indices are computed inside
+            # net of the fill: positions in, the g rows read (under a level
+            # subset only the drawn (level, point) pairs), 8 B out per distinct
+            # entry added to. No one PyTorch call computes it: the indices are
+            # computed inside
             pairs, ops = Lh * N, (110 if mode == 0 else 90) * Lh * N
             if mode == 2:
                 ids = he._draw_levels(x, y, z, Lh, gl, he.LEVEL_SALT)
                 pairs, ops = torch.unique(ids * N + torch.arange(N, device=x.device)).numel(), 90 * gl * N
-            return _bound(12 * N + 2 * g.element_size() * pairs + 8 * (total - base), ops)
+            hit = _zeros2(total)
+            he.hash_levels_bwd_plain(spec, torch.ones_like(g), x, y, z, hit)
+            return _bound(12 * N + 2 * g.element_size() * pairs + 8 * int((hit[0] != 0).sum()), ops)
 
-        timing("hash_levels_bwd", zeroed(buf[:, base:], lambda: he.hash_levels_bwd(spec, g, x, y, z, buf)),
-               zeroed(buf[:, base:], lambda: he.hash_levels_bwd_plain(spec, g, x, y, z, buf)), None, k2_bound)
+        timing("hash_levels_bwd", lambda: he.hash_levels_bwd(spec, g, x, y, z, buf),
+               lambda: he.hash_levels_bwd_plain(spec, g, x, y, z, buf), None, k2_bound, buf[:, base:].zero_)
         checked.append(f"K2 {['exact', 'k=1', f'k=1 over {gl} of {Lh} levels'][mode]} within the atomic-order "
                        f"bound, max |err| {err:.3g}")
         if mode == 0:
@@ -1061,6 +1197,58 @@ def _idle_share(state, batches) -> tuple[float, float, float]:
         raise AssertionError("the profiler trace shows no device time")
     busy = float(m.group(1)) * {"us": 1e-3, "ms": 1.0, "s": 1e3}[m.group(2)]
     return busy, wall, 1.0 - busy / wall
+
+
+def _encode_backward_copies(state, batch) -> list:
+    """(name, input shapes) of each copy op (aten::_to_copy, aten::copy_)
+    that runs inside the encode's backward (the autograd node
+    _HashEncodeBackward) in one warm train step traced by torch.profiler
+    with its input shapes: a cast of the hashed levels' cotangent shows as
+    a copy of [2, Lh, N]."""
+    import torch
+
+    from nerfjax_torch.train import train_step
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+        train_step(state, batch)
+        torch.cuda.synchronize()
+    found, seen, nodes = [], set(), 0
+
+    def walk(e):
+        for c in e.cpu_children:
+            if id(c) in seen:
+                continue
+            seen.add(id(c))
+            if c.name in ("aten::_to_copy", "aten::copy_"):
+                found.append((c.name, [list(sh) for sh in c.input_shapes if sh]))
+            walk(c)
+
+    for e in prof.events():
+        if "HashEncodeBackward" in e.name:
+            nodes += 1
+            walk(e)
+    if nodes == 0:
+        raise AssertionError("the traced step shows no _HashEncodeBackward node")
+    return found
+
+
+def _report_backward_copies(state, batch, label: str) -> None:
+    """Print the copies inside the encode's backward in one traced warm
+    step (_encode_backward_copies); fail if one copies the hashed levels'
+    cotangent ([2, Lh, N]): K2 reads it in place."""
+    from nerfjax_torch.ops import hash_encode as he
+
+    spec = state.field.spec
+    Lh = len(he._split_levels(spec)[1])
+    found = _encode_backward_copies(state, batch)
+    casts = [c for c in found if c[1] and len(c[1][0]) == 3 and c[1][0][:2] == [2, Lh]]
+    phase(f"the encode's backward in one traced warm {label} step: {len(found)} copy ops ("
+          + ", ".join(f"{n} {sh}" for n, sh in found) + f"); of them on the hashed cotangent [2, {Lh}, N]: "
+          f"{len(casts)}")
+    if casts:
+        raise AssertionError(f"the encode's backward still copies the hashed cotangent ({label} step): {casts}")
 
 
 def _stage_split(state, batches) -> dict:
@@ -1186,6 +1374,7 @@ def train_full(tmp: Path) -> dict:
     state.step = 1  # no grid update inside the traced window
     busy, traced, idle = _idle_share(state, batches[32:40])
     phase(f"profiler, 8 warm steps: device busy {busy:.2f} ms of {traced:.2f} ms traced wall: idle share {idle:.1%}")
+    _report_backward_copies(state, batches[41], "tuned")
     torch.cuda.reset_peak_memory_stats()
     step_inputs = capture_step_inputs(state, batches[40])
     phase(f"one warm step (inputs captured): peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
@@ -1466,6 +1655,7 @@ def train_dropin(tmp: Path) -> dict:
     busy, traced, idle = _idle_share(state, batches[40:46])
     phase(f"profiler, 6 warm drop-in steps: device busy {busy:.2f} ms of {traced:.2f} ms traced wall: "
           f"idle share {idle:.1%}")
+    _report_backward_copies(state, batches[45], "drop-in")
     torch.cuda.reset_peak_memory_stats()
     cap = capture_step_inputs(state, batches[46], names=DROP_IN_KERNELS)
     if len(cap) != 2:
@@ -1597,7 +1787,8 @@ def eval_render(final: Path, cfg: dict, label: str, stats: dict, hstats: dict) -
                     for i, c2w in enumerate(poses)]
             wall = time.perf_counter() - t0
         seen = calls
-        launches = {**fm.launch_counts, **{k: he.launch_counts[k] for k in ("hash_levels_fwd", "dense_levels_fwd")}}
+        launches = {**fm.launch_counts,
+                    **{k: he.launch_counts[k] for k in ("hash_levels_fwd", "pack_pairs", "dense_levels_fwd")}}
         psnrs = [_psnr(img, gt) for img, gt in zip(imgs, gts)]
         if not all(np.isfinite(img).all() for img in imgs):
             raise AssertionError(f"NaN in the {ns}+{ni} eval render")
@@ -1635,6 +1826,9 @@ def eval_render(final: Path, cfg: dict, label: str, stats: dict, hstats: dict) -
         ref, _ = he.dense_levels_fwd_plain(spec, planes.detach(), x, y, z, dtype)
         if got.dtype != ref.dtype or not torch.equal(got, ref):
             raise AssertionError(f"dense_levels_fwd at the {label} eval render (N={N:,}): kernel != plain")
+        which = "fine" if N == max(seen) else "coarse"
+        _k4_timed(hstats["dense_levels_fwd"]["shapes"], f"eval_{label.replace('-', '')}_{which}", spec,
+                  planes.detach(), x, y, z, dtype)
     stats["fused_ngp_head"]["max_abs_err"] = max(stats["fused_ngp_head"]["max_abs_err"], head_err)
     phase(f"the {label} eval render's kernels on their last call in each pass (N = "
           + ", ".join(f"{n:,}" for n in sorted(seen)) + f"): fused_ngp_head within one bf16 ulp of its plain "
@@ -1742,18 +1936,20 @@ def main() -> int:
     phase(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     build()
     stats = kernels_vs_plain()
+    k4_shapes = {}  # K4 at each main-path call: the kernels line's extra keys
     with tempfile.TemporaryDirectory() as tmp:
         ckpt_path = Path(tmp) / "nerf_final.pth"
         synthetic_checkpoint(ckpt_path)
-        extract_launches = extract_full(ckpt_path, Path(tmp))
+        extract_launches = extract_full(ckpt_path, Path(tmp), k4_shapes)
         card_vs_cpu_128(ckpt_path)
     hstats = hash_kernels_vs_plain()
     dense_kernels_vs_plain(hstats)
+    hstats["dense_levels_fwd"]["shapes"].update(k4_shapes)
     pstats = probes_vs_plain()
     with tempfile.TemporaryDirectory() as tmp:
         trained = train_full(Path(tmp))
         (cap,) = trained.pop("step_inputs").values()
-        for name, t in step_kernels_vs_plain(cap, "tuned step", hstats, STEP_KERNELS).items():
+        for name, t in step_kernels_vs_plain(cap, "tuned step", hstats, STEP_KERNELS + ("pack_pairs",)).items():
             hstats[name].update(t)
         del cap
         knobs = {label: train_dense_knob(Path(tmp), label, hstats) for label in DENSE_KNOBS}
@@ -1766,8 +1962,15 @@ def main() -> int:
             label = f"drop-in step's {which} pass"
             dropin_timed[which] = step_kernels_vs_plain(
                 passes[N], label, hstats,
-                DROP_IN_KERNELS if which == "fine" else ("hash_levels_fwd", "table_grad_scatter", "hash_levels_bwd"))
+                DROP_IN_KERNELS + ("pack_pairs",) if which == "fine"
+                else ("hash_levels_fwd", "dense_levels_fwd", "table_grad_scatter", "hash_levels_bwd"))
         del passes
+        shapes = hstats["dense_levels_fwd"]["shapes"]  # K4 at the train steps' calls
+        shapes["tuned_step"] = {k: v for k, v in hstats["dense_levels_fwd"].items() if k != "shapes"}
+        for label, knob in knobs.items():
+            shapes[f"{label}_step"] = knob["timings"]["dense_levels_fwd"]
+        for which in ("coarse", "fine"):
+            shapes[f"dropin_{which}"] = dropin_timed[which]["dense_levels_fwd"]
         extract_trained(trained["cfg"], trained["final"])
         evals = {"tuned": eval_render(trained["final"], TUNED_CFG, "tuned", stats, hstats),
                  "drop-in": eval_render(dropin["final"], DROP_IN_TRAIN, "drop-in", stats, hstats)}
@@ -1807,6 +2010,7 @@ def main() -> int:
     for name, replaces in (("hash_levels_fwd", "nerfjax/ops/hash_encode.py:304"),
                            ("hash_levels_bwd", "nerfjax/ops/hash_encode.py:335"),
                            ("table_grad_scatter", "benchmarks/micro_onehot.py:44, benchmarks/micro_onehot.py:99"),
+                           ("pack_pairs", "benchmarks/micro_pallas_gather.py:97"),
                            ("dense_levels_fwd", "benchmarks/micro_pallas_gather.py:97"),
                            ("dense_levels_bwd", "benchmarks/micro_pallas_gather.py:71")):
         h = hstats[name]
@@ -1828,6 +2032,20 @@ def main() -> int:
         if name == "table_grad_scatter":
             kernels[-1]["atomics"] = h["atomics"]["runs"]
             kernels[-1]["atomics_first_design"] = h["atomics"]["first"]
+        if name in ("hash_levels_bwd", "table_grad_scatter"):  # ms: net of the caller's zero fill
+            kernels[-1].update(with_fill_ms=h["with_fill_ms"], fill_ms=h["fill_ms"])
+            for which in ("fine", "coarse"):
+                t = dropin_timed[which][name]
+                kernels[-1].update({f"dropin_{which}_with_fill_ms": t["with_fill_ms"],
+                                    f"dropin_{which}_fill_ms": t["fill_ms"]})
+        if name == "pack_pairs":  # K4's table pass (its time is in K4's too): the drop-in fine pass's, extra keys
+            t = dropin_timed["fine"][name]
+            kernels[-1].update(dropin_fine_ms=t["ms"], dropin_fine_plain_ms=t["plain_ms"],
+                               dropin_fine_bound_ms=t["bound"][0], dropin_fine_library_ms=t["library_ms"])
+        if name == "dense_levels_fwd":  # every main-path call's time: the extra keys
+            for label, t in h["shapes"].items():
+                kernels[-1].update({f"{label}_N": t["N"], f"{label}_ms": t["ms"],
+                                    f"{label}_plain_ms": t["plain_ms"], f"{label}_bound_ms": t["bound"][0]})
     for name, line in PROBE_LINES.items():
         t = pstats[name]
         kernels.append({

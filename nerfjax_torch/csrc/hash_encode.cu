@@ -49,10 +49,10 @@
 // needs. The backward's atomicAdds land at the same random addresses (the
 // L2 performs them). The hashed levels of the tuned model hold 2 x 7 x 2^19
 // f32 = 29 MB, which fits the 50 MB L2; the drop-in model's 12 levels hold
-// 50 MB, the size of the L2. K1 k = 1 and the k = 1 modes of K2 are simple:
-// one thread per (level, point), or per (drawn level, point), positions
-// and outputs coalesced along points, no shared-memory staging, no sorting
-// of indices. PERF.md has their times beside their bounds.
+// 50 MB, the size of the L2. K1 k = 1 is simple: one thread per (level,
+// point), positions and outputs coalesced along points, no shared-memory
+// staging, no sorting of indices. PERF.md has the kernels' times beside
+// their bounds.
 //
 // K1 exact first read both planes of each of the 8 corners with two 4-byte
 // loads from planes 4*total bytes apart (two sectors per corner, ~9 per
@@ -87,17 +87,47 @@
 // 1.75 ms (151M float2 adds), both 1.36 ms (115M float2 adds, the scratch
 // zeroing and fold ~75 us of it); the time follows the count of atomics,
 // ~90-97G a second whatever their width, not their contention (PERF.md
-// keeps each variant's times and counts). The k = 1 modes issue ~0.8M atomics a call: the scratch pass would cost them more
-// than it saves, and they add straight into the planes (scatter_add2).
+// keeps each variant's times and counts).
+//
+// K2's k = 1 modes add g to one planned corner per (drawn level, point),
+// two float atomics each: 0.79M at the tuned step (2 of 7 levels, N =
+// 196,608), ~8 us at the L2's ~90-97G atomics a second, which is most of
+// their time. A scratch and fold (K2 exact's) would cost more than the
+// adds: zeroing and folding ~2 x 29 MB. So they add straight into the
+// planes (scatter_add2), and the design cuts what is around the adds: one
+// thread per point walks its rows four at a time (their plans, then their
+// g, then their adds), so the position and its two seeds are formed once
+// per point and four rows' loads are in flight; and every mode of K2 reads
+// the upstream gradient in the encode's own dtype in place, through a
+// plane stride (bf16 halves its bytes, and the backward's f32 copy of the
+// hashed rows, 151 MB at the drop-in fine pass, is gone). On an H100 80GB
+// HBM3 (700 W) at the tuned step's captured inputs: 9.7 us net of the
+// caller's zero fill (the first design, one thread per (row, point) on an
+// f32 copy: 13.8); PERF.md keeps the other designs' times.
 //
 // The dense levels (K4, K5) are collision free and small: the tuned model's
-// five hold 753,488 entries, 6.0 MB in the two f32 planes, which stay in L2,
-// so K4 reads the planes in place (no per-step cell-row table: nerfjax
-// builds one because the TPU's gather pays per index) and is bound by its
-// positions in and its outputs out. K5 writes 12 bytes per (level, corner,
-// point): 94 MB per exact tuned step, its bound; fusing it into K3 would
-// save writing and reading them back. One thread per (level, point), or per
-// (drawn level, point).
+// five hold 753,488 entries (6.0 MB in the two f32 planes), the drop-in
+// model's four 222,040. K4's first design read the planes in place, one
+// thread per (level, point): 16 scattered 4-byte loads, two sectors per
+// corner. It now reads a table that a coalesced pass (pack_pairs) packs in
+// front of it at each call, one entry per dense column holding both
+// planes: a bf16 pair where the values are rounded to bf16 anyway (exact
+// bf16 and k = 1; rounding once at the pack is what rounding at each
+// corner did), a float2 in exact f32; 3 MB (6 MB) at the tuned spec,
+// 2.5 us. One thread per point walks the levels (the position read once, a
+// level's 8 loads issued together), with 32-bit entries and two bf16
+// roundings per cvt.rn.bf16x2.f32 (rnd2). Once the loads are paired, the
+// kernel is not bound by sectors but by its instructions (~200 per (level,
+// point) in exact bf16) and, at the tuned step's one wave of points, by
+// their latency: nerfjax's cell rows (one aligned 32-byte row per (level,
+// point), 23 MB built per call at the tuned spec) cost more to build than
+// they save, and level-major threads, two threads per point or an unrolled
+// level loop gain nothing. On an H100 80GB HBM3 (700 W), exact bf16: 23.1
+// us at the tuned step (first design 48.8), 56.8 at the drop-in fine pass
+// (115.0); PERF.md keeps every other design's time. K5 writes
+// 12 bytes per (level, corner, point): 94 MB per exact tuned step, its
+// bound; fusing it into K3 would save writing and reading them back. One
+// thread per (level, point), or per (drawn level, point).
 //
 // K3 adds K5's staged entries into the dense columns. Its first design
 // issued two float atomics per entry (100.7M at the drop-in fine pass,
@@ -221,6 +251,14 @@ __device__ __forceinline__ int draw_level(uint32_t seed, int j, int Lh) {
   return id < Lh - 1 ? id : Lh - 1;
 }
 
+// element i of an upstream gradient in bf16 (BF16) or f32, widened to f32
+// (exact)
+template <bool BF16>
+__device__ __forceinline__ float load_g(const void* g, int64_t i) {
+  if (BF16) return __bfloat162float(static_cast<const __nv_bfloat16*>(g)[i]);
+  return static_cast<const float*>(g)[i];
+}
+
 // out0[i] += v0, out1[i] += v1 for 0 <= i < T; an index outside is dropped.
 // The add of K2's k = 1 modes.
 __device__ __forceinline__ void scatter_add2(float* out0, float* out1, int64_t T, int64_t i,
@@ -324,7 +362,9 @@ hash_levels_fwd_exact_kernel(const uint32_t* __restrict__ words, const float* __
   out[Lh * N + t] = e1;
 }
 
-// K2 exact. g: [2, Lh, N] f32 upstream gradient; grad: [2, total] f32 that
+// K2 exact. g: [2, Lh, N] upstream gradient in bf16 (G16) or f32, plane
+// stride gs, level stride N (the hashed levels' rows of the encode's own
+// cotangent, read in place); grad: [2, total] f32 that
 // the hashed levels' gradient is added into, at columns base.. (the encode's
 // backward hands K3 and K2 one zeroed gradient). One thread per (level,
 // point), t = l*N + n (level-major: the live part of the gradient is about
@@ -335,8 +375,9 @@ hash_levels_fwd_exact_kernel(const uint32_t* __restrict__ words, const float* __
 // the zeroed interleaved [T, 2] (both planes of an entry in one 8-byte
 // word); scratch_fold_kernel then adds it into grad's two planes. Lanes
 // past the end stay in the warp's shuffles with no index.
+template <bool G16>
 __global__ void __launch_bounds__(THREADS)
-hash_levels_bwd_exact_kernel(const float* __restrict__ g, const float* __restrict__ xs,
+hash_levels_bwd_exact_kernel(const void* __restrict__ g, int64_t gs, const float* __restrict__ xs,
                              const float* __restrict__ ys, const float* __restrict__ zs, int64_t N,
                              int Lh, Levels L, uint32_t mask, int64_t T,
                              float2* __restrict__ scratch) {
@@ -350,8 +391,8 @@ hash_levels_bwd_exact_kernel(const float* __restrict__ g, const float* __restric
     lattice(xs[n], L.scale[r], ix, tx);
     lattice(ys[n], L.scale[r], iy, ty);
     lattice(zs[n], L.scale[r], iz, tz);
-    g0 = g[r * N + n];
-    g1 = g[(Lh + r) * N + n];
+    g0 = load_g<G16>(g, r * N + n);
+    g1 = load_g<G16>(g, gs + r * N + n);
   }
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
@@ -383,34 +424,49 @@ scratch_fold_kernel(const float2* __restrict__ scratch, int64_t T, int64_t total
   }
 }
 
-// K2, k = 1. g, grad as for K2 exact.
-//   MODE 1: k = 1, one thread per (level, point), g to the planned corner
-//   MODE 2: k = 1 with the level subset, one thread per (draw, point): the
-//           draw's level l, g[l]*scale (scale = Lh/gl) to its planned corner;
-//           the draws are iid, so a level drawn twice scatters twice
-template <int MODE>
+// K2, k = 1. g, grad as for K2 exact. One thread per point over its rows,
+// four at a time: the four rows' plans, then their g, then their adds (the
+// position and its two seeds once per point).
+//   MODE 1: k = 1, rows = the Lh levels, g to the planned corner
+//   MODE 2: k = 1 with the level subset, rows = gl draws: draw r's level l,
+//           g[l]*scale (scale = Lh/gl) to its planned corner; the draws are
+//           iid, so a level drawn twice scatters twice
+template <int MODE, bool G16>
 __global__ void __launch_bounds__(THREADS)
-hash_levels_bwd_kernel(const float* __restrict__ g, int64_t total, int64_t base,
+hash_levels_bwd_kernel(const void* __restrict__ g, int64_t gs, int64_t total, int64_t base,
                        const float* __restrict__ xs, const float* __restrict__ ys,
-                       const float* __restrict__ zs, int64_t N, int Lh, int gl, float scale,
+                       const float* __restrict__ zs, int64_t N, int Lh, int rows, float scale,
                        Levels L, uint32_t mask, float* __restrict__ grad) {
-  int64_t t = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
-  int64_t rows = MODE == 2 ? gl : Lh;
-  if (t >= rows * N) return;
-  int r = static_cast<int>(t / N);
-  int64_t n = t - r * N;
-  float x = xs[n], y = ys[n], z = zs[n];
+  const int64_t n = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+  if (n >= N) return;
+  const float x = xs[n], y = ys[n], z = zs[n];
+  const uint32_t seed = position_seed(x, y, z, 0u), lseed = position_seed(x, y, z, LEVEL_SALT);
   float* o0 = grad + base;
   float* o1 = grad + total + base;
-  int64_t T = total - base;
-  int l = MODE == 2 ? draw_level(position_seed(x, y, z, LEVEL_SALT), r, Lh) : r;
-  int64_t i = plan_k1(L, l, mask, x, y, z, position_seed(x, y, z, 0u));
-  float g0 = g[l * N + n], g1 = g[(Lh + l) * N + n];
-  if (MODE == 2) {
-    g0 = __fmul_rn(g0, scale);
-    g1 = __fmul_rn(g1, scale);
+  const int64_t T = total - base;
+  for (int r0 = 0; r0 < rows; r0 += 4) {
+    int64_t i[4];
+    float g0[4], g1[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      i[k] = -1;  // no add
+      g0[k] = g1[k] = 0.0f;
+      if (r0 + k < rows) {
+        const int l = MODE == 2 ? draw_level(lseed, r0 + k, Lh) : r0 + k;
+        i[k] = plan_k1(L, l, mask, x, y, z, seed);
+        g0[k] = load_g<G16>(g, l * N + n);
+        g1[k] = load_g<G16>(g, gs + l * N + n);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (MODE == 2) {
+        g0[k] = __fmul_rn(g0[k], scale);
+        g1[k] = __fmul_rn(g1[k], scale);
+      }
+      scatter_add2(o0, o1, T, i[k], g0[k], g1[k]);
+    }
   }
-  scatter_add2(o0, o1, T, i, g0, g1);
 }
 
 // K3. out: plane 0 at out[0..T), plane 1 at out[stride..stride + T), f32,
@@ -467,67 +523,124 @@ __device__ __forceinline__ int64_t dense_index(const DenseLevels& L, int l, int 
   return L.offset[l] + (bx + ((c >> 2) & 1)) + (by + ((c >> 1) & 1)) * r + (bz + (c & 1)) * r * r;
 }
 
-template <bool BF16>
-__device__ __forceinline__ float load_g(const void* g, int64_t i) {
-  if (BF16) return __bfloat162float(static_cast<const __nv_bfloat16*>(g)[i]);
-  return static_cast<const float*>(g)[i];
+// (a, b) each rounded to bf16 as bf16_round rounds it, with one
+// cvt.rn.bf16x2.f32 for the two, and widened back (exact)
+__device__ __forceinline__ void rnd2(float& a, float& b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  a = __low2float(h);
+  b = __high2float(h);
 }
 
-// K4. planes: [2, total] f32 (the dense levels are its first columns).
-// out: [2, Ld, N], one thread per (level, point).
-//   exact (!K1): out in bf16 (BF16) or f32; the table value, the fractions,
-//     1 - t, (wx*wy)*wz, G*w and e + G*w each rounded to that type, the
-//     corners summed in _CORNERS order, as the plain version's ops round
-//   K1: f32 out; the one corner drawn with P = its clamped f32 weight
-//     (_stochastic_corner_plan(clamp=True, salt=_DENSE_SALT)), its table
-//     values rounded to bf16; sel (optional) [Ld, N] int32 receives the
-//     drawn entry
-template <bool BF16, bool K1>
+// K4's table: the dense columns packed into one word per entry holding both
+// planes, a bf16 pair (pack_pairs_bf16_kernel) in the bf16 modes, a float2
+// in exact f32 (this kernel); coalesced, one thread per entry.
 __global__ void __launch_bounds__(THREADS)
-dense_levels_fwd_kernel(const float* __restrict__ planes, int64_t total,
-                        const float* __restrict__ xs, const float* __restrict__ ys,
-                        const float* __restrict__ zs, int64_t N, int Ld, DenseLevels L,
-                        void* __restrict__ out, int32_t* __restrict__ sel) {
-  int64_t t = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
-  if (t >= Ld * N) return;
-  int l = static_cast<int>(t / N);
-  int64_t n = t - l * N;
-  float x = xs[n], y = ys[n], z = zs[n];
+pack_pairs_f32_kernel(const float* __restrict__ p0, const float* __restrict__ p1, int64_t T,
+                      float2* __restrict__ pairs) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x; i < T;
+       i += static_cast<int64_t>(gridDim.x) * THREADS) {
+    pairs[i] = make_float2(p0[i], p1[i]);
+  }
+}
+
+// K4. pairs: the dense levels' entries packed (above): bf16 pairs (MODE 1,
+// 2) or float2 (MODE 0). out: [2, Ld, N]. One thread per point, walking the
+// levels (point-major: the position is read once, and a level's 8 corner
+// loads are issued together); k4_level computes one (level, point).
+//   MODE 0, 1 exact: out in f32 (0) or bf16 (1); the table value (bf16 at
+//     the pack), the fractions, 1 - t, (wx*wy)*wz, G*w and e + G*w each
+//     rounded to that type, the corners summed in _CORNERS order, as the
+//     plain version's ops round (bf16: two values per cvt, rnd2)
+//   MODE 2 k = 1: f32 out; the one corner drawn with P = its clamped f32
+//     weight (_stochastic_corner_plan(clamp=True, salt=_DENSE_SALT)), its
+//     bf16 pair; sel (optional) [Ld, N] int32 receives the drawn entry
+// Entries are 32-bit: the wrapper holds the dense columns below 2^31.
+template <int MODE>
+__device__ __forceinline__ void k4_level(const void* pairs, const DenseLevels& L, int l, float x, float y,
+                                         float z, int64_t n, int64_t N, int Ld, void* out, int32_t* sel) {
+  const uint32_t* words = static_cast<const uint32_t*>(pairs);
+  const int64_t t = l * N + n, S = Ld * N;  // plane 0 at out[t], plane 1 at out[S + t]
+  const int r = L.res[l];
   int bx, by, bz;
   float tx, ty, tz;
-  dense_axis(x, L.scale[l], L.res[l], bx, tx);
-  dense_axis(y, L.scale[l], L.res[l], by, ty);
-  dense_axis(z, L.scale[l], L.res[l], bz, tz);
-  const float* p0 = planes;
-  const float* p1 = planes + total;
-  if (K1) {
-    int64_t i = dense_index(L, l, bx, by, bz, draw_corner(tx, ty, tz, position_seed(x, y, z, DENSE_SALT), l));
+  dense_axis(x, L.scale[l], r, bx, tx);
+  dense_axis(y, L.scale[l], r, by, ty);
+  dense_axis(z, L.scale[l], r, bz, tz);
+  const int i0 = static_cast<int>(L.offset[l]) + bx + by * r + bz * r * r;
+  if (MODE == 2) {
+    const int c = draw_corner(tx, ty, tz, position_seed(x, y, z, DENSE_SALT), l);
+    const int i = i0 + ((c >> 2) & 1) + ((c >> 1) & 1) * r + (c & 1) * r * r;
+    const uint32_t w = words[i];
     float* o = static_cast<float*>(out);
-    o[t] = bf16_round(p0[i]);
-    o[Ld * N + t] = bf16_round(p1[i]);
-    if (sel != nullptr) sel[t] = static_cast<int32_t>(i);
+    o[t] = __uint_as_float(w << 16);
+    o[S + t] = __uint_as_float(w & 0xFFFF0000u);
+    if (sel != nullptr) sel[t] = i;
     return;
   }
-  tx = rnd<BF16>(tx);
-  ty = rnd<BF16>(ty);
-  tz = rnd<BF16>(tz);
-  float e0 = 0.0f, e1 = 0.0f;
+  float v0[8], v1[8];
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
-    int64_t i = dense_index(L, l, bx, by, bz, c);
-    float w = corner_weight<BF16>(c, tx, ty, tz);
-    e0 = rnd<BF16>(__fadd_rn(e0, rnd<BF16>(__fmul_rn(rnd<BF16>(p0[i]), w))));
-    e1 = rnd<BF16>(__fadd_rn(e1, rnd<BF16>(__fmul_rn(rnd<BF16>(p1[i]), w))));
+    const int i = i0 + ((c >> 2) & 1) + ((c >> 1) & 1) * r + (c & 1) * r * r;
+    if (MODE == 0) {
+      const float2 f = static_cast<const float2*>(pairs)[i];
+      v0[c] = f.x;
+      v1[c] = f.y;
+    } else {
+      const uint32_t w = words[i];
+      v0[c] = __uint_as_float(w << 16);
+      v1[c] = __uint_as_float(w & 0xFFFF0000u);
+    }
   }
-  if (BF16) {
-    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-    o[t] = __float2bfloat16_rn(e0);  // exact: e0 is a bf16 value
-    o[Ld * N + t] = __float2bfloat16_rn(e1);
-  } else {
+  float e0 = 0.0f, e1 = 0.0f;
+  if (MODE == 0) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float w = corner_weight(c, tx, ty, tz);
+      e0 = __fadd_rn(e0, __fmul_rn(v0[c], w));
+      e1 = __fadd_rn(e1, __fmul_rn(v1[c], w));
+    }
     float* o = static_cast<float*>(out);
     o[t] = e0;
-    o[Ld * N + t] = e1;
+    o[S + t] = e1;
+    return;
   }
+  // bf16: the weights as corner_weight<true> forms them, two roundings per cvt
+  rnd2(tx, ty);
+  tz = bf16_round(tz);
+  float ox = __fsub_rn(1.0f, tx), oy = __fsub_rn(1.0f, ty);
+  rnd2(ox, oy);
+  const float oz = bf16_round(__fsub_rn(1.0f, tz));
+  float wxy[4] = {__fmul_rn(ox, oy), __fmul_rn(ox, ty), __fmul_rn(tx, oy), __fmul_rn(tx, ty)};  // (dx, dy)
+  rnd2(wxy[0], wxy[1]);
+  rnd2(wxy[2], wxy[3]);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    float w0 = __fmul_rn(wxy[k], oz), w1 = __fmul_rn(wxy[k], tz);  // corners 2k (dz = 0), 2k + 1
+    rnd2(w0, w1);
+    const float w[2] = {w0, w1};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float a = __fmul_rn(v0[2 * k + j], w[j]), b = __fmul_rn(v1[2 * k + j], w[j]);
+      rnd2(a, b);
+      e0 = __fadd_rn(e0, a);
+      e1 = __fadd_rn(e1, b);
+      rnd2(e0, e1);
+    }
+  }
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  o[t] = __float2bfloat16_rn(e0);  // exact: e0 is a bf16 value
+  o[S + t] = __float2bfloat16_rn(e1);
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS)
+dense_levels_fwd_kernel(const void* __restrict__ pairs, const float* __restrict__ xs,
+                        const float* __restrict__ ys, const float* __restrict__ zs, int64_t N, int Ld,
+                        DenseLevels L, void* __restrict__ out, int32_t* __restrict__ sel) {
+  const int64_t n = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+  if (n >= N) return;
+  const float x = xs[n], y = ys[n], z = zs[n];
+  for (int l = 0; l < Ld; ++l) k4_level<MODE>(pairs, L, l, x, y, z, n, N, Ld, out, sel);
 }
 
 // K5. The dense levels' table gradient as K3's inputs (idx int32, v0, v1
@@ -643,10 +756,11 @@ extern "C" int nerf_hash_levels_fwd(const float* planes, int64_t total, int64_t 
 }
 
 // mode: 0 exact, 1 k = 1, 2 k = 1 with gl drawn levels scaled by `scale`.
-// Exact only: scratch, a zeroed [total - base, 2] f32 buffer, which K2 exact
-// adds into and the fold kernel launched after it adds into grad.
-extern "C" int nerf_hash_levels_bwd(const float* g, int64_t total, int64_t base, const float* x,
-                                    const float* y, const float* z, int64_t N, int Lh,
+// g: bf16 (g_bf16) or f32, plane stride gs. Exact only: scratch, a zeroed
+// [total - base, 2] f32 buffer, which K2 exact adds into and the fold kernel
+// launched after it adds into grad.
+extern "C" int nerf_hash_levels_bwd(const void* g, int64_t gs, int g_bf16, int64_t total, int64_t base,
+                                    const float* x, const float* y, const float* z, int64_t N, int Lh,
                                     const float* scales, const int64_t* offsets, uint32_t mask,
                                     int mode, int gl, float scale, float* grad, float* scratch,
                                     void* stream) {
@@ -659,15 +773,24 @@ extern "C" int nerf_hash_levels_bwd(const float* g, int64_t total, int64_t base,
   if (mode == 0) {
     float2* sc = reinterpret_cast<float2*>(scratch);
     const int64_t T = total - base;
-    hash_levels_bwd_exact_kernel<<<blocks(Lh * N), THREADS, 0, s>>>(g, x, y, z, N, Lh, L, mask, T, sc);
+    if (g_bf16) {
+      hash_levels_bwd_exact_kernel<true><<<blocks(Lh * N), THREADS, 0, s>>>(g, gs, x, y, z, N, Lh, L, mask, T, sc);
+    } else {
+      hash_levels_bwd_exact_kernel<false><<<blocks(Lh * N), THREADS, 0, s>>>(g, gs, x, y, z, N, Lh, L, mask, T, sc);
+    }
     scratch_fold_kernel<<<stride_blocks(T), THREADS, 0, s>>>(sc, T, total, base, grad);
-  } else if (mode == 1) {
-    hash_levels_bwd_kernel<1><<<blocks(Lh * N), THREADS, 0, s>>>(g, total, base, x, y, z, N, Lh,
-                                                                 gl, scale, L, mask, grad);
-  } else {
-    hash_levels_bwd_kernel<2><<<blocks(gl * N), THREADS, 0, s>>>(g, total, base, x, y, z, N, Lh,
-                                                                 gl, scale, L, mask, grad);
+    return static_cast<int>(cudaGetLastError());
   }
+  const int rows = mode == 2 ? gl : Lh;
+#define NERF_K2_K1(M, G) \
+  hash_levels_bwd_kernel<M, G><<<blocks(N), THREADS, 0, s>>>(g, gs, total, base, x, y, z, N, Lh, rows, scale, L, \
+                                                              mask, grad)
+  if (mode == 1) {
+    if (g_bf16) NERF_K2_K1(1, true); else NERF_K2_K1(1, false);
+  } else {
+    if (g_bf16) NERF_K2_K1(2, true); else NERF_K2_K1(2, false);
+  }
+#undef NERF_K2_K1
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -685,10 +808,24 @@ extern "C" int nerf_table_grad_scatter(const int32_t* idx, const float* g0, cons
   return static_cast<int>(cudaGetLastError());
 }
 
-// mode: 0 exact f32 out, 1 exact bf16 out, 2 k = 1 (f32 out, sel optional)
-extern "C" int nerf_dense_levels_fwd(const float* planes, int64_t total, const float* x,
-                                     const float* y, const float* z, int64_t N, int Ld,
-                                     const float* scales, const int32_t* res,
+// words[i] = the pair of p0[i], p1[i] for i < T: a bf16 pair (f32 = 0;
+// plane 0 in the low half) or a float2 (f32 = 1). K4's table.
+extern "C" int nerf_pack_pairs(const float* p0, const float* p1, int64_t T, int f32, void* words,
+                               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f32) {
+    pack_pairs_f32_kernel<<<stride_blocks(T), THREADS, 0, s>>>(p0, p1, T, static_cast<float2*>(words));
+  } else {
+    pack_pairs_bf16_kernel<<<stride_blocks(T), THREADS, 0, s>>>(p0, p1, T, static_cast<uint32_t*>(words));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// mode: 0 exact f32 out, 1 exact bf16 out, 2 k = 1 (f32 out, sel optional);
+// pairs: the dense columns packed by nerf_pack_pairs (float2 in mode 0,
+// bf16 pairs otherwise)
+extern "C" int nerf_dense_levels_fwd(const void* pairs, const float* x, const float* y, const float* z,
+                                     int64_t N, int Ld, const float* scales, const int32_t* res,
                                      const int64_t* offsets, int mode, void* out, int32_t* sel,
                                      void* stream) {
   DenseLevels L;
@@ -696,13 +833,13 @@ extern "C" int nerf_dense_levels_fwd(const float* planes, int64_t total, const f
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  unsigned nb = blocks(Ld * N);
+  const unsigned nb = blocks(N);
   if (mode == 0) {
-    dense_levels_fwd_kernel<false, false><<<nb, THREADS, 0, s>>>(planes, total, x, y, z, N, Ld, L, out, sel);
+    dense_levels_fwd_kernel<0><<<nb, THREADS, 0, s>>>(pairs, x, y, z, N, Ld, L, out, sel);
   } else if (mode == 1) {
-    dense_levels_fwd_kernel<true, false><<<nb, THREADS, 0, s>>>(planes, total, x, y, z, N, Ld, L, out, sel);
+    dense_levels_fwd_kernel<1><<<nb, THREADS, 0, s>>>(pairs, x, y, z, N, Ld, L, out, sel);
   } else {
-    dense_levels_fwd_kernel<false, true><<<nb, THREADS, 0, s>>>(planes, total, x, y, z, N, Ld, L, out, sel);
+    dense_levels_fwd_kernel<2><<<nb, THREADS, 0, s>>>(pairs, x, y, z, N, Ld, L, out, sel);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,8 +10,10 @@ custom VJP :293-409, the dense levels: exact ``_dense_levels_encode``
 
 Semantics, not layout: nerfjax packs bf16 feature pairs into f32 words and
 builds dense-level cell-row tables because the TPU's gather pays per index.
-Here the corners are gathered directly from the ``[2, total]`` planes. What
-matches nerfjax:
+Here K1 exact and K4 read the columns packed into bf16 pairs (one word per
+entry, both planes in it; float2 in K4's exact float32 mode) and the other
+kernels the ``[2, total]`` planes; a cell-row table costs the H100 more to
+build than it saves K4 (``PERF.md``). What matches nerfjax:
 
   * hashed levels: uint32 spatial hash ``x*1 ^ y*2654435761 ^ z*805459861``
     masked to the table size, table values rounded to bf16 as
@@ -44,7 +46,9 @@ stream):
     into;
   * ``dense_levels_fwd`` (K4): the dense levels' exact or k = 1 forward, the
     cell-row gather of the Pallas kernel ``_dma_gather_fn``
-    (benchmarks/micro_pallas_gather.py) with the blend around it;
+    (benchmarks/micro_pallas_gather.py) with the blend around it; it reads
+    the dense columns packed by ``pack_pairs`` (a pass in front of it: one
+    entry per column holding both planes);
   * ``dense_levels_bwd`` (K5): the dense levels' table gradient staged as
     K3's (idx, v0, v1), exact, k = 1, or over gd drawn levels, whose
     cotangent take is the Pallas kernel ``_take_along_axis_probe``'s
@@ -77,7 +81,7 @@ DENSE_SALT = 0x5BD1E995  # nerfjax _DENSE_SALT: the dense levels' corner draws
 DENSE_GL_SALT = 0x27D4EB2F  # nerfjax _DENSE_GL_SALT: the dense level-subset draws
 
 launch_counts = {"hash_levels_fwd": 0, "hash_levels_bwd": 0, "table_grad_scatter": 0,
-                 "dense_levels_fwd": 0, "dense_levels_bwd": 0}
+                 "pack_pairs": 0, "dense_levels_fwd": 0, "dense_levels_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -167,6 +171,14 @@ def pack_pairs_bf16_plain(planes: torch.Tensor) -> torch.Tensor:
     bf16(plane 0): nerfjax's ``_pack_pairs_bf16`` (its f32 words' bits), the
     layout K1 exact reads (``pack_pairs_bf16_kernel``)."""
     return _int32(_bf16_bits(planes[0]) | (_bf16_bits(planes[1]) << 16))
+
+
+def pack_pairs_plain(cols: torch.Tensor, f32: bool) -> torch.Tensor:
+    """K4's table from the [2, T] float32 dense columns: one entry per
+    column holding both planes, [T] int32 bf16 pairs
+    (``pack_pairs_bf16_plain``) or, ``f32``, [T, 2] float32 pairs
+    (``pack_pairs_f32_kernel``)."""
+    return cols.t().contiguous() if f32 else pack_pairs_bf16_plain(cols)
 
 
 def _unpack_pairs_plain(words: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -374,11 +386,13 @@ def table_grad_scatter_plain(idx: torch.Tensor, g0: torch.Tensor, g1: torch.Tens
 
 def hash_levels_bwd_plain(spec: HashGridSpec, g: torch.Tensor, x, y, z, out: torch.Tensor) -> torch.Tensor:
     """The hashed levels' table gradient from the upstream gradient g
-    [2, Lh, N], added into the hashed columns of the [2, total] float32
-    planes ``out``, returned."""
+    [2, Lh, N] (bf16 or float32, widened to float32 first: exact), added
+    into the hashed columns of the [2, total] float32 planes ``out``,
+    returned."""
     _, hashed = _split_levels(spec)
     base, Lh = hashed[0]["offset"], len(hashed)
     mode, gl = _bwd_mode(spec, Lh)
+    g = g.to(torch.float32)
     if mode == 0:
         idx = torch.stack(_hash_level_indices(spec, hashed, x, y, z))  # [8, Lh, N]
         w = torch.stack(_corner_weights(hashed, x, y, z))
@@ -503,13 +517,15 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("hash_encode")
     vp, i32, i64, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32, ctypes.c_float
     lib.nerf_hash_levels_fwd.argtypes = [vp, i64, i64, vp, vp, vp, i64, i32, vp, vp, u32, i32, vp, vp, vp, vp]
-    lib.nerf_hash_levels_bwd.argtypes = [vp, i64, i64, vp, vp, vp, i64, i32, vp, vp, u32, i32, i32, f32, vp, vp, vp]
+    lib.nerf_hash_levels_bwd.argtypes = [vp, i64, i32, i64, i64, vp, vp, vp, i64, i32, vp, vp, u32, i32, i32, f32,
+                                         vp, vp, vp]
     lib.nerf_table_grad_scatter.argtypes = [vp, vp, vp, i64, i64, i64, vp, vp, vp]
-    lib.nerf_dense_levels_fwd.argtypes = [vp, i64, vp, vp, vp, i64, i32, vp, vp, vp, i32, vp, vp, vp]
+    lib.nerf_pack_pairs.argtypes = [vp, vp, i64, i32, vp, vp]
+    lib.nerf_dense_levels_fwd.argtypes = [vp, vp, vp, vp, i64, i32, vp, vp, vp, i32, vp, vp, vp]
     lib.nerf_dense_levels_bwd.argtypes = [vp, i64, i32, vp, vp, vp, i64, i32, vp, vp, vp, i32, i32, f32,
                                           vp, vp, vp, vp]
     for fn in (lib.nerf_hash_levels_fwd, lib.nerf_hash_levels_bwd, lib.nerf_table_grad_scatter,
-               lib.nerf_dense_levels_fwd, lib.nerf_dense_levels_bwd):
+               lib.nerf_pack_pairs, lib.nerf_dense_levels_fwd, lib.nerf_dense_levels_bwd):
         fn.restype = i32
     lib.nerf_hash_max_levels.argtypes, lib.nerf_hash_max_levels.restype = [], i32
     return lib
@@ -603,10 +619,12 @@ def hash_levels_fwd(spec: HashGridSpec, planes: torch.Tensor, x, y, z, *, sel: t
 
 def hash_levels_bwd(spec: HashGridSpec, g: torch.Tensor, x, y, z, out: torch.Tensor) -> torch.Tensor:
     """Table gradient of the hashed levels from the upstream gradient g
-    [2, Lh, N] float32, added into the hashed columns of the [2, total]
-    float32 planes ``out`` and returned: exact, k = 1, or k = 1 over
+    [2, Lh, N], added into the hashed columns of the [2, total] float32
+    planes ``out`` and returned: exact, k = 1, or k = 1 over
     ``spec.grad_levels`` drawn levels scaled Lh/gl, replaying the forward's
-    plan.
+    plan. g is bf16 or float32, each plane's [Lh, N] contiguous (a slice of
+    the encode's [2, L, N] cotangent will do): the kernel reads it in place
+    and widens each value to float32 (exact).
 
     The exact mode on the card merges each warp's runs of equal indices and
     adds each run's sums with one float2 atomic into a zeroed interleaved
@@ -617,9 +635,11 @@ def hash_levels_bwd(spec: HashGridSpec, g: torch.Tensor, x, y, z, out: torch.Ten
         return hash_levels_bwd_plain(spec, g, x, y, z, out)
     Lh = len(hashed)
     N = x.shape[0]
-    if g.shape != (2, Lh, N):
-        raise ValueError(f"hash_levels_bwd: g must be [2, {Lh}, {N}], got {tuple(g.shape)}")
-    _check_cuda("hash_levels_bwd", {"g": g, "x": x, "y": y, "z": z})
+    _check_dtype("hash_levels_bwd", g.dtype)
+    if g.shape != (2, Lh, N) or not g[0].is_contiguous() or g.device != x.device:
+        raise ValueError(f"hash_levels_bwd: g must be [2, {Lh}, {N}] on {x.device} with contiguous planes, "
+                         f"got {tuple(g.shape)} strides {g.stride()} on {g.device}")
+    _check_cuda("hash_levels_bwd", {"x": x, "y": y, "z": z})
     mode, gl = _bwd_mode(spec, Lh)
     total = _check_out("hash_levels_bwd", out, x.device)
     if N:
@@ -627,7 +647,8 @@ def hash_levels_bwd(spec: HashGridSpec, g: torch.Tensor, x, y, z, out: torch.Ten
         scale = float(np.float32(Lh / gl)) if mode == 2 else 1.0
         scratch = torch.zeros(total - base, 2, dtype=torch.float32, device=x.device) if mode == 0 else None
         err = _lib().nerf_hash_levels_bwd(
-            g.data_ptr(), total, base, x.data_ptr(), y.data_ptr(), z.data_ptr(), N, Lh,
+            g.data_ptr(), g.stride(0), int(g.dtype == torch.bfloat16), total, base, x.data_ptr(), y.data_ptr(),
+            z.data_ptr(), N, Lh,
             scales.ctypes.data, offsets.ctypes.data, mask, mode, gl, scale, out.data_ptr(),
             0 if scratch is None else scratch.data_ptr(), _stream(x),
         )
@@ -680,11 +701,32 @@ def _check_dtype(name: str, dtype: torch.dtype) -> None:
         raise ValueError(f"{name}: dtype must be float32 or bfloat16, got {dtype}")
 
 
+def pack_pairs(cols: torch.Tensor, f32: bool) -> torch.Tensor:
+    """K4's table: the [2, T] float32 dense columns (rows contiguous: a
+    column slice of the planes will do) packed into one entry per column
+    holding both planes, [T] int32 bf16 pairs (plane 0 in the low half;
+    each value rounded to bf16 once, here) or, ``f32``, [T, 2] float32."""
+    if _device_kind("pack_pairs", cols) == "cpu":
+        return pack_pairs_plain(cols, f32)
+    T = _check_rows("pack_pairs", cols, cols.device)
+    out = torch.empty((T, 2) if f32 else (T,), dtype=torch.float32 if f32 else torch.int32, device=cols.device)
+    if T:
+        err = _lib().nerf_pack_pairs(cols[0].data_ptr(), cols[1].data_ptr(), T, int(f32), out.data_ptr(),
+                                     _stream(cols))
+        _raise_if_failed("pack_pairs", err)
+        launch_counts["pack_pairs"] += 1
+    return out
+
+
 def dense_levels_fwd(spec: HashGridSpec, planes: torch.Tensor, x, y, z, dtype=torch.float32, *,
                      sel: torch.Tensor | None = None) -> torch.Tensor:
     """Dense-level forward -> [2, Ld, N] from the full [2, total] float32
     planes and x, y, z [N] float32 in [0, 1]: the exact trilinear sum in
     ``dtype``, or (``spec.dense_corners`` = 1) the k = 1 estimate in float32.
+
+    On the card the dense columns are first packed into one entry per
+    column (``pack_pairs``: bf16 pairs, float2 in exact float32), and the
+    kernel reads one entry per corner, one thread per point over the levels.
 
     sel: optional [Ld, N] int32 that receives the k = 1 plan (entries of the
     planes); the plain version fills it too.
@@ -697,10 +739,10 @@ def dense_levels_fwd(spec: HashGridSpec, planes: torch.Tensor, x, y, z, dtype=to
         return out
     _check_dtype("dense_levels_fwd", dtype)
     N = _check_positions("dense_levels_fwd", planes, x, y, z)
-    Ld = len(dense)
-    if planes.shape[1] < _dense_width(dense):
+    Ld, T = len(dense), _dense_width(dense)
+    if planes.shape[1] < T or T >= 2**31:
         raise ValueError(f"dense_levels_fwd: planes hold {planes.shape[1]} columns, the dense levels "
-                         f"{_dense_width(dense)}")
+                         f"{T} (the kernel takes fewer than 2^31)")
     k1 = _dense_mode(spec, Ld)[0] == 1
     if sel is not None:
         if not k1 or sel.shape != (Ld, N) or sel.dtype != torch.int32 or not sel.is_contiguous() \
@@ -710,11 +752,12 @@ def dense_levels_fwd(spec: HashGridSpec, planes: torch.Tensor, x, y, z, dtype=to
     out = torch.empty(2, Ld, N, dtype=torch.float32 if k1 else dtype, device=x.device)
     if N:
         scales, res, offsets = _dense_level_arrays(dense)
+        mode = 2 if k1 else int(dtype == torch.bfloat16)
+        pairs = pack_pairs(planes[:, :T], f32=mode == 0)
         err = _lib().nerf_dense_levels_fwd(
-            planes.data_ptr(), planes.shape[1], x.data_ptr(), y.data_ptr(), z.data_ptr(), N, Ld,
-            scales.ctypes.data, res.ctypes.data, offsets.ctypes.data,
-            2 if k1 else int(dtype == torch.bfloat16), out.data_ptr(),
-            0 if sel is None else sel.data_ptr(), _stream(x),
+            pairs.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(), N, Ld, scales.ctypes.data,
+            res.ctypes.data, offsets.ctypes.data, mode, out.data_ptr(), 0 if sel is None else sel.data_ptr(),
+            _stream(x),
         )
         _raise_if_failed("dense_levels_fwd", err)
         launch_counts["dense_levels_fwd"] += 1
@@ -789,9 +832,8 @@ class _HashEncode(torch.autograd.Function):
         if dense:
             dense_cols = grad[:, : _dense_width(dense)]
             table_grad_scatter(*dense_levels_bwd(ctx.spec, g[:, : len(dense)], x, y, z, ctx.dtype), dense_cols)
-        if hashed:
-            g_hashed = g[:, len(dense) :].to(torch.float32).contiguous()
-            hash_levels_bwd(ctx.spec, g_hashed, x, y, z, grad)
+        if hashed:  # K2 reads the hashed levels' rows of g in place, in g's dtype
+            hash_levels_bwd(ctx.spec, g[:, len(dense) :], x, y, z, grad)
         return grad, None, None, None, None, None
 
 

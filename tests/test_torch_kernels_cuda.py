@@ -232,6 +232,41 @@ def test_k2_exact_matches_plain_under_contention(cuda_device, inputs):
     assert bool(((into - (prior + ref)).abs() <= bound).all())
 
 
+@pytest.mark.parametrize("gdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("est", [dict(), dict(fwd_corners=1, grad_corners=1), dict(fwd_corners=1, grad_corners=1, grad_levels=2)],
+                         ids=["exact", "k1", "k1_gl2"])
+def test_hash_levels_bwd_reads_the_cotangent_slice(cuda_device, est, gdt):
+    """K2 in each mode on the hashed levels' rows of a [2, L, N] cotangent
+    in bf16 or f32, the strided slice g[:, Ld:] the encode's backward hands
+    it, adds what the old call on their float32 copy adds (the widening is
+    exact), within the atomic-order bound 2 * max(n, 8) * 2^-24 *
+    sum|terms| per entry of n terms; both within it of the plain version.
+    Ray-major samples."""
+    spec = HashGridSpec(**TUNED, **est)
+    dense, hashed = hash_encode._split_levels(spec)
+    total = spec.total_table_size
+    x, y, z = _ray_samples(521, 192, 44, cuda_device)
+    N = x.shape[0]
+    g_all = torch.from_numpy(np.random.default_rng(45).normal(size=(2, spec.n_levels, N)).astype(np.float32))
+    g = g_all.to(cuda_device, gdt)[:, len(dense) :]
+    assert not g.is_contiguous()
+    zeros = lambda: torch.zeros(2, total, device=cuda_device)  # noqa: E731
+    got = hash_encode.hash_levels_bwd(spec, g, x, y, z, zeros())
+    old = hash_encode.hash_levels_bwd(spec, g.float().contiguous(), x, y, z, zeros())
+    ref = hash_encode.hash_levels_bwd_plain(spec, g, x, y, z, zeros())
+    mass = hash_encode.hash_levels_bwd_plain(spec, g.float().abs(), x, y, z, zeros())
+    if est:
+        count = hash_encode.hash_levels_bwd_plain(spec, torch.ones_like(g, dtype=torch.float32), x, y, z, zeros())
+    else:
+        idx = (torch.stack(hash_encode._hash_level_indices(spec, hashed, x, y, z)) + hashed[0]["offset"]).reshape(-1)
+        one = torch.ones(idx.shape[0], device=cuda_device)
+        count = hash_encode.table_grad_scatter_plain(idx, one, one, zeros())
+    bound = 2.0 * count.clamp_min(8.0) * 2.0**-24 * mass + 1e-30
+    torch.cuda.synchronize()
+    assert bool(((got - old).abs() <= bound).all()) and bool(((got - ref).abs() <= bound).all())
+    assert bool((got != 0).any()) and got[:, : hashed[0]["offset"]].abs().max() == 0
+
+
 @pytest.mark.parametrize("inputs", ["one_position", "one_point", "odd_total", "one_level", "32_levels"])
 def test_hash_levels_fwd_exact_packed_equals_plain(cuda_device, inputs):
     """K1 exact, which reads the hashed columns packed into bf16-pair words,
@@ -336,27 +371,91 @@ DENSE_MODES = {"exact": {}, "dgl1": dict(dense_grad_levels=1), "dgl2": dict(dens
                "dc1": dict(dense_corners=1)}
 
 
+DROP_IN = dict(n_levels=16, log2_hashmap_size=19)  # cfg/blender_scene.yml: 4 dense levels, 12 hashed
+
+
+def _dense_inputs(inputs: str, N: int, device):
+    """x, y, z [N]: uniform with the domain's faces, or the first N of
+    ray-major sorted samples (521 rays x 192)."""
+    if inputs == "uniform":
+        return _positions(N, 28, device)
+    return [c[:N].contiguous() for c in _ray_samples(521, 192, 36, device)]
+
+
+@pytest.mark.parametrize("inputs", ["uniform", "rays"])
+@pytest.mark.parametrize("spec_kw", [TUNED, DROP_IN], ids=["tuned", "drop-in"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["exact", "dc1"])
-@pytest.mark.parametrize("N", [1, 100_003])
-def test_dense_levels_fwd_matches_plain(cuda_device, dtype, mode, N):
-    """K4 equals its plain version bit for bit (every bf16 op rounded as
-    PyTorch rounds it; no contraction); under k = 1 its plan equals the
-    plain plan."""
-    spec = HashGridSpec(**TUNED, **DENSE_MODES[mode])
+@pytest.mark.parametrize("N", [1, 31, 100_003])
+def test_dense_levels_fwd_matches_plain(cuda_device, dtype, mode, N, spec_kw, inputs):
+    """K4 (one thread per point over the levels, reading the dense columns
+    packed by pack_pairs) equals its plain version bit for bit (every bf16
+    op rounded as PyTorch rounds it; no contraction) at both shipped
+    models' dense levels, on uniform positions with the faces and on ray
+    samples; under k = 1 its plan equals the plain plan. Each call packs
+    once and launches K4 once."""
+    spec = HashGridSpec(**spec_kw, **DENSE_MODES[mode])
     rng = np.random.default_rng(27)
     planes = torch.from_numpy(rng.uniform(-1, 1, (2, spec.total_table_size)).astype(np.float32)).to(cuda_device)
-    x, y, z = _positions(N, 28, cuda_device)
+    x, y, z = _dense_inputs(inputs, N, cuda_device)
     Ld = len(hash_encode._split_levels(spec)[0])
     sel = torch.empty(Ld, N, dtype=torch.int32, device=cuda_device) if mode == "dc1" else None
-    before = hash_encode.launch_counts["dense_levels_fwd"]
+    before = dict(hash_encode.launch_counts)
     got = hash_encode.dense_levels_fwd(spec, planes, x, y, z, dtype, sel=sel)
     ref, plan = hash_encode.dense_levels_fwd_plain(spec, planes, x, y, z, dtype)
     torch.cuda.synchronize()
-    assert hash_encode.launch_counts["dense_levels_fwd"] == before + 1
+    assert hash_encode.launch_counts["dense_levels_fwd"] == before["dense_levels_fwd"] + 1
+    assert hash_encode.launch_counts["pack_pairs"] == before["pack_pairs"] + 1
     assert got.dtype == ref.dtype and torch.equal(got, ref)
     if mode == "dc1":
         assert torch.equal(sel.long(), plan)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_levels_fwd_extreme_table_values(cuda_device, dtype):
+    """K4 on table values at the ends of the range: most of them scaled
+    into the f32 and bf16 subnormals (products and sums underflow), some
+    at +-3.4e38 (above the bf16 maximum: inf once rounded to bf16, and inf
+    * 0 = NaN at the faces) and zeros of both signs. The outputs other than
+    NaN equal the plain version's bit for bit (the kernel rounds two values
+    per cvt.rn.bf16x2.f32, the plain version one per cast), and the NaNs
+    sit where the plain version's do."""
+    spec = HashGridSpec(**TUNED)
+    rng = np.random.default_rng(37)
+    planes = rng.uniform(-1, 1, (2, spec.total_table_size)).astype(np.float32)
+    which = rng.integers(0, 6, planes.shape)
+    extreme = np.array([0.0, -0.0, 1e-39, -3e-40, 3.4e38, -3.4e38], np.float32)
+    planes = np.where(rng.uniform(size=planes.shape) < 0.3, extreme[which], planes * 2.0 ** rng.integers(-140, -100,
+                                                                                                       planes.shape))
+    planes = torch.from_numpy(planes.astype(np.float32)).to(cuda_device)
+    x, y, z = _positions(100_003, 38, cuda_device)
+    got = hash_encode.dense_levels_fwd(spec, planes, x, y, z, dtype).float()
+    ref = hash_encode.dense_levels_fwd_plain(spec, planes, x, y, z, dtype)[0].float()
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], ref[~nan]) and bool((ref.abs() > 1e38).any())
+    assert bool(((ref != 0) & (ref.abs() < 2.0**-126)).any())  # subnormal outputs were formed
+
+
+@pytest.mark.parametrize("f32", [False, True], ids=["bf16", "f32"])
+@pytest.mark.parametrize("spec_kw", [TUNED, DROP_IN], ids=["tuned", "drop-in"])
+def test_pack_pairs_matches_plain(cuda_device, spec_kw, f32):
+    """K4's table: the pack kernel's words equal pack_pairs_plain's word
+    for word, from the dense column slice of the planes (rows 4*total bytes
+    apart), and from an odd count of columns."""
+    spec = HashGridSpec(**spec_kw)
+    T = hash_encode._dense_width(hash_encode._split_levels(spec)[0])
+    rng = np.random.default_rng(39)
+    planes = torch.from_numpy(rng.uniform(-1, 1, (2, spec.total_table_size)).astype(np.float32)).to(cuda_device)
+    view = torch.int32 if not f32 else torch.float32
+    for cols in (planes[:, :T], planes[:, :T - 3]):
+        before = hash_encode.launch_counts["pack_pairs"]
+        got = hash_encode.pack_pairs(cols, f32)
+        ref = hash_encode.pack_pairs_plain(cols, f32)
+        torch.cuda.synchronize()
+        assert hash_encode.launch_counts["pack_pairs"] == before + 1
+        assert got.dtype == ref.dtype == view and got.shape == ref.shape
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
