@@ -131,6 +131,22 @@ and K2 k = 1 (one thread per point, the cotangent read in place):
   trace's first or last few events (a trace that drops any of the calls'
   is taken again).
 
+Added for the redesign of K1 k = 1 (one thread per point over its levels)
+and the encode's forward in one buffer (K4 and K1 write their rows of the
+[2, L, N] output in its dtype):
+
+  7, 7b. K1 k = 1 held to plain (output and plan, through sel) and timed at
+     the tuned, dgl1 and dc1 steps' captured calls and at the occupancy
+     grid update's call (N = 128^3 / 4, recorded in one update of the warm
+     state), each beside its bound with the output it writes and with a
+     float32 output; where the encode handed K1 a slice of its output the
+     kernel writes into a fresh one of the same dtype and strides;
+  7, 7c. one traced warm tuned and drop-in step each must show no
+     aten::cat and no cast of a [2, Lh, N] part inside the encode's
+     forward;
+  P. the launch floor (a one-element kernel's device time) beside every
+     probe's bound, which falls below it.
+
 The last two lines are a JSON object with each kernel's launches (summed
 over the main paths: the 512^3 extraction, both train() runs, the eval
 render, the probe entry point), error, times and bound (K1, K2 and K3
@@ -658,10 +674,8 @@ def hash_kernels_vs_plain() -> dict:
                 stats["hash_levels_fwd"]["max_abs_err"] = max(stats["hash_levels_fwd"]["max_abs_err"], err)
         phase(f"hash_levels_fwd exact N={N}: kernel == plain (f32 and bf16, <= 1 ulp)")
         if N == 524_288:
-            idx = torch.stack(he._hash_level_indices(exact, hashed, x, y, z))
-            nbytes = 8 * torch.unique(idx).numel() + 12 * N + 8 * Lh * N
             timed("hash_levels_fwd", f"exact N={N}", lambda: he.hash_levels_fwd(exact, planes, x, y, z),
-                  lambda: he.hash_levels_fwd_plain(exact, planes, x, y, z), _bound(nbytes, 110 * Lh * N))
+                  lambda: he.hash_levels_fwd_plain(exact, planes, x, y, z), _k1_bounds(exact, x, y, z, None, 4)[0])
 
     # K1 k = 1 (the train step's forward) with its plan; K2 in its three modes
     N = 196_608
@@ -672,9 +686,9 @@ def hash_kernels_vs_plain() -> dict:
     if not torch.equal(sel.long(), plan) or not torch.equal(got, ref):
         raise AssertionError("hash_levels_fwd k=1: plan or output differs from the plain version")
     phase(f"hash_levels_fwd k=1 N={N}: sel == plain plan, output == plain (torch.equal)")
-    nbytes = 8 * torch.unique(plan).numel() + 12 * N + 8 * Lh * N
     timed("hash_levels_fwd", f"k=1 N={N}", lambda: he.hash_levels_fwd(k1, planes, x, y, z),
-          lambda: he.hash_levels_fwd_plain(k1, planes, x, y, z), _bound(nbytes, 80 * Lh * N))
+          lambda: he.hash_levels_fwd_plain(k1, planes, x, y, z), _k1_bounds(k1, x, y, z, plan, 4)[0])
+    stats["hash_levels_fwd"]["shapes"] = {"seeded_k1": {**stats["hash_levels_fwd"], "N": N}}
 
     g = _rand((2, Lh, N), rng)
     for label, spec in (("exact", exact), ("k=1", dataclasses.replace(k1, grad_levels=0)), ("k=1 gl=2", k1)):
@@ -916,13 +930,16 @@ def _timing_line(t: dict) -> str:
     lib = "" if t["library_ms"] is None else f", {t['library_name']} {t['library_ms'] * 1e3:.1f} us"
     order = "p,k,k,p,l,l" if t["library_ms"] is not None else "p,k,k,p"
     bound = "" if t["bound"] is None else f", bound {t['bound'][0] * 1e3:.1f} us ({t['bound'][1]})"
+    if "bound_f32_out" in t:  # K1: the bound had it written a float32 output; its random reads
+        bound += (f" (with a float32 output {t['bound_f32_out'][0] * 1e3:.1f} us; {t['sectors']:,} random 4-byte "
+                  f"reads, one 32-byte sector each: {t['sectors'] * 32 / t['ms'] / 1e9:.2f} TB/s of sectors)")
     fill = "" if "fill_ms" not in t else (f"; net of the caller's zero fill, which takes {t['fill_ms'] * 1e3:.1f} us "
                                           f"alone; fill + kernel {t['with_fill_ms'] * 1e3:.1f} us")
     return (f"device: kernel {t['ms'] * 1e3:.1f} us, plain {t['plain_ms'] * 1e3:.1f} us{lib} per call "
             f"(runs {order}: {r}){bound}; wall per kernel call {t['wall_ms'] * 1e3:.1f} us{fill}")
 
 
-STEP_KERNELS = ("dense_levels_fwd", "dense_levels_bwd", "hash_levels_bwd", "table_grad_scatter")
+STEP_KERNELS = ("hash_levels_fwd", "dense_levels_fwd", "dense_levels_bwd", "hash_levels_bwd", "table_grad_scatter")
 
 
 @contextlib.contextmanager
@@ -954,8 +971,8 @@ def _recorded(*targets):
 
 
 def capture_step_inputs(state, batch, names=STEP_KERNELS) -> dict:
-    """The arguments that the named hash-encode wrappers (K4, K5, K2 and K3
-    by default) get in one warm train step, {N: {name: args}}: one entry
+    """The arguments that the named hash-encode wrappers (K1, K4, K5, K2 and
+    K3 by default) get in one warm train step, {N: {name: (args, kwargs)}}: one entry
     for each field pass of N points (the single-pass step has one, the
     two-pass step a coarse and a fine one), with the step's own positions,
     table, plan and upstream gradients. The encode of an occupancy update,
@@ -965,8 +982,7 @@ def capture_step_inputs(state, batch, names=STEP_KERNELS) -> dict:
 
     with _recorded(*((he, name) for name in names)) as seen:
         train_step(state, batch)
-    passes = {N: {name: args for name, (args, _) in calls.items()}
-              for N, calls in seen.items() if calls.keys() == set(names)}
+    passes = {N: calls for N, calls in seen.items() if calls.keys() == set(names)}
     if not passes:
         raise AssertionError(f"no field pass of the step called all of {names}: {[sorted(c) for c in seen.values()]}")
     return passes
@@ -989,6 +1005,92 @@ def _cycled(fn, inputs: list):
     return lambda: fn(next(it))
 
 
+def _k1_bounds(spec, x, y, z, plan, out_bytes: int):
+    """K1's bound at one call, twice: with out_bytes per output value (the
+    output it writes), and with the float32 output it wrote before it
+    stored in the encode's dtype. Bytes: positions in, both planes of each
+    distinct entry read (k = 1: the drawn ones, ``plan``; exact: every
+    corner's), the [2, Lh, N] output out; operations: 80 per (level, point)
+    at k = 1, 110 exact."""
+    import torch
+
+    from nerfjax_torch.ops import hash_encode as he
+
+    _, hashed = he._split_levels(spec)
+    Lh, N = len(hashed), x.shape[0]
+    idx = torch.stack(he._hash_level_indices(spec, hashed, x, y, z)) if plan is None else plan
+    touched, ops = torch.unique(idx).numel(), (110 if plan is None else 80) * Lh * N
+    return tuple(_bound(8 * touched + 12 * N + 2 * b * Lh * N, ops) for b in (out_bytes, 4))
+
+
+def _k1_at_call(spec, planes, x, y, z, out, label: str, timed: bool):
+    """K1 on the arguments of one main-path call, against its plain version
+    with torch.equal (k = 1: its plan too, through sel). Where the call
+    wrote into the encode's output (``out``: a [2, Lh, N] slice of it, in
+    the encode's dtype) the kernel writes into a fresh buffer of the same
+    dtype and strides and is held to the plain output cast to that dtype.
+    Timed (runs p, k, k, p) beside both bounds (_k1_bounds) if ``timed``:
+    returns the timing, else None."""
+    import torch
+
+    from nerfjax_torch.ops import hash_encode as he
+
+    k1 = spec.fwd_corners == 1
+    Lh, N = len(he._split_levels(spec)[1]), x.shape[0]
+    ref, plan = he.hash_levels_fwd_plain(spec, planes, x, y, z)
+    sel = torch.empty(Lh, N, dtype=torch.int32, device=x.device) if k1 else None
+    if out is None:
+        got = he.hash_levels_fwd(spec, planes, x, y, z, sel=sel)
+        call = lambda: he.hash_levels_fwd(spec, planes, x, y, z)  # noqa: E731
+    else:
+        buf = torch.empty_strided(out.shape, out.stride(), dtype=out.dtype, device=out.device)
+        got = he.hash_levels_fwd(spec, planes, x, y, z, sel=sel, out=buf)
+        ref = ref.to(out.dtype)
+        call = lambda: he.hash_levels_fwd(spec, planes, x, y, z, out=buf)  # noqa: E731
+    if got.dtype != ref.dtype or not torch.equal(got, ref) or (k1 and not torch.equal(sel.long(), plan)):
+        raise AssertionError(f"hash_levels_fwd ({label}, N={N:,}): kernel != plain (output or plan)")
+    if not timed:
+        return None
+    bound, bound_f32 = _k1_bounds(spec, x, y, z, plan, got.element_size())
+    t = _time_kernel(call, lambda: he.hash_levels_fwd_plain(spec, planes, x, y, z), None, bound)
+    t.update(N=N, bound_f32_out=bound_f32, sectors=(2 if k1 else 8) * Lh * N)  # k = 1: both planes; exact: a word a corner
+    return t
+
+
+def grid_update_k1(state) -> dict:
+    """K1 at the occupancy-grid update's call (train.update_occupancy, every
+    occ_update_every steps; N = resolution^3 / partitions jittered cell
+    centres, no backward): its arguments recorded in one update of a warm
+    state, K1 held to plain and timed there (_k1_at_call)."""
+    from nerfjax_torch import train
+    from nerfjax_torch.ops import hash_encode as he
+
+    every = state.settings.occ_spec().update_every
+    state.step = -(-state.step // every) * every
+    with _recorded((he, "hash_levels_fwd")) as seen:
+        train.update_occupancy(state)
+    ((_, calls),) = seen.items()
+    (spec, planes, x, y, z), kw = calls["hash_levels_fwd"]
+    t = _k1_at_call(spec, planes.detach(), x, y, z, kw.get("out"), "the grid update", True)
+    phase(f"hash_levels_fwd at the grid update's call (N={x.shape[0]:,}): kernel == plain (output and sel)")
+    phase("  hash_levels_fwd at the grid update: " + _timing_line(t))
+    return t
+
+
+def launch_floor() -> float:
+    """Device ms of a one-element kernel (an add into a one-element
+    tensor), by _time_ms, twice: the least time a launch takes on the card,
+    below which no kernel's time can fall whatever its bytes and
+    operations."""
+    import torch
+
+    one = torch.zeros(1, device="cuda")
+    runs = [_time_ms(lambda: one.add_(1.0)) for _ in range(2)]
+    phase(f"launch floor: a one-element kernel takes {sum(runs) / 2 * 1e3:.2f} us of device time "
+          f"(runs {runs[0] * 1e3:.2f}, {runs[1] * 1e3:.2f})")
+    return sum(runs) / 2
+
+
 def step_kernels_vs_plain(cap: dict, label: str, stats: dict, timed=()) -> dict:
     """The hash kernels on the arguments they got in one field pass of a
     warm train step (one entry of capture_step_inputs), each that was
@@ -1003,6 +1105,8 @@ def step_kernels_vs_plain(cap: dict, label: str, stats: dict, timed=()) -> dict:
 
     from nerfjax_torch.ops import hash_encode as he
 
+    kws = {name: kw for name, (_, kw) in cap.items()}
+    cap = {name: args for name, (args, _) in cap.items()}
     spec = next(args[0] for name, args in cap.items() if name != "table_grad_scatter")
     dense, hashed = he._split_levels(spec)
     Ld, Lh, base, total = len(dense), len(hashed), hashed[0]["offset"], spec.total_table_size
@@ -1018,20 +1122,12 @@ def step_kernels_vs_plain(cap: dict, label: str, stats: dict, timed=()) -> dict:
 
     if "hash_levels_fwd" in cap:
         _, planes, x, y, z = cap["hash_levels_fwd"][:5]
-        planes, N = planes.detach(), x.shape[0]
-        ref, plan = he.hash_levels_fwd_plain(spec, planes, x, y, z)
-        if not torch.equal(he.hash_levels_fwd(spec, planes, x, y, z), ref):
-            raise AssertionError(f"hash_levels_fwd ({label}): kernel != plain")
+        t = _k1_at_call(spec, planes.detach(), x, y, z, kws["hash_levels_fwd"].get("out"), label,
+                        "hash_levels_fwd" in timed)
+        if t is not None:
+            out["hash_levels_fwd"] = t
         fold("hash_levels_fwd", 0.0)
-
-        def k1_bound():
-            idx = torch.stack(he._hash_level_indices(spec, hashed, x, y, z)) if plan is None else plan
-            ops = (110 if plan is None else 80) * Lh * N
-            return _bound(8 * torch.unique(idx).numel() + 12 * N + 8 * Lh * N, ops)
-
-        timing("hash_levels_fwd", lambda: he.hash_levels_fwd(spec, planes, x, y, z),
-               lambda: he.hash_levels_fwd_plain(spec, planes, x, y, z), None, k1_bound)
-        checked.append(f"K1 {'exact' if plan is None else 'k=1'} == plain")
+        checked.append(f"K1 {'exact' if spec.fwd_corners == 8 else 'k=1 (output and sel)'} == plain")
 
     if "dense_levels_fwd" in cap:
         _, planes, x, y, z, dtype = cap["dense_levels_fwd"]
@@ -1199,12 +1295,14 @@ def _idle_share(state, batches) -> tuple[float, float, float]:
     return busy, wall, 1.0 - busy / wall
 
 
-def _encode_backward_copies(state, batch) -> list:
-    """(name, input shapes) of each copy op (aten::_to_copy, aten::copy_)
-    that runs inside the encode's backward (the autograd node
-    _HashEncodeBackward) in one warm train step traced by torch.profiler
-    with its input shapes: a cast of the hashed levels' cotangent shows as
-    a copy of [2, Lh, N]."""
+def _encode_copies(state, batch) -> dict:
+    """{"forward": [...], "backward": [...]}: (name, input shapes) of each
+    copy or concat op (aten::_to_copy, aten::copy_, aten::cat) that runs
+    inside the encode's forward (the autograd Function _HashEncode) and
+    inside its backward (the node _HashEncodeBackward) in one warm train
+    step traced by torch.profiler with its input shapes. A cast of a
+    float32 encode part or of the hashed levels' cotangent shows as a copy
+    of [2, Lh, N]; the concat of the two parts as an aten::cat."""
     import torch
 
     from nerfjax_torch.train import train_step
@@ -1214,41 +1312,53 @@ def _encode_backward_copies(state, batch) -> list:
     with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
         train_step(state, batch)
         torch.cuda.synchronize()
-    found, seen, nodes = [], set(), 0
+    found, seen = {"forward": [], "backward": []}, set()
+    nodes = dict.fromkeys(found, 0)
 
-    def walk(e):
+    def walk(e, into):
         for c in e.cpu_children:
             if id(c) in seen:
                 continue
             seen.add(id(c))
-            if c.name in ("aten::_to_copy", "aten::copy_"):
-                found.append((c.name, [list(sh) for sh in c.input_shapes if sh]))
-            walk(c)
+            if c.name in ("aten::_to_copy", "aten::copy_", "aten::cat"):
+                into.append((c.name, [list(sh) for sh in c.input_shapes if sh]))
+            walk(c, into)
 
     for e in prof.events():
-        if "HashEncodeBackward" in e.name:
-            nodes += 1
-            walk(e)
-    if nodes == 0:
-        raise AssertionError("the traced step shows no _HashEncodeBackward node")
+        which = {"_HashEncode": "forward", "_HashEncodeBackward": "backward"}.get(e.name)
+        if which is not None:
+            nodes[which] += 1
+            walk(e, found[which])
+    if not all(nodes.values()):
+        raise AssertionError(f"the traced step shows no _HashEncode forward or backward node: {nodes}")
     return found
 
 
-def _report_backward_copies(state, batch, label: str) -> None:
-    """Print the copies inside the encode's backward in one traced warm
-    step (_encode_backward_copies); fail if one copies the hashed levels'
-    cotangent ([2, Lh, N]): K2 reads it in place."""
+def _report_encode_copies(state, batch, label: str) -> None:
+    """Print the copies and concats inside the encode's forward and
+    backward in one traced warm step (_encode_copies); fail if the forward
+    concatenates (an aten::cat: K4 and K1 write their rows of one output)
+    or casts a [2, Lh, N] part, or if the backward copies the hashed
+    levels' cotangent ([2, Lh, N]: K2 reads it in place)."""
     from nerfjax_torch.ops import hash_encode as he
 
-    spec = state.field.spec
-    Lh = len(he._split_levels(spec)[1])
-    found = _encode_backward_copies(state, batch)
-    casts = [c for c in found if c[1] and len(c[1][0]) == 3 and c[1][0][:2] == [2, Lh]]
-    phase(f"the encode's backward in one traced warm {label} step: {len(found)} copy ops ("
-          + ", ".join(f"{n} {sh}" for n, sh in found) + f"); of them on the hashed cotangent [2, {Lh}, N]: "
-          f"{len(casts)}")
-    if casts:
-        raise AssertionError(f"the encode's backward still copies the hashed cotangent ({label} step): {casts}")
+    Lh = len(he._split_levels(state.field.spec)[1])
+    found = _encode_copies(state, batch)
+
+    def hashed(ops):
+        return [c for c in ops if c[1] and len(c[1][0]) == 3 and c[1][0][:2] == [2, Lh]]
+
+    for which, ops in found.items():
+        phase(f"the encode's {which} in one traced warm {label} step: {len(ops)} copy or concat ops ("
+              + ", ".join(f"{n} {sh}" for n, sh in ops) + f"); of them on a [2, {Lh}, N] hashed part: "
+              f"{len(hashed(ops))}")
+    concats = [c for c in found["forward"] if c[0] == "aten::cat"]
+    if concats or hashed(found["forward"]):
+        raise AssertionError(f"the encode's forward concatenates or casts its parts again ({label} step): "
+                             f"{found['forward']}")
+    if hashed(found["backward"]):
+        raise AssertionError(f"the encode's backward copies the hashed cotangent again ({label} step): "
+                             f"{found['backward']}")
 
 
 def _stage_split(state, batches) -> dict:
@@ -1374,11 +1484,13 @@ def train_full(tmp: Path) -> dict:
     state.step = 1  # no grid update inside the traced window
     busy, traced, idle = _idle_share(state, batches[32:40])
     phase(f"profiler, 8 warm steps: device busy {busy:.2f} ms of {traced:.2f} ms traced wall: idle share {idle:.1%}")
-    _report_backward_copies(state, batches[41], "tuned")
+    _report_encode_copies(state, batches[41], "tuned")
     torch.cuda.reset_peak_memory_stats()
     step_inputs = capture_step_inputs(state, batches[40])
     phase(f"one warm step (inputs captured): peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    return {"cfg": cfg, "final": final, "launches": launches, "ms_per_step": med, "step_inputs": step_inputs}
+    grid_k1 = grid_update_k1(state)
+    return {"cfg": cfg, "final": final, "launches": launches, "ms_per_step": med, "step_inputs": step_inputs,
+            "grid_update_k1": grid_k1}
 
 
 def train_dense_knob(tmp: Path, label: str, stats: dict) -> dict:
@@ -1435,7 +1547,8 @@ def train_dense_knob(tmp: Path, label: str, stats: dict) -> dict:
     if mode != {"dgl1": (2, 1), "dc1": (1, 0)}[label]:
         raise AssertionError(f"{label}: the field's dense mode is {mode}")
     (cap,) = capture_step_inputs(state, batches[48]).values()
-    timings = step_kernels_vs_plain(cap, f"{label} step", stats, ("dense_levels_fwd", "dense_levels_bwd"))
+    timings = step_kernels_vs_plain(cap, f"{label} step", stats,
+                                    ("hash_levels_fwd", "dense_levels_fwd", "dense_levels_bwd"))
     return {"ms_per_step": med, "launches": launches, "timings": timings}
 
 
@@ -1523,12 +1636,14 @@ PROBE_LINES = {"k_reshape": 36, "k_transpose": 49, "k_dot_dim0": 61, "k_dot_dim0
                "k_col_slice": 108}
 
 
-def probes_vs_plain() -> dict:
+def probes_vs_plain(floor: float) -> dict:
     """micro_probe.py's entry point through the port (nerfjax_torch.probes.main)
     on the card, its launches counted; then each of the six kernels against
     its plain version on the probe's inputs (equal; the dots within
     K*2^-24*sum|a||b| per element), timed beside its bound and one PyTorch
-    call where one computes the same function."""
+    call where one computes the same function; each bound beside the launch
+    floor (``floor``, ms), which every probe's bytes and operations fall
+    below."""
     import torch
 
     from nerfjax_torch import probes
@@ -1561,11 +1676,12 @@ def probes_vs_plain() -> dict:
         err = probes.check(name, wrapper(*args), plain(*args), dot_bound)
         library, library_name = libraries.get(kernel, (None, ""))
         t = _time_kernel(lambda: wrapper(*args), lambda: plain(*args), library, bounds[kernel], library_name)
-        stats[kernel] = {"max_abs_err": err, "launches": launches[kernel], **t}
+        stats[kernel] = {"max_abs_err": err, "launches": launches[kernel], **t, "floor": floor}
         rule = "within K*2^-24*sum|a||b|" if dot_bound is not None else "(torch.equal)"
         phase(f"{kernel} ({name.strip()}): kernel == plain {rule}, max |err| {err:.3g}; main-path launches "
               f"{launches[kernel]}")
-        phase("  " + _timing_line(t))
+        phase("  " + _timing_line(t) + f"; launch floor {floor * 1e3:.2f} us, so the least time is "
+              f"{max(t['bound'][0], floor) * 1e3:.2f} us")
         if kernel == "k_dot_dim0_bf16":
             bf16_in = [_time_ms(lambda: torch.matmul(a16.t(), b16)) for _ in range(2)]
             stats[kernel]["library_bf16_inputs_ms"] = sum(bf16_in) / 2
@@ -1655,7 +1771,7 @@ def train_dropin(tmp: Path) -> dict:
     busy, traced, idle = _idle_share(state, batches[40:46])
     phase(f"profiler, 6 warm drop-in steps: device busy {busy:.2f} ms of {traced:.2f} ms traced wall: "
           f"idle share {idle:.1%}")
-    _report_backward_copies(state, batches[45], "drop-in")
+    _report_encode_copies(state, batches[45], "drop-in")
     torch.cuda.reset_peak_memory_stats()
     cap = capture_step_inputs(state, batches[46], names=DROP_IN_KERNELS)
     if len(cap) != 2:
@@ -1945,13 +2061,15 @@ def main() -> int:
     hstats = hash_kernels_vs_plain()
     dense_kernels_vs_plain(hstats)
     hstats["dense_levels_fwd"]["shapes"].update(k4_shapes)
-    pstats = probes_vs_plain()
+    pstats = probes_vs_plain(launch_floor())
     with tempfile.TemporaryDirectory() as tmp:
         trained = train_full(Path(tmp))
         (cap,) = trained.pop("step_inputs").values()
         for name, t in step_kernels_vs_plain(cap, "tuned step", hstats, STEP_KERNELS + ("pack_pairs",)).items():
             hstats[name].update(t)
         del cap
+        k1_shapes = hstats["hash_levels_fwd"]["shapes"]  # K1 k = 1 at its other main-path calls
+        k1_shapes["grid_update"] = trained.pop("grid_update_k1")
         knobs = {label: train_dense_knob(Path(tmp), label, hstats) for label in DENSE_KNOBS}
         dropin = train_dropin(Path(tmp))
         passes = dropin.pop("step_inputs")
@@ -1969,6 +2087,7 @@ def main() -> int:
         shapes["tuned_step"] = {k: v for k, v in hstats["dense_levels_fwd"].items() if k != "shapes"}
         for label, knob in knobs.items():
             shapes[f"{label}_step"] = knob["timings"]["dense_levels_fwd"]
+            k1_shapes[f"{label}_step"] = knob["timings"]["hash_levels_fwd"]
         for which in ("coarse", "fine"):
             shapes[f"dropin_{which}"] = dropin_timed[which]["dense_levels_fwd"]
         extract_trained(trained["cfg"], trained["final"])
@@ -2020,7 +2139,7 @@ def main() -> int:
             "plain_ms": h["plain_ms"], "bound_ms": h["bound"][0], "bound_by": h["bound"][1],
             "library_ms": h.get("library_ms"),
         })
-        # ms above: K1 k = 1 seeded, K2 and K3 at the tuned step; K1 exact, K2 exact and K3 at the drop-in passes
+        # ms above: K1 k = 1, K2 and K3 at the tuned step; K1 exact, K2 exact and K3 at the drop-in passes
         if name in ("hash_levels_fwd", "hash_levels_bwd", "table_grad_scatter"):
             for which in ("fine", "coarse"):
                 t = dropin_timed[which][name]
@@ -2042,6 +2161,13 @@ def main() -> int:
             t = dropin_timed["fine"][name]
             kernels[-1].update(dropin_fine_ms=t["ms"], dropin_fine_plain_ms=t["plain_ms"],
                                dropin_fine_bound_ms=t["bound"][0], dropin_fine_library_ms=t["library_ms"])
+        if name == "hash_levels_fwd":  # K1 k = 1's bound with a float32 output; its other calls' times
+            kernels[-1]["bound_f32_out_ms"] = h["bound_f32_out"][0]
+            for label, t in h["shapes"].items():
+                kernels[-1].update({f"{label}_N": t["N"], f"{label}_ms": t["ms"], f"{label}_plain_ms": t["plain_ms"],
+                                    f"{label}_bound_ms": t["bound"][0]})
+                if "bound_f32_out" in t:
+                    kernels[-1][f"{label}_bound_f32_out_ms"] = t["bound_f32_out"][0]
         if name == "dense_levels_fwd":  # every main-path call's time: the extra keys
             for label, t in h["shapes"].items():
                 kernels[-1].update({f"{label}_N": t["N"], f"{label}_ms": t["ms"],
@@ -2052,7 +2178,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": "nerfjax_torch/csrc/micro_probe.cu",
             "replaces": f"benchmarks/micro_probe.py:{line}", "launches": t["launches"], "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
-            "library_ms": t["library_ms"],
+            "library_ms": t["library_ms"], "launch_floor_ms": t["floor"],
+            "bound_or_floor_ms": max(t["bound"][0], t["floor"]),
         })
         if "library_bf16_inputs_ms" in t:  # library_ms: casts + matmul, the function the kernel computes
             kernels[-1]["library_bf16_inputs_ms"] = t["library_bf16_inputs_ms"]

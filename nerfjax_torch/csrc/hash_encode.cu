@@ -49,10 +49,24 @@
 // needs. The backward's atomicAdds land at the same random addresses (the
 // L2 performs them). The hashed levels of the tuned model hold 2 x 7 x 2^19
 // f32 = 29 MB, which fits the 50 MB L2; the drop-in model's 12 levels hold
-// 50 MB, the size of the L2. K1 k = 1 is simple: one thread per (level,
-// point), positions and outputs coalesced along points, no shared-memory
-// staging, no sorting of indices. PERF.md has the kernels' times beside
-// their bounds.
+// 50 MB, the size of the L2. PERF.md has the kernels' times beside their
+// bounds.
+//
+// K1 k = 1 reads one drawn entry per (level, point): two 4-byte loads, one
+// from each plane, at hashed addresses. Its time follows the count of those
+// random requests (~100-130G a second on an H100 80GB HBM3 at 700 W, the
+// rate of K2 k = 1's atomics), not their latency or the plan's arithmetic:
+// one thread per point walking its levels with 1, 2, 4 or all 7 levels'
+// loads in flight, plain, __ldg or __ldcg loads, all take 27-31 us at the
+// tuned step (first design 28.5). So it stays one thread per (level, point),
+// over a 2-D grid (the level in blockIdx.y: no int64 division) with 32-bit
+// entries, the fastest arm at the grid update's call (56.7 us against
+// 58.6). One request per entry (bf16 pairs packed in front, as K1 exact
+// reads them) halves the kernel, but the pack of the 3.7M hashed columns
+// (16.6 us) costs more than that saves at the tuned step.
+//
+// K1 and K4 store into the encode's [2, L, N] output in its dtype, each into
+// its rows through a plane stride: no float32 part, no cast, no concat.
 //
 // K1 exact first read both planes of each of the 8 corners with two 4-byte
 // loads from planes 4*total bytes apart (two sectors per corner, ~9 per
@@ -66,7 +80,7 @@
 // (~75 MB at the drop-in spec) and its time counts in K1's. The arithmetic
 // and its order do not change, so K1 exact equals its plain version bit
 // for bit. K1 k = 1 reads one corner per (level, point) and keeps the
-// planes: a pack would cost it about as much as it takes.
+// planes: at the tuned step the pack costs more than the second load.
 //
 // K2 exact is bound by the L2's atomic rate, not by bytes. The first design
 // issued 16 float atomics per (level, point), one per corner and
@@ -296,23 +310,32 @@ __device__ __forceinline__ bool merge_run(int64_t i, float& v0, float& v1) {
   return lane == 31 || ((heads >> (lane + 1)) & 1u);
 }
 
-// K1, k = 1. planes: [2, total] f32; the hashed levels start at column
-// base. out: [2, Lh, N] f32. sel (optional): [Lh, N] int32 planned index.
-// One thread per (level, point), t = l*N + n.
+// v stored into an output of the encode's dtype: as is in f32, rounded to
+// nearest even in bf16 (what .to(bfloat16) does)
+__device__ __forceinline__ void store_rn(float* o, int64_t i, float v) { o[i] = v; }
+__device__ __forceinline__ void store_rn(__nv_bfloat16* o, int64_t i, float v) { o[i] = __float2bfloat16_rn(v); }
+
+// K1, k = 1. planes: [2, total] f32, total < 2^31 (32-bit entries); the
+// hashed levels start at column base. out: [2, Lh, N] in f32 or bf16, plane
+// stride os, level stride N (the hashed rows of the encode's output). sel
+// (optional): [Lh, N] int32 planned index. One thread per (level, point)
+// over a 2-D grid (blockIdx.y the level: no division), each value rounded to
+// bf16 (exact in a bf16 output) and stored coalesced along points.
+template <typename OutT>
 __global__ void __launch_bounds__(THREADS)
-hash_levels_fwd_k1_kernel(const float* __restrict__ planes, int64_t total, int64_t base,
+hash_levels_fwd_k1_kernel(const float* __restrict__ planes, int total, int base,
                           const float* __restrict__ xs, const float* __restrict__ ys,
-                          const float* __restrict__ zs, int64_t N, int Lh, Levels L, uint32_t mask,
-                          float* __restrict__ out, int32_t* __restrict__ sel) {
-  int64_t t = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
-  if (t >= Lh * N) return;
-  int l = static_cast<int>(t / N);
-  int64_t n = t - l * N;
-  float x = xs[n], y = ys[n], z = zs[n];
-  int64_t i = plan_k1(L, l, mask, x, y, z, position_seed(x, y, z, 0u));
-  out[t] = bf16_round(planes[base + i]);
-  out[Lh * N + t] = bf16_round(planes[total + base + i]);
-  if (sel != nullptr) sel[t] = static_cast<int32_t>(i);
+                          const float* __restrict__ zs, int N, Levels L, uint32_t mask,
+                          OutT* __restrict__ out, int64_t os, int32_t* __restrict__ sel) {
+  const int n = blockIdx.x * THREADS + threadIdx.x;
+  if (n >= N) return;
+  const int l = blockIdx.y;
+  const float x = xs[n], y = ys[n], z = zs[n];
+  const int i = static_cast<int>(plan_k1(L, l, mask, x, y, z, position_seed(x, y, z, 0u)));
+  const int64_t t = static_cast<int64_t>(l) * N + n;
+  store_rn(out, t, bf16_round(__ldg(planes + base + i)));
+  store_rn(out, os + t, bf16_round(__ldg(planes + total + base + i)));
+  if (sel != nullptr) sel[t] = i;
 }
 
 // The pack in front of K1 exact: word[i] = bf16(p0[i]) | bf16(p1[i]) << 16
@@ -331,16 +354,18 @@ pack_pairs_bf16_kernel(const float* __restrict__ p0, const float* __restrict__ p
 }
 
 // K1 exact. words: the packed hashed table ([T] bf16 pairs, pack above);
-// out: [2, Lh, N] f32. One thread per (level, point), t = l*N + n
+// out: [2, Lh, N] in f32 or bf16 (each f32 sum rounded once, as .to(dtype)
+// rounds), plane stride os. One thread per (level, point), t = l*N + n
 // (level-major: one level's 2 MB of words is live at a time). Each corner
 // is one 4-byte load, both planes widened from it by a shift, where it was
 // two loads from planes 4*total bytes apart; the arithmetic and its order
 // are the plain version's: e += table * w over the corners in _CORNERS
 // order, f32, no contraction.
+template <typename OutT>
 __global__ void __launch_bounds__(THREADS)
 hash_levels_fwd_exact_kernel(const uint32_t* __restrict__ words, const float* __restrict__ xs,
                              const float* __restrict__ ys, const float* __restrict__ zs, int64_t N,
-                             int Lh, Levels L, uint32_t mask, float* __restrict__ out) {
+                             int Lh, Levels L, uint32_t mask, OutT* __restrict__ out, int64_t os) {
   int64_t t = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
   if (t >= Lh * N) return;
   int l = static_cast<int>(t / N);
@@ -358,8 +383,8 @@ hash_levels_fwd_exact_kernel(const uint32_t* __restrict__ words, const float* __
     e0 = __fadd_rn(e0, __fmul_rn(__uint_as_float(word << 16), w));
     e1 = __fadd_rn(e1, __fmul_rn(__uint_as_float(word & 0xFFFF0000u), w));
   }
-  out[t] = e0;
-  out[Lh * N + t] = e1;
+  store_rn(out, t, e0);
+  store_rn(out, os + t, e1);
 }
 
 // K2 exact. g: [2, Lh, N] upstream gradient in bf16 (G16) or f32, plane
@@ -544,22 +569,24 @@ pack_pairs_f32_kernel(const float* __restrict__ p0, const float* __restrict__ p1
 }
 
 // K4. pairs: the dense levels' entries packed (above): bf16 pairs (MODE 1,
-// 2) or float2 (MODE 0). out: [2, Ld, N]. One thread per point, walking the
+// 2) or float2 (MODE 0). out: [2, Ld, N], plane stride os, level stride N
+// (the dense rows of the encode's output). One thread per point, walking the
 // levels (point-major: the position is read once, and a level's 8 corner
 // loads are issued together); k4_level computes one (level, point).
 //   MODE 0, 1 exact: out in f32 (0) or bf16 (1); the table value (bf16 at
 //     the pack), the fractions, 1 - t, (wx*wy)*wz, G*w and e + G*w each
 //     rounded to that type, the corners summed in _CORNERS order, as the
 //     plain version's ops round (bf16: two values per cvt, rnd2)
-//   MODE 2 k = 1: f32 out; the one corner drawn with P = its clamped f32
-//     weight (_stochastic_corner_plan(clamp=True, salt=_DENSE_SALT)), its
-//     bf16 pair; sel (optional) [Ld, N] int32 receives the drawn entry
+//   MODE 2 k = 1: f32 or bf16 out (the value is a bf16 one: exact in
+//     either); the one corner drawn with P = its clamped f32 weight
+//     (_stochastic_corner_plan(clamp=True, salt=_DENSE_SALT)), its bf16
+//     pair; sel (optional) [Ld, N] int32 receives the drawn entry
 // Entries are 32-bit: the wrapper holds the dense columns below 2^31.
-template <int MODE>
+template <int MODE, typename OutT>
 __device__ __forceinline__ void k4_level(const void* pairs, const DenseLevels& L, int l, float x, float y,
-                                         float z, int64_t n, int64_t N, int Ld, void* out, int32_t* sel) {
+                                         float z, int64_t n, int64_t N, OutT* out, int64_t os, int32_t* sel) {
   const uint32_t* words = static_cast<const uint32_t*>(pairs);
-  const int64_t t = l * N + n, S = Ld * N;  // plane 0 at out[t], plane 1 at out[S + t]
+  const int64_t t = l * N + n;  // plane 0 at out[t], plane 1 at out[os + t]
   const int r = L.res[l];
   int bx, by, bz;
   float tx, ty, tz;
@@ -571,9 +598,8 @@ __device__ __forceinline__ void k4_level(const void* pairs, const DenseLevels& L
     const int c = draw_corner(tx, ty, tz, position_seed(x, y, z, DENSE_SALT), l);
     const int i = i0 + ((c >> 2) & 1) + ((c >> 1) & 1) * r + (c & 1) * r * r;
     const uint32_t w = words[i];
-    float* o = static_cast<float*>(out);
-    o[t] = __uint_as_float(w << 16);
-    o[S + t] = __uint_as_float(w & 0xFFFF0000u);
+    store_rn(out, t, __uint_as_float(w << 16));
+    store_rn(out, os + t, __uint_as_float(w & 0xFFFF0000u));
     if (sel != nullptr) sel[t] = i;
     return;
   }
@@ -599,9 +625,8 @@ __device__ __forceinline__ void k4_level(const void* pairs, const DenseLevels& L
       e0 = __fadd_rn(e0, __fmul_rn(v0[c], w));
       e1 = __fadd_rn(e1, __fmul_rn(v1[c], w));
     }
-    float* o = static_cast<float*>(out);
-    o[t] = e0;
-    o[S + t] = e1;
+    store_rn(out, t, e0);
+    store_rn(out, os + t, e1);
     return;
   }
   // bf16: the weights as corner_weight<true> forms them, two roundings per cvt
@@ -627,20 +652,19 @@ __device__ __forceinline__ void k4_level(const void* pairs, const DenseLevels& L
       rnd2(e0, e1);
     }
   }
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-  o[t] = __float2bfloat16_rn(e0);  // exact: e0 is a bf16 value
-  o[S + t] = __float2bfloat16_rn(e1);
+  store_rn(out, t, e0);  // exact: e0 is a bf16 value
+  store_rn(out, os + t, e1);
 }
 
-template <int MODE>
+template <int MODE, typename OutT>
 __global__ void __launch_bounds__(THREADS)
 dense_levels_fwd_kernel(const void* __restrict__ pairs, const float* __restrict__ xs,
                         const float* __restrict__ ys, const float* __restrict__ zs, int64_t N, int Ld,
-                        DenseLevels L, void* __restrict__ out, int32_t* __restrict__ sel) {
+                        DenseLevels L, OutT* __restrict__ out, int64_t os, int32_t* __restrict__ sel) {
   const int64_t n = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
   if (n >= N) return;
   const float x = xs[n], y = ys[n], z = zs[n];
-  for (int l = 0; l < Ld; ++l) k4_level<MODE>(pairs, L, l, x, y, z, n, N, Ld, out, sel);
+  for (int l = 0; l < Ld; ++l) k4_level<MODE>(pairs, L, l, x, y, z, n, N, out, os, sel);
 }
 
 // K5. The dense levels' table gradient as K3's inputs (idx int32, v0, v1
@@ -732,25 +756,39 @@ bool fill_dense_levels(DenseLevels& L, int Ld, const float* scales, const int32_
 extern "C" int nerf_hash_max_levels() { return MAX_LEVELS; }
 
 // Returns cudaGetLastError() after the launches (cudaErrorInvalidValue for a
-// level count outside 1..MAX_LEVELS). Exact (k1 = 0) only: words, a
-// [total - base] uint32 buffer that the pack fills and K1 exact reads.
+// level count outside 1..MAX_LEVELS, or total or N >= 2^31 under k = 1). out:
+// [2, Lh, N] in bf16 (out_bf16) or f32, plane stride os, level stride N.
+// Exact (k1 = 0) only: words, a [total - base] uint32 buffer that the pack
+// fills and K1 exact reads.
 extern "C" int nerf_hash_levels_fwd(const float* planes, int64_t total, int64_t base,
                                     const float* x, const float* y, const float* z, int64_t N,
                                     int Lh, const float* scales, const int64_t* offsets,
-                                    uint32_t mask, int k1, float* out, int32_t* sel, uint32_t* words,
-                                    void* stream) {
+                                    uint32_t mask, int k1, void* out, int64_t os, int out_bf16, int32_t* sel,
+                                    uint32_t* words, void* stream) {
   Levels L;
-  if (!fill_levels(L, Lh, scales, offsets) || (!k1 && words == nullptr)) {
+  if (!fill_levels(L, Lh, scales, offsets) || (!k1 && words == nullptr) ||
+      (k1 && (total >= (int64_t{1} << 31) || N >= (int64_t{1} << 31)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  __nv_bfloat16* o16 = static_cast<__nv_bfloat16*>(out);
+  float* o32 = static_cast<float*>(out);
   if (k1) {
-    hash_levels_fwd_k1_kernel<<<blocks(Lh * N), THREADS, 0, s>>>(planes, total, base, x, y, z, N, Lh, L,
-                                                                 mask, out, sel);
+    const int t = static_cast<int>(total), b = static_cast<int>(base), n = static_cast<int>(N);
+    const dim3 grid(blocks(N), Lh);
+    if (out_bf16) {
+      hash_levels_fwd_k1_kernel<<<grid, THREADS, 0, s>>>(planes, t, b, x, y, z, n, L, mask, o16, os, sel);
+    } else {
+      hash_levels_fwd_k1_kernel<<<grid, THREADS, 0, s>>>(planes, t, b, x, y, z, n, L, mask, o32, os, sel);
+    }
   } else {
     const int64_t T = total - base;
     pack_pairs_bf16_kernel<<<stride_blocks(T), THREADS, 0, s>>>(planes + base, planes + total + base, T, words);
-    hash_levels_fwd_exact_kernel<<<blocks(Lh * N), THREADS, 0, s>>>(words, x, y, z, N, Lh, L, mask, out);
+    if (out_bf16) {
+      hash_levels_fwd_exact_kernel<<<blocks(Lh * N), THREADS, 0, s>>>(words, x, y, z, N, Lh, L, mask, o16, os);
+    } else {
+      hash_levels_fwd_exact_kernel<<<blocks(Lh * N), THREADS, 0, s>>>(words, x, y, z, N, Lh, L, mask, o32, os);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -821,25 +859,31 @@ extern "C" int nerf_pack_pairs(const float* p0, const float* p1, int64_t T, int 
   return static_cast<int>(cudaGetLastError());
 }
 
-// mode: 0 exact f32 out, 1 exact bf16 out, 2 k = 1 (f32 out, sel optional);
-// pairs: the dense columns packed by nerf_pack_pairs (float2 in mode 0,
-// bf16 pairs otherwise)
+// mode: 0 exact in f32, 1 exact in bf16, 2 k = 1 (sel optional); pairs:
+// the dense columns packed by nerf_pack_pairs (float2 in mode 0, bf16
+// pairs otherwise); out: [2, Ld, N] in bf16 (out_bf16: modes 1 and 2) or
+// f32 (modes 0 and 2), plane stride os, level stride N
 extern "C" int nerf_dense_levels_fwd(const void* pairs, const float* x, const float* y, const float* z,
                                      int64_t N, int Ld, const float* scales, const int32_t* res,
-                                     const int64_t* offsets, int mode, void* out, int32_t* sel,
-                                     void* stream) {
+                                     const int64_t* offsets, int mode, void* out, int64_t os, int out_bf16,
+                                     int32_t* sel, void* stream) {
   DenseLevels L;
-  if (!fill_dense_levels(L, Ld, scales, res, offsets) || mode < 0 || mode > 2) {
+  if (!fill_dense_levels(L, Ld, scales, res, offsets) || mode < 0 || mode > 2 || (mode == 0 && out_bf16) ||
+      (mode == 1 && !out_bf16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned nb = blocks(N);
+  __nv_bfloat16* o16 = static_cast<__nv_bfloat16*>(out);
+  float* o32 = static_cast<float*>(out);
   if (mode == 0) {
-    dense_levels_fwd_kernel<0><<<nb, THREADS, 0, s>>>(pairs, x, y, z, N, Ld, L, out, sel);
+    dense_levels_fwd_kernel<0><<<nb, THREADS, 0, s>>>(pairs, x, y, z, N, Ld, L, o32, os, sel);
   } else if (mode == 1) {
-    dense_levels_fwd_kernel<1><<<nb, THREADS, 0, s>>>(pairs, x, y, z, N, Ld, L, out, sel);
+    dense_levels_fwd_kernel<1><<<nb, THREADS, 0, s>>>(pairs, x, y, z, N, Ld, L, o16, os, sel);
+  } else if (out_bf16) {
+    dense_levels_fwd_kernel<2><<<nb, THREADS, 0, s>>>(pairs, x, y, z, N, Ld, L, o16, os, sel);
   } else {
-    dense_levels_fwd_kernel<2><<<nb, THREADS, 0, s>>>(pairs, x, y, z, N, Ld, L, out, sel);
+    dense_levels_fwd_kernel<2><<<nb, THREADS, 0, s>>>(pairs, x, y, z, N, Ld, L, o32, os, sel);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,7 +35,8 @@ stream):
   * ``hash_levels_fwd`` (K1): the hashed levels' exact or k = 1 forward;
     the exact one reads the hashed columns packed into bf16 pairs (one
     word per entry, ``pack_pairs_bf16_plain``'s layout) by a pass in front
-    of it;
+    of it; the k = 1 one is one thread per (level, point) over a 2-D grid,
+    with 32-bit entries;
   * ``hash_levels_bwd`` (K2): their table gradient, exact, k = 1, or k = 1
     over ``grad_levels`` drawn levels scaled Lh/gl;
   * ``table_grad_scatter`` (K3): ``out[p][idx_k] += g_p[k]`` into two f32
@@ -53,6 +54,10 @@ stream):
     K3's (idx, v0, v1), exact, k = 1, or over gd drawn levels, whose
     cotangent take is the Pallas kernel ``_take_along_axis_probe``'s
     function.
+
+K1 and K4 store in the encode's dtype into an ``out=`` slice of its
+[2, L, N] output (rows contiguous, any plane stride), so the encode
+allocates that output once and neither casts nor concatenates.
 
 Beside each kernel stands its plain PyTorch version (``*_plain``). A wrapper
 takes the plain version only for tensors on the CPU; for a CUDA tensor it
@@ -516,12 +521,13 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("hash_encode")
     vp, i32, i64, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32, ctypes.c_float
-    lib.nerf_hash_levels_fwd.argtypes = [vp, i64, i64, vp, vp, vp, i64, i32, vp, vp, u32, i32, vp, vp, vp, vp]
+    lib.nerf_hash_levels_fwd.argtypes = [vp, i64, i64, vp, vp, vp, i64, i32, vp, vp, u32, i32, vp, i64, i32, vp, vp,
+                                         vp]
     lib.nerf_hash_levels_bwd.argtypes = [vp, i64, i32, i64, i64, vp, vp, vp, i64, i32, vp, vp, u32, i32, i32, f32,
                                          vp, vp, vp]
     lib.nerf_table_grad_scatter.argtypes = [vp, vp, vp, i64, i64, i64, vp, vp, vp]
     lib.nerf_pack_pairs.argtypes = [vp, vp, i64, i32, vp, vp]
-    lib.nerf_dense_levels_fwd.argtypes = [vp, vp, vp, vp, i64, i32, vp, vp, vp, i32, vp, vp, vp]
+    lib.nerf_dense_levels_fwd.argtypes = [vp, vp, vp, vp, i64, i32, vp, vp, vp, i32, vp, i64, i32, vp, vp]
     lib.nerf_dense_levels_bwd.argtypes = [vp, i64, i32, vp, vp, vp, i64, i32, vp, vp, vp, i32, i32, f32,
                                           vp, vp, vp, vp]
     for fn in (lib.nerf_hash_levels_fwd, lib.nerf_hash_levels_bwd, lib.nerf_table_grad_scatter,
@@ -577,40 +583,68 @@ def _check_positions(name: str, planes: torch.Tensor, x, y, z) -> int:
     return N
 
 
-def hash_levels_fwd(spec: HashGridSpec, planes: torch.Tensor, x, y, z, *, sel: torch.Tensor | None = None):
-    """Hashed-level forward -> [2, Lh, N] float32 from the full [2, total]
-    float32 planes and x, y, z [N] float32 in [0, 1]: the exact trilinear
-    sum, or (``spec.fwd_corners`` = 1) the k = 1 estimate.
+def _check_level_out(name: str, out: torch.Tensor, rows: int, N: int, dtypes, device) -> None:
+    """Raise unless ``out`` is a [2, rows, N] tensor of one of ``dtypes`` on
+    ``device`` whose rows are contiguous (level stride N, point stride 1)
+    and whose two planes do not overlap (any plane stride >= rows*N): a
+    level kind's rows of the encode's [2, L, N] output will do."""
+    ok = tuple(out.shape) == (2, rows, N) and out.dtype in dtypes and out.device == device and (
+        N == 0 or ((N == 1 or out.stride(2) == 1) and (rows == 1 or out.stride(1) == N)
+                   and out.stride(0) >= rows * N))
+    if not ok:
+        raise ValueError(f"{name}: out must be [2, {rows}, {N}] in {' or '.join(map(str, dtypes))} on {device} "
+                         f"with contiguous rows and a plane stride >= {rows * N}, got {tuple(out.shape)} "
+                         f"{out.dtype} strides {out.stride()} on {out.device}")
+
+
+def hash_levels_fwd(spec: HashGridSpec, planes: torch.Tensor, x, y, z, *, sel: torch.Tensor | None = None,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """Hashed-level forward -> [2, Lh, N] from the full [2, total] float32
+    planes and x, y, z [N] float32 in [0, 1]: the exact trilinear sum, or
+    (``spec.fwd_corners`` = 1) the k = 1 estimate.
+
+    out: optional [2, Lh, N] float32 or bf16 with contiguous rows and any
+    plane stride (the hashed rows of the encode's output); the values are
+    written into it, rounded as ``.to(out.dtype)`` rounds the float32
+    result, and it is returned. Without it a float32 [2, Lh, N] is.
 
     The exact mode on the card first packs the hashed columns into one
     bf16-pair word per entry (a [total - base] int32 buffer allocated here)
-    and reads one word per corner.
+    and reads one word per corner; the k = 1 mode is one thread per (level,
+    point) over a 2-D grid, with 32-bit entries (total < 2^31).
 
     sel: optional [Lh, N] int32 that receives the k = 1 plan (indices
     relative to the first hashed level); the plain version fills it too.
     """
     _, hashed = _split_levels(spec)
+    Lh, N = len(hashed), x.shape[0]
+    if out is not None:
+        _check_level_out("hash_levels_fwd", out, Lh, N, (torch.float32, torch.bfloat16), x.device)
     if _device_kind("hash_levels_fwd", x) == "cpu":
-        out, plan = hash_levels_fwd_plain(spec, planes, x, y, z)
+        res, plan = hash_levels_fwd_plain(spec, planes, x, y, z)
         if sel is not None and plan is not None:
             sel.copy_(plan)
-        return out
-    N = _check_positions("hash_levels_fwd", planes, x, y, z)
-    Lh = len(hashed)
+        return res if out is None else out.copy_(res)
     k1 = spec.fwd_corners == 1
+    if k1 and planes.dim() == 2 and planes.shape[1] >= 2**31:
+        raise ValueError(f"hash_levels_fwd: planes hold {planes.shape[1]} columns; the k = 1 kernel takes "
+                         "fewer than 2^31")
+    _check_positions("hash_levels_fwd", planes, x, y, z)
     if sel is not None:
         if not k1 or sel.shape != (Lh, N) or sel.dtype != torch.int32 or not sel.is_contiguous() \
                 or sel.device != x.device:
             raise ValueError(f"hash_levels_fwd: sel must be a contiguous [{Lh}, {N}] int32 on "
                              f"{x.device}, under fwd_corners = 1")
-    out = torch.empty(2, Lh, N, dtype=torch.float32, device=x.device)
+    if out is None:
+        out = torch.empty(2, Lh, N, dtype=torch.float32, device=x.device)
     if N:
         base, scales, offsets, mask = _level_arrays(spec, hashed)
         words = None if k1 else torch.empty(planes.shape[1] - base, dtype=torch.int32, device=x.device)
         err = _lib().nerf_hash_levels_fwd(
             planes.data_ptr(), planes.shape[1], base, x.data_ptr(), y.data_ptr(), z.data_ptr(), N,
-            Lh, scales.ctypes.data, offsets.ctypes.data, mask, int(k1), out.data_ptr(),
-            0 if sel is None else sel.data_ptr(), 0 if words is None else words.data_ptr(), _stream(x),
+            Lh, scales.ctypes.data, offsets.ctypes.data, mask, int(k1), out.data_ptr(), out.stride(0),
+            int(out.dtype == torch.bfloat16), 0 if sel is None else sel.data_ptr(),
+            0 if words is None else words.data_ptr(), _stream(x),
         )
         _raise_if_failed("hash_levels_fwd", err)
         launch_counts["hash_levels_fwd"] += 1
@@ -719,10 +753,15 @@ def pack_pairs(cols: torch.Tensor, f32: bool) -> torch.Tensor:
 
 
 def dense_levels_fwd(spec: HashGridSpec, planes: torch.Tensor, x, y, z, dtype=torch.float32, *,
-                     sel: torch.Tensor | None = None) -> torch.Tensor:
+                     sel: torch.Tensor | None = None, out: torch.Tensor | None = None) -> torch.Tensor:
     """Dense-level forward -> [2, Ld, N] from the full [2, total] float32
     planes and x, y, z [N] float32 in [0, 1]: the exact trilinear sum in
     ``dtype``, or (``spec.dense_corners`` = 1) the k = 1 estimate in float32.
+
+    out: optional [2, Ld, N] with contiguous rows and any plane stride (the
+    dense rows of the encode's output), in ``dtype`` (exact) or in float32
+    or bf16 (k = 1: each value rounded as ``.to(out.dtype)`` rounds it, an
+    exact cast); the values are written into it and it is returned.
 
     On the card the dense columns are first packed into one entry per
     column (``pack_pairs``: bf16 pairs, float2 in exact float32), and the
@@ -732,32 +771,37 @@ def dense_levels_fwd(spec: HashGridSpec, planes: torch.Tensor, x, y, z, dtype=to
     planes); the plain version fills it too.
     """
     dense, _ = _split_levels(spec)
+    Ld, N = len(dense), x.shape[0]
+    k1 = _dense_mode(spec, Ld)[0] == 1
+    if out is not None:
+        _check_level_out("dense_levels_fwd", out, Ld, N, (torch.float32, torch.bfloat16) if k1 else (dtype,),
+                         x.device)
     if _device_kind("dense_levels_fwd", x) == "cpu":
-        out, plan = dense_levels_fwd_plain(spec, planes, x, y, z, dtype)
+        res, plan = dense_levels_fwd_plain(spec, planes, x, y, z, dtype)
         if sel is not None and plan is not None:
             sel.copy_(plan)
-        return out
+        return res if out is None else out.copy_(res)
     _check_dtype("dense_levels_fwd", dtype)
-    N = _check_positions("dense_levels_fwd", planes, x, y, z)
-    Ld, T = len(dense), _dense_width(dense)
+    _check_positions("dense_levels_fwd", planes, x, y, z)
+    T = _dense_width(dense)
     if planes.shape[1] < T or T >= 2**31:
         raise ValueError(f"dense_levels_fwd: planes hold {planes.shape[1]} columns, the dense levels "
                          f"{T} (the kernel takes fewer than 2^31)")
-    k1 = _dense_mode(spec, Ld)[0] == 1
     if sel is not None:
         if not k1 or sel.shape != (Ld, N) or sel.dtype != torch.int32 or not sel.is_contiguous() \
                 or sel.device != x.device:
             raise ValueError(f"dense_levels_fwd: sel must be a contiguous [{Ld}, {N}] int32 on "
                              f"{x.device}, under dense_corners = 1")
-    out = torch.empty(2, Ld, N, dtype=torch.float32 if k1 else dtype, device=x.device)
+    if out is None:
+        out = torch.empty(2, Ld, N, dtype=torch.float32 if k1 else dtype, device=x.device)
     if N:
         scales, res, offsets = _dense_level_arrays(dense)
         mode = 2 if k1 else int(dtype == torch.bfloat16)
         pairs = pack_pairs(planes[:, :T], f32=mode == 0)
         err = _lib().nerf_dense_levels_fwd(
             pairs.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(), N, Ld, scales.ctypes.data,
-            res.ctypes.data, offsets.ctypes.data, mode, out.data_ptr(), 0 if sel is None else sel.data_ptr(),
-            _stream(x),
+            res.ctypes.data, offsets.ctypes.data, mode, out.data_ptr(), out.stride(0),
+            int(out.dtype == torch.bfloat16), 0 if sel is None else sel.data_ptr(), _stream(x),
         )
         _raise_if_failed("dense_levels_fwd", err)
         launch_counts["dense_levels_fwd"] += 1
@@ -804,9 +848,10 @@ def dense_levels_bwd(spec: HashGridSpec, g: torch.Tensor, x, y, z, dtype=torch.f
 
 
 class _HashEncode(torch.autograd.Function):
-    """The encode -> [2, L, N] in ``dtype``: dense levels through K4 (exact
-    in ``dtype``, k = 1 in float32), hashed levels through K1 in float32,
-    each cast at the concat. The backward zeroes one [2, total] float32
+    """The encode -> [2, L, N] in ``dtype``, allocated once: K4 writes the
+    dense rows ``[:, :Ld]`` and K1 the hashed rows ``[:, Ld:]`` in place,
+    each value rounded to ``dtype`` as ``.to(dtype)`` rounds it (no float32
+    part, no cast, no concat). The backward zeroes one [2, total] float32
     gradient; K5 stages the dense levels' table gradient, K3 adds it into
     the dense columns (a column slice: its scratch spans them only) and K2
     the hashed levels' into the hashed columns."""
@@ -816,12 +861,13 @@ class _HashEncode(torch.autograd.Function):
         ctx.spec, ctx.dtype, ctx.total = spec, dtype, planes.shape[1]
         ctx.save_for_backward(x, y, z)
         dense, hashed = _split_levels(spec)
-        parts = []
+        Ld = len(dense)
+        enc = torch.empty(2, Ld + len(hashed), x.shape[0], dtype=dtype, device=x.device)
         if dense:
-            parts.append(dense_levels_fwd(spec, planes, x, y, z, dtype).to(dtype))
+            dense_levels_fwd(spec, planes, x, y, z, dtype, out=enc[:, :Ld])
         if hashed:
-            parts.append(hash_levels_fwd(spec, planes, x, y, z).to(dtype))
-        return torch.cat(parts, dim=1)
+            hash_levels_fwd(spec, planes, x, y, z, out=enc[:, Ld:])
+        return enc
 
     @staticmethod
     def backward(ctx, g):
@@ -853,7 +899,8 @@ def hash_encode_planar(
     Returns:
       enc [2L, N] in ``dtype``, plane-major: rows 0..L-1 are plane 0 over the
       levels (dense, then hashed), rows L..2L-1 plane 1 — nerfjax's layout.
-      The hashed levels are computed in float32 and cast at the concat.
+      Each level kind's kernel writes its rows in ``dtype`` (the hashed
+      levels' float32 values rounded once, as nerfjax's concat casts them).
     """
     check_supported(spec)
     if spec.n_features != 2:

@@ -490,6 +490,138 @@ def test_dense_levels_bwd_matches_plain(cuda_device, dtype, mode):
     assert scattered[:, dense_cols:].abs().max() == 0
 
 
+# hashed-level counts of K1 k = 1's sizes: 1 (6 levels, 1 promoted dense),
+# 7 (the tuned spec), 12 (the drop-in spec), 32 (33 levels of 2^12 entries)
+K1_SPECS = {1: dict(n_levels=6, log2_hashmap_size=19, extra_dense_levels=1), 7: TUNED, 12: DROP_IN,
+            32: dict(n_levels=33, log2_hashmap_size=12)}
+
+
+@pytest.mark.parametrize("Lh", list(K1_SPECS))
+@pytest.mark.parametrize("N", [0, 1, 255, 257, 196_608, 524_288])
+def test_hash_levels_fwd_k1_matches_plain(cuda_device, N, Lh):
+    """K1 k = 1 (one thread per point over its levels, 32-bit entries)
+    equals its plain version bit for bit, output and plan (sel), with a
+    float32 output and into a bf16 slice of the encode's layout, at N = 0
+    (nothing launched), 1, a block's edge and the tuned step's and grid
+    update's sizes, over 1, 7, 12 and 32 hashed levels (the last group of
+    levels ragged)."""
+    spec = HashGridSpec(**K1_SPECS[Lh], fwd_corners=1, grad_corners=1)
+    dense, hashed = hash_encode._split_levels(spec)
+    assert len(hashed) == Lh
+    rng = np.random.default_rng(50 + Lh)
+    planes = torch.from_numpy(rng.uniform(-1, 1, (2, spec.total_table_size)).astype(np.float32)).to(cuda_device)
+    x, y, z = _ray_samples(-(-N // 64), 64, 51, cuda_device) if N > 64 else _positions(N, 51, cuda_device)
+    x, y, z = (c[:N].contiguous() for c in (x, y, z))
+    ref, plan = hash_encode.hash_levels_fwd_plain(spec, planes, x, y, z)
+    for out in (None, torch.empty(2, len(dense) + Lh, N, dtype=torch.bfloat16, device=cuda_device)[:, len(dense) :]):
+        sel = torch.full((Lh, N), -1, dtype=torch.int32, device=cuda_device)
+        before = hash_encode.launch_counts["hash_levels_fwd"]
+        got = hash_encode.hash_levels_fwd(spec, planes, x, y, z, sel=sel, out=out)
+        torch.cuda.synchronize()
+        assert hash_encode.launch_counts["hash_levels_fwd"] == before + (N > 0)
+        assert got.shape == (2, Lh, N) and got.dtype == (torch.float32 if out is None else torch.bfloat16)
+        assert torch.equal(got, ref.to(got.dtype)) and torch.equal(sel.long(), plan)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["K1 exact", "K1 k=1", "K4 exact", "K4 k=1"])
+def test_forward_kernels_write_into_a_plane_strided_slice(cuda_device, kernel, dtype):
+    """K1 and K4, each mode, write their rows into a slice of a larger
+    buffer (two more rows, a plane stride of (rows + 2) * N), in float32 or
+    bf16: the slice equals the plain output cast to the buffer's dtype bit
+    for bit, and the sentinels around it are untouched."""
+    mode = {"K1 k=1": dict(fwd_corners=1, grad_corners=1), "K4 k=1": dict(dense_corners=1)}.get(kernel, {})
+    spec = HashGridSpec(**TUNED, **mode)
+    dense, hashed = hash_encode._split_levels(spec)
+    rng = np.random.default_rng(52)
+    planes = torch.from_numpy(rng.uniform(-1, 1, (2, spec.total_table_size)).astype(np.float32)).to(cuda_device)
+    x, y, z = _ray_samples(521, 192, 53, cuda_device)
+    N, rows = x.shape[0], len(hashed if kernel.startswith("K1") else dense)
+    buf = torch.full((2, rows + 2, N), -7.0, dtype=dtype, device=cuda_device)
+    before = buf.clone()
+    view = buf[:, 1 : 1 + rows]
+    if kernel.startswith("K1"):
+        got = hash_encode.hash_levels_fwd(spec, planes, x, y, z, out=view)
+        ref, _ = hash_encode.hash_levels_fwd_plain(spec, planes, x, y, z)
+    else:
+        got = hash_encode.dense_levels_fwd(spec, planes, x, y, z, dtype, out=view)
+        ref, _ = hash_encode.dense_levels_fwd_plain(spec, planes, x, y, z, dtype)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == view.data_ptr() and _same_bits(view, ref.to(dtype))
+    outside = torch.ones_like(buf, dtype=torch.bool)
+    outside[:, 1 : 1 + rows] = False
+    assert _same_bits(buf[outside], before[outside])
+
+
+ENCODE_SPECS = {"tuned": dict(**TUNED, fwd_corners=1, grad_corners=1, grad_levels=2), "drop-in": DROP_IN,
+                "dc1": dict(**TUNED, fwd_corners=1, grad_corners=1, grad_levels=2, dense_corners=1),
+                "dgl1": dict(**TUNED, fwd_corners=1, grad_corners=1, grad_levels=2, dense_grad_levels=1)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(ENCODE_SPECS))
+def test_encode_on_the_card_equals_the_plain_concat(cuda_device, name, dtype):
+    """The encode on the card (K4 and K1 writing their rows of one buffer in
+    its dtype) equals, bit for bit, the concat of the plain parts each cast
+    to dtype (what the forward computed before), at the tuned, drop-in,
+    dc1 and dgl1 specs; one launch each of K4 and K1."""
+    spec = HashGridSpec(**ENCODE_SPECS[name])
+    rng = np.random.default_rng(54)
+    planes = torch.from_numpy(rng.uniform(-1, 1, (2, spec.total_table_size)).astype(np.float32)).to(cuda_device)
+    x, y, z = _ray_samples(521, 192, 55, cuda_device)
+    N = x.shape[0]
+    before = dict(hash_encode.launch_counts)
+    got = hash_encode.hash_encode_planar(spec, planes, x, y, z, dtype)
+    torch.cuda.synchronize()
+    assert {k: hash_encode.launch_counts[k] - before[k] for k in ("hash_levels_fwd", "dense_levels_fwd")} == \
+        {"hash_levels_fwd": 1, "dense_levels_fwd": 1}
+    dense_part, _ = hash_encode.dense_levels_fwd_plain(spec, planes, x, y, z, dtype)
+    hashed_part, _ = hash_encode.hash_levels_fwd_plain(spec, planes, x, y, z)
+    want = torch.cat([dense_part.to(dtype), hashed_part.to(dtype)], dim=1).reshape(2 * spec.n_levels, N)
+    assert _same_bits(got, want)
+
+
+def test_hash_levels_fwd_k1_raises_on_2_31_columns(cuda_device):
+    """K1 k = 1 indexes in 32 bits: planes of 2^31 columns or more raise a
+    ValueError before anything else (an expanded view: nothing allocated)."""
+    spec = HashGridSpec(**TUNED, fwd_corners=1, grad_corners=1)
+    planes = torch.zeros(2, 1, device=cuda_device).expand(2, 2**31)
+    x, y, z = _positions(8, 56, cuda_device)
+    with pytest.raises(ValueError, match="2\\^31"):
+        hash_encode.hash_levels_fwd(spec, planes, x, y, z)
+
+
+@pytest.mark.parametrize("bad", ["on_the_cpu", "float16", "shape", "level_stride", "overlapping_planes",
+                                 "exact_dense_in_another_dtype"])
+@pytest.mark.parametrize("kind", ["hashed", "dense"])
+def test_forward_wrappers_reject_a_malformed_out(cuda_device, kind, bad):
+    """out= on the card: a tensor on the CPU, in float16, of another shape,
+    with rows not contiguous, with overlapping planes, or (exact dense) in
+    another dtype than the one computed in, raises a ValueError and
+    launches nothing."""
+    spec = HashGridSpec(**TUNED)
+    dense, hashed = hash_encode._split_levels(spec)
+    planes = torch.zeros(2, spec.total_table_size, device=cuda_device)
+    x, y, z = _positions(1000, 57, cuda_device)
+    rows, N = len(hashed if kind == "hashed" else dense), 1000
+    out = {"on_the_cpu": lambda: torch.empty(2, rows, N),
+           "float16": lambda: torch.empty(2, rows, N, dtype=torch.float16, device=cuda_device),
+           "shape": lambda: torch.empty(2, rows, N + 1, device=cuda_device),
+           "level_stride": lambda: torch.empty(2, N, rows, device=cuda_device).transpose(1, 2),
+           "overlapping_planes": lambda: torch.empty(1, rows, N, device=cuda_device).expand(2, rows, N),
+           "exact_dense_in_another_dtype": lambda: torch.empty(2, rows, N, dtype=torch.bfloat16,
+                                                               device=cuda_device)}[bad]()
+    if bad == "exact_dense_in_another_dtype" and kind == "hashed":
+        out = torch.empty(2, rows, N, dtype=torch.float64, device=cuda_device)  # K1 takes float32 or bf16 only
+    before = dict(hash_encode.launch_counts)
+    with pytest.raises(ValueError, match="out must be"):
+        if kind == "hashed":
+            hash_encode.hash_levels_fwd(spec, planes, x, y, z, out=out)
+        else:
+            hash_encode.dense_levels_fwd(spec, planes, x, y, z, torch.float32, out=out)
+    assert hash_encode.launch_counts == before
+
+
 @pytest.mark.parametrize("knob", [{}, {"hash_dense_grad_levels": 1}, {"hash_dense_corners": 1}])
 def test_train_step_launches_the_kernels(cuda_device, knob):
     """A tuned-estimator step on the card goes through K1-K5, also with
