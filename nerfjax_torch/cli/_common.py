@@ -7,12 +7,14 @@ from __future__ import annotations
 import argparse
 
 
-def cfg_parser(description: str) -> argparse.ArgumentParser:
+def cfg_parser(description: str, device: bool = True) -> argparse.ArgumentParser:
+    """--cfg_path, and --device for the tools that run on the card."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--cfg_path", type=str, required=True)
-    p.add_argument("--device", type=str, default="cuda",
-                   help="torch device to run on (default: cuda; 'cpu' runs the "
-                        "kernels' plain PyTorch versions)")
+    if device:
+        p.add_argument("--device", type=str, default="cuda",
+                       help="torch device to run on (default: cuda; 'cpu' runs the "
+                            "kernels' plain PyTorch versions)")
     return p
 
 

@@ -153,6 +153,22 @@
 // [T, 2] scratch, which scratch_fold_kernel adds into the planes. Its bound
 // is then the 12 bytes per entry it reads.
 
+// The leader + residual modes (k = 2..7 corners; nerfjax's
+// _stochastic_corner_plan :244-290) stand beside the k = 1 and exact
+// kernels, which they leave as they are: K1 and K5 one thread per (level,
+// point), K2 and K4 one thread per point over its rows, as their k = 1
+// designs. Each forms the 8 f32 weights, the leader (the first largest: a
+// strict > over corners 0..7, as jnp.argmax), the residual CDF (w with w_m
+// zeroed, summed in order), and k - 1 draws from it (draw_u with draw index
+// j - 1; at j = 0 the k = 1 draw bit for bit), then reads or adds at the k
+// planned entries: coef w_m for the leader, total * rinv for each draw,
+// rinv = f32(1/(k-1)) from the host (a product, as nerfjax forms it; at
+// total = 0 every draw is corner 7 with coef 0). Like k = 1, they are bound
+// by random requests: K1 and K4 read k entries per (level, point), K2 issues
+// 2b float atomics per row, K5 writes 12 bytes per planned entry for K3,
+// in (level, draw, point) order so that neighbouring lanes share entries
+// as K3's run merge expects. Simple kernels first; PERF.md has their times.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -225,10 +241,26 @@ __device__ __forceinline__ float unit24(uint32_t h) {
   return __fmul_rn(static_cast<float>(h >> 8), 5.9604644775390625e-8f);
 }
 
+// The uniform of draw j of level l (_draw_corners: h = (seed ^ l*2654435761)
+// + j*0x7F4A7C15, mixed; the salt is in seed), in [0, 1). At j = 0 the added
+// term is 0: the k = 1 draw.
+__device__ __forceinline__ float draw_u(uint32_t seed, int l, int j) {
+  return unit24(mix((seed ^ (static_cast<uint32_t>(l) * 2654435761u)) + static_cast<uint32_t>(j) * 0x7F4A7C15u));
+}
+
+// The corner a uniform u in [0, 1) picks from the sequential f32 CDF cdf of
+// 8 weights: u scaled by cdf[7], then #{i < 7 : u >= cdf[i]}.
+__device__ __forceinline__ int cdf_corner(float u, const float (&cdf)[8]) {
+  u = __fmul_rn(u, cdf[7]);
+  int corner = 0;
+#pragma unroll
+  for (int i = 0; i < 7; ++i) corner += (u >= cdf[i]) ? 1 : 0;
+  return corner;
+}
+
 // The corner of level l drawn with P(corner) = its f32 weight from the
-// fractions tx, ty, tz: cdf is the sequential f32 cumsum of the 8 weights; u
-// is scaled by cdf[7] and the corner is #{j < 7 : u >= cdf[j]}
-// (_draw_corners with k = 1, j = 0; the salt is in seed).
+// fractions tx, ty, tz: cdf is the sequential f32 cumsum of the 8 weights
+// (_draw_corners with k = 1, draw j = 0; the salt is in seed).
 __device__ __forceinline__ int draw_corner(float tx, float ty, float tz, uint32_t seed, int l) {
   float cdf[8];
   float acc = corner_weight(0, tx, ty, tz);
@@ -238,12 +270,47 @@ __device__ __forceinline__ int draw_corner(float tx, float ty, float tz, uint32_
     acc = __fadd_rn(acc, corner_weight(c, tx, ty, tz));
     cdf[c] = acc;
   }
-  uint32_t h = mix(seed ^ (static_cast<uint32_t>(l) * 2654435761u));
-  float u = __fmul_rn(unit24(h), cdf[7]);
-  int corner = 0;
+  return cdf_corner(draw_u(seed, l, 0), cdf);
+}
+
+// The leader + residual plan (k >= 2) of one (level, point), from its
+// fractions (_stochastic_corner_plan): the leader m, the first of the
+// largest f32 weights (a strict > over corners 0..7, as jnp.argmax breaks
+// ties), its weight wm, and cdfr, the sequential f32 CDF of the residual
+// weights (w with w_m set to 0; cdfr[7] = total = 1 - w_m as summed).
+struct LeaderPlan {
+  int m;
+  float wm;
+  float cdfr[8];
+};
+
+__device__ __forceinline__ void leader_plan(float tx, float ty, float tz, LeaderPlan& p) {
+  float w[8];
 #pragma unroll
-  for (int j = 0; j < 7; ++j) corner += (u >= cdf[j]) ? 1 : 0;
-  return corner;
+  for (int c = 0; c < 8; ++c) w[c] = corner_weight(c, tx, ty, tz);
+  p.m = 0;
+  p.wm = w[0];
+#pragma unroll
+  for (int c = 1; c < 8; ++c) {
+    if (w[c] > p.wm) {
+      p.m = c;
+      p.wm = w[c];
+    }
+  }
+  float acc = p.m == 0 ? 0.0f : w[0];
+  p.cdfr[0] = acc;
+#pragma unroll
+  for (int c = 1; c < 8; ++c) {
+    acc = __fadd_rn(acc, p.m == c ? 0.0f : w[c]);
+    p.cdfr[c] = acc;
+  }
+}
+
+// Corner j (0 <= j < k) of a leader + residual plan: the leader at j = 0,
+// else residual draw j - 1 (draw index j - 1 of _draw_corners over cdfr; at
+// total = 0, u = 0 and every draw is corner 7).
+__device__ __forceinline__ int plan_corner(const LeaderPlan& p, uint32_t seed, int l, int j) {
+  return j == 0 ? p.m : cdf_corner(draw_u(seed, l, j - 1), p.cdfr);
 }
 
 // The k = 1 plan of hashed level l at (x, y, z): the hashed index (relative
@@ -336,6 +403,46 @@ hash_levels_fwd_k1_kernel(const float* __restrict__ planes, int total, int base,
   store_rn(out, t, bf16_round(__ldg(planes + base + i)));
   store_rn(out, os + t, bf16_round(__ldg(planes + total + base + i)));
   if (sel != nullptr) sel[t] = i;
+}
+
+// K1, k >= 2 (leader + residual). planes, out, as K1 k = 1; sel (optional):
+// [k, Lh, N] int32, the plan (leader first). One thread per (level, point)
+// over a 2-D grid, as K1 k = 1: the 8 weights, the leader, the residual CDF
+// and the k - 1 draws, then the k corners' bf16-rounded values of both
+// planes, summed e = f_0*w_m, e += f_j*coef_r in j order in f32 (coef_r =
+// total*rinv, rinv = f32(1/(k-1)) from the host) and stored in out's type.
+template <typename OutT>
+__global__ void __launch_bounds__(THREADS)
+hash_levels_fwd_lr_kernel(const float* __restrict__ planes, int total, int base,
+                          const float* __restrict__ xs, const float* __restrict__ ys,
+                          const float* __restrict__ zs, int N, Levels L, uint32_t mask, int k, float rinv,
+                          OutT* __restrict__ out, int64_t os, int32_t* __restrict__ sel) {
+  const int n = blockIdx.x * THREADS + threadIdx.x;
+  if (n >= N) return;
+  const int l = blockIdx.y;
+  const float x = xs[n], y = ys[n], z = zs[n];
+  int ix, iy, iz;
+  float tx, ty, tz;
+  lattice(x, L.scale[l], ix, tx);
+  lattice(y, L.scale[l], iy, ty);
+  lattice(z, L.scale[l], iz, tz);
+  LeaderPlan p;
+  leader_plan(tx, ty, tz, p);
+  const uint32_t seed = position_seed(x, y, z, 0u);
+  const float cr = __fmul_rn(p.cdfr[7], rinv);
+  const int64_t t = static_cast<int64_t>(l) * N + n, LN = static_cast<int64_t>(gridDim.y) * N;
+  float e0 = 0.0f, e1 = 0.0f;
+  for (int j = 0; j < k; ++j) {
+    const int i = static_cast<int>(hash_index(ix, iy, iz, plan_corner(p, seed, l, j), mask) + L.offset[l]);
+    const float coef = j == 0 ? p.wm : cr;
+    const float a = __fmul_rn(bf16_round(__ldg(planes + base + i)), coef);
+    const float b = __fmul_rn(bf16_round(__ldg(planes + total + base + i)), coef);
+    e0 = j == 0 ? a : __fadd_rn(e0, a);
+    e1 = j == 0 ? b : __fadd_rn(e1, b);
+    if (sel != nullptr) sel[j * LN + t] = i;
+  }
+  store_rn(out, t, e0);
+  store_rn(out, os + t, e1);
 }
 
 // The pack in front of K1 exact: word[i] = bf16(p0[i]) | bf16(p1[i]) << 16
@@ -490,6 +597,48 @@ hash_levels_bwd_kernel(const void* __restrict__ g, int64_t gs, int64_t total, in
         g1[k] = __fmul_rn(g1[k], scale);
       }
       scatter_add2(o0, o1, T, i[k], g0[k], g1[k]);
+    }
+  }
+}
+
+// K2, b >= 2 (leader + residual). g, grad as for K2 k = 1. One thread per
+// point over its rows (the Lh levels, or under SUBSET the gl drawn levels
+// with scale = Lh/gl): per row the leader + residual plan of b corners, and
+// g*coef (under SUBSET (g*coef)*scale, in that order) added to each planned
+// corner with scatter_add2 (b corners per row; a corner drawn twice adds
+// twice).
+template <bool SUBSET, bool G16>
+__global__ void __launch_bounds__(THREADS)
+hash_levels_bwd_lr_kernel(const void* __restrict__ g, int64_t gs, int64_t total, int64_t base,
+                          const float* __restrict__ xs, const float* __restrict__ ys,
+                          const float* __restrict__ zs, int64_t N, int Lh, int rows, float scale, int b,
+                          float rinv, Levels L, uint32_t mask, float* __restrict__ grad) {
+  const int64_t n = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+  if (n >= N) return;
+  const float x = xs[n], y = ys[n], z = zs[n];
+  const uint32_t seed = position_seed(x, y, z, 0u), lseed = position_seed(x, y, z, LEVEL_SALT);
+  float* o0 = grad + base;
+  float* o1 = grad + total + base;
+  const int64_t T = total - base;
+  for (int r = 0; r < rows; ++r) {
+    const int l = SUBSET ? draw_level(lseed, r, Lh) : r;
+    int ix, iy, iz;
+    float tx, ty, tz;
+    lattice(x, L.scale[l], ix, tx);
+    lattice(y, L.scale[l], iy, ty);
+    lattice(z, L.scale[l], iz, tz);
+    LeaderPlan p;
+    leader_plan(tx, ty, tz, p);
+    const float g0 = load_g<G16>(g, l * N + n), g1 = load_g<G16>(g, gs + l * N + n);
+    const float cr = __fmul_rn(p.cdfr[7], rinv);
+    for (int j = 0; j < b; ++j) {
+      const float coef = j == 0 ? p.wm : cr;
+      float v0 = __fmul_rn(g0, coef), v1 = __fmul_rn(g1, coef);
+      if (SUBSET) {
+        v0 = __fmul_rn(v0, scale);
+        v1 = __fmul_rn(v1, scale);
+      }
+      scatter_add2(o0, o1, T, hash_index(ix, iy, iz, plan_corner(p, seed, l, j), mask) + L.offset[l], v0, v1);
     }
   }
 }
@@ -724,6 +873,87 @@ dense_levels_bwd_kernel(const void* __restrict__ g, int64_t gs, const float* __r
   }
 }
 
+// K4, k >= 2 (leader + residual). words: the dense columns packed into bf16
+// pairs (pack_pairs_bf16_kernel); out: [2, Ld, N] in f32 or bf16, plane
+// stride os; sel (optional): [k, Ld, N] int32, the plan's entries (leader
+// first). One thread per point walking the levels, as K4: per level the
+// clamped f32 weights (_corner_weights(clamp=True)), the leader + residual
+// plan with DENSE_SALT, the k planned entries' bf16 pairs, summed as K1 k >= 2
+// sums them in f32 and stored in out's type.
+template <typename OutT>
+__global__ void __launch_bounds__(THREADS)
+dense_levels_fwd_lr_kernel(const uint32_t* __restrict__ words, const float* __restrict__ xs,
+                           const float* __restrict__ ys, const float* __restrict__ zs, int64_t N, int Ld,
+                           DenseLevels L, int k, float rinv, OutT* __restrict__ out, int64_t os,
+                           int32_t* __restrict__ sel) {
+  const int64_t n = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+  if (n >= N) return;
+  const float x = xs[n], y = ys[n], z = zs[n];
+  const uint32_t seed = position_seed(x, y, z, DENSE_SALT);
+  const int64_t LN = Ld * N;
+  for (int l = 0; l < Ld; ++l) {
+    const int64_t t = l * N + n;
+    const int r = L.res[l];
+    int bx, by, bz;
+    float tx, ty, tz;
+    dense_axis(x, L.scale[l], r, bx, tx);
+    dense_axis(y, L.scale[l], r, by, ty);
+    dense_axis(z, L.scale[l], r, bz, tz);
+    const int i0 = static_cast<int>(L.offset[l]) + bx + by * r + bz * r * r;
+    LeaderPlan p;
+    leader_plan(tx, ty, tz, p);
+    const float cr = __fmul_rn(p.cdfr[7], rinv);
+    float e0 = 0.0f, e1 = 0.0f;
+    for (int j = 0; j < k; ++j) {
+      const int c = plan_corner(p, seed, l, j);
+      const int i = i0 + ((c >> 2) & 1) + ((c >> 1) & 1) * r + (c & 1) * r * r;
+      const uint32_t w = words[i];
+      const float coef = j == 0 ? p.wm : cr;
+      const float a = __fmul_rn(__uint_as_float(w << 16), coef), b = __fmul_rn(__uint_as_float(w & 0xFFFF0000u), coef);
+      e0 = j == 0 ? a : __fadd_rn(e0, a);
+      e1 = j == 0 ? b : __fadd_rn(e1, b);
+      if (sel != nullptr) sel[j * LN + t] = i;
+    }
+    store_rn(out, t, e0);
+    store_rn(out, os + t, e1);
+  }
+}
+
+// K5, b >= 2 (leader + residual): the dense levels' table gradient staged
+// for K3. g as for K5. One thread per (level, point); entry (l*b + j)*N + n
+// (level, draw, point order: neighbouring lanes are neighbouring points at
+// the same level and draw, which K3's run merge sums) holds corner j of the
+// plan (DENSE_SALT, clamped f32 weights) and g*coef_j in f32.
+template <bool BF16>
+__global__ void __launch_bounds__(THREADS)
+dense_levels_bwd_lr_kernel(const void* __restrict__ g, int64_t gs, const float* __restrict__ xs,
+                           const float* __restrict__ ys, const float* __restrict__ zs, int64_t N, int Ld, int b,
+                           float rinv, DenseLevels L, int32_t* __restrict__ idx, float* __restrict__ v0,
+                           float* __restrict__ v1) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+  if (t >= Ld * N) return;
+  const int l = static_cast<int>(t / N);
+  const int64_t n = t - l * N;
+  const float x = xs[n], y = ys[n], z = zs[n];
+  const float g0 = load_g<BF16>(g, t), g1 = load_g<BF16>(g, gs + t);
+  int bx, by, bz;
+  float tx, ty, tz;
+  dense_axis(x, L.scale[l], L.res[l], bx, tx);
+  dense_axis(y, L.scale[l], L.res[l], by, ty);
+  dense_axis(z, L.scale[l], L.res[l], bz, tz);
+  LeaderPlan p;
+  leader_plan(tx, ty, tz, p);
+  const uint32_t seed = position_seed(x, y, z, DENSE_SALT);
+  const float cr = __fmul_rn(p.cdfr[7], rinv);
+  for (int j = 0; j < b; ++j) {
+    const int64_t k = (static_cast<int64_t>(l) * b + j) * N + n;
+    const float coef = j == 0 ? p.wm : cr;
+    idx[k] = static_cast<int32_t>(dense_index(L, l, bx, by, bz, plan_corner(p, seed, l, j)));
+    v0[k] = __fmul_rn(g0, coef);
+    v1[k] = __fmul_rn(g1, coef);
+  }
+}
+
 unsigned blocks(int64_t work) { return static_cast<unsigned>((work + THREADS - 1) / THREADS); }
 
 // blocks of a grid-stride pass over T entries (the pack, the fold): at
@@ -756,30 +986,36 @@ bool fill_dense_levels(DenseLevels& L, int Ld, const float* scales, const int32_
 extern "C" int nerf_hash_max_levels() { return MAX_LEVELS; }
 
 // Returns cudaGetLastError() after the launches (cudaErrorInvalidValue for a
-// level count outside 1..MAX_LEVELS, or total or N >= 2^31 under k = 1). out:
-// [2, Lh, N] in bf16 (out_bf16) or f32, plane stride os, level stride N.
-// Exact (k1 = 0) only: words, a [total - base] uint32 buffer that the pack
-// fills and K1 exact reads.
+// level count outside 1..MAX_LEVELS, k outside 1..8, or total or N >= 2^31
+// under k < 8). k: the corners, 8 exact, 1 k = 1, 2..7 leader + residual
+// with rinv = f32(1/(k-1)). out: [2, Lh, N] in bf16 (out_bf16) or f32,
+// plane stride os, level stride N. sel (optional, k < 8): [Lh, N] (k = 1)
+// or [k, Lh, N] int32. Exact (k = 8) only: words, a [total - base] uint32
+// buffer that the pack fills and K1 exact reads.
 extern "C" int nerf_hash_levels_fwd(const float* planes, int64_t total, int64_t base,
                                     const float* x, const float* y, const float* z, int64_t N,
                                     int Lh, const float* scales, const int64_t* offsets,
-                                    uint32_t mask, int k1, void* out, int64_t os, int out_bf16, int32_t* sel,
-                                    uint32_t* words, void* stream) {
+                                    uint32_t mask, int k, float rinv, void* out, int64_t os, int out_bf16,
+                                    int32_t* sel, uint32_t* words, void* stream) {
   Levels L;
-  if (!fill_levels(L, Lh, scales, offsets) || (!k1 && words == nullptr) ||
-      (k1 && (total >= (int64_t{1} << 31) || N >= (int64_t{1} << 31)))) {
+  if (!fill_levels(L, Lh, scales, offsets) || k < 1 || k > 8 || (k == 8 && words == nullptr) ||
+      (k < 8 && (total >= (int64_t{1} << 31) || N >= (int64_t{1} << 31)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   __nv_bfloat16* o16 = static_cast<__nv_bfloat16*>(out);
   float* o32 = static_cast<float*>(out);
-  if (k1) {
+  if (k < 8) {
     const int t = static_cast<int>(total), b = static_cast<int>(base), n = static_cast<int>(N);
     const dim3 grid(blocks(N), Lh);
-    if (out_bf16) {
+    if (k == 1 && out_bf16) {
       hash_levels_fwd_k1_kernel<<<grid, THREADS, 0, s>>>(planes, t, b, x, y, z, n, L, mask, o16, os, sel);
-    } else {
+    } else if (k == 1) {
       hash_levels_fwd_k1_kernel<<<grid, THREADS, 0, s>>>(planes, t, b, x, y, z, n, L, mask, o32, os, sel);
+    } else if (out_bf16) {
+      hash_levels_fwd_lr_kernel<<<grid, THREADS, 0, s>>>(planes, t, b, x, y, z, n, L, mask, k, rinv, o16, os, sel);
+    } else {
+      hash_levels_fwd_lr_kernel<<<grid, THREADS, 0, s>>>(planes, t, b, x, y, z, n, L, mask, k, rinv, o32, os, sel);
     }
   } else {
     const int64_t T = total - base;
@@ -793,18 +1029,19 @@ extern "C" int nerf_hash_levels_fwd(const float* planes, int64_t total, int64_t 
   return static_cast<int>(cudaGetLastError());
 }
 
-// mode: 0 exact, 1 k = 1, 2 k = 1 with gl drawn levels scaled by `scale`.
-// g: bf16 (g_bf16) or f32, plane stride gs. Exact only: scratch, a zeroed
-// [total - base, 2] f32 buffer, which K2 exact adds into and the fold kernel
-// launched after it adds into grad.
+// mode: 0 exact, 1 b planned corners per level, 2 the same over gl drawn
+// levels scaled by `scale`; b: 1 (k = 1) or 2..7 (leader + residual, rinv =
+// f32(1/(b-1))). g: bf16 (g_bf16) or f32, plane stride gs. Exact only:
+// scratch, a zeroed [total - base, 2] f32 buffer, which K2 exact adds into
+// and the fold kernel launched after it adds into grad.
 extern "C" int nerf_hash_levels_bwd(const void* g, int64_t gs, int g_bf16, int64_t total, int64_t base,
                                     const float* x, const float* y, const float* z, int64_t N, int Lh,
                                     const float* scales, const int64_t* offsets, uint32_t mask,
-                                    int mode, int gl, float scale, float* grad, float* scratch,
-                                    void* stream) {
+                                    int mode, int gl, float scale, int b, float rinv, float* grad,
+                                    float* scratch, void* stream) {
   Levels L;
   if (!fill_levels(L, Lh, scales, offsets) || mode < 0 || mode > 2 || (mode == 2 && gl < 1) ||
-      (mode == 0 && scratch == nullptr)) {
+      (mode == 0 && scratch == nullptr) || (mode != 0 && (b < 1 || b > 7))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -820,6 +1057,18 @@ extern "C" int nerf_hash_levels_bwd(const void* g, int64_t gs, int g_bf16, int64
     return static_cast<int>(cudaGetLastError());
   }
   const int rows = mode == 2 ? gl : Lh;
+  if (b >= 2) {
+#define NERF_K2_LR(S, G)                                                                                    \
+  hash_levels_bwd_lr_kernel<S, G><<<blocks(N), THREADS, 0, s>>>(g, gs, total, base, x, y, z, N, Lh, rows, scale, \
+                                                                 b, rinv, L, mask, grad)
+    if (mode == 1) {
+      if (g_bf16) NERF_K2_LR(false, true); else NERF_K2_LR(false, false);
+    } else {
+      if (g_bf16) NERF_K2_LR(true, true); else NERF_K2_LR(true, false);
+    }
+#undef NERF_K2_LR
+    return static_cast<int>(cudaGetLastError());
+  }
 #define NERF_K2_K1(M, G) \
   hash_levels_bwd_kernel<M, G><<<blocks(N), THREADS, 0, s>>>(g, gs, total, base, x, y, z, N, Lh, rows, scale, L, \
                                                               mask, grad)
@@ -859,17 +1108,19 @@ extern "C" int nerf_pack_pairs(const float* p0, const float* p1, int64_t T, int 
   return static_cast<int>(cudaGetLastError());
 }
 
-// mode: 0 exact in f32, 1 exact in bf16, 2 k = 1 (sel optional); pairs:
-// the dense columns packed by nerf_pack_pairs (float2 in mode 0, bf16
-// pairs otherwise); out: [2, Ld, N] in bf16 (out_bf16: modes 1 and 2) or
-// f32 (modes 0 and 2), plane stride os, level stride N
+// mode: 0 exact in f32, 1 exact in bf16, 2 k = 1, 3 k corners (2..7,
+// leader + residual, rinv = f32(1/(k-1))); sel optional in modes 2 and 3
+// ([Ld, N], [k, Ld, N]); pairs: the dense columns packed by nerf_pack_pairs
+// (float2 in mode 0, bf16 pairs otherwise); out: [2, Ld, N] in bf16
+// (out_bf16: modes 1-3) or f32 (modes 0, 2 and 3), plane stride os, level
+// stride N
 extern "C" int nerf_dense_levels_fwd(const void* pairs, const float* x, const float* y, const float* z,
                                      int64_t N, int Ld, const float* scales, const int32_t* res,
-                                     const int64_t* offsets, int mode, void* out, int64_t os, int out_bf16,
-                                     int32_t* sel, void* stream) {
+                                     const int64_t* offsets, int mode, int k, float rinv, void* out, int64_t os,
+                                     int out_bf16, int32_t* sel, void* stream) {
   DenseLevels L;
-  if (!fill_dense_levels(L, Ld, scales, res, offsets) || mode < 0 || mode > 2 || (mode == 0 && out_bf16) ||
-      (mode == 1 && !out_bf16)) {
+  if (!fill_dense_levels(L, Ld, scales, res, offsets) || mode < 0 || mode > 3 || (mode == 0 && out_bf16) ||
+      (mode == 1 && !out_bf16) || (mode == 3 && (k < 2 || k > 7))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -880,27 +1131,45 @@ extern "C" int nerf_dense_levels_fwd(const void* pairs, const float* x, const fl
     dense_levels_fwd_kernel<0><<<nb, THREADS, 0, s>>>(pairs, x, y, z, N, Ld, L, o32, os, sel);
   } else if (mode == 1) {
     dense_levels_fwd_kernel<1><<<nb, THREADS, 0, s>>>(pairs, x, y, z, N, Ld, L, o16, os, sel);
-  } else if (out_bf16) {
+  } else if (mode == 2 && out_bf16) {
     dense_levels_fwd_kernel<2><<<nb, THREADS, 0, s>>>(pairs, x, y, z, N, Ld, L, o16, os, sel);
-  } else {
+  } else if (mode == 2) {
     dense_levels_fwd_kernel<2><<<nb, THREADS, 0, s>>>(pairs, x, y, z, N, Ld, L, o32, os, sel);
+  } else {
+    const uint32_t* words = static_cast<const uint32_t*>(pairs);
+    if (out_bf16) {
+      dense_levels_fwd_lr_kernel<<<nb, THREADS, 0, s>>>(words, x, y, z, N, Ld, L, k, rinv, o16, os, sel);
+    } else {
+      dense_levels_fwd_lr_kernel<<<nb, THREADS, 0, s>>>(words, x, y, z, N, Ld, L, k, rinv, o32, os, sel);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// mode: 0 exact, 1 k = 1, 2 gd drawn levels scaled by `scale`; g_bf16: g
-// holds bf16 (else f32)
+// mode: 0 exact, 1 b planned corners (b = 1: k = 1; 2..7: leader +
+// residual, rinv = f32(1/(b-1))), 2 gd drawn levels scaled by `scale`;
+// g_bf16: g holds bf16 (else f32)
 extern "C" int nerf_dense_levels_bwd(const void* g, int64_t gs, int g_bf16, const float* x,
                                      const float* y, const float* z, int64_t N, int Ld,
                                      const float* scales, const int32_t* res,
-                                     const int64_t* offsets, int mode, int gd, float scale,
+                                     const int64_t* offsets, int mode, int gd, float scale, int b, float rinv,
                                      int32_t* idx, float* v0, float* v1, void* stream) {
   DenseLevels L;
   if (!fill_dense_levels(L, Ld, scales, res, offsets) || mode < 0 || mode > 2 ||
-      (mode == 2 && gd < 1)) {
+      (mode == 2 && gd < 1) || (mode == 1 && (b < 1 || b > 7))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode == 1 && b >= 2) {
+    if (g_bf16) {
+      dense_levels_bwd_lr_kernel<true><<<blocks(Ld * N), THREADS, 0, s>>>(g, gs, x, y, z, N, Ld, b, rinv, L, idx,
+                                                                          v0, v1);
+    } else {
+      dense_levels_bwd_lr_kernel<false><<<blocks(Ld * N), THREADS, 0, s>>>(g, gs, x, y, z, N, Ld, b, rinv, L, idx,
+                                                                           v0, v1);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   unsigned nb = blocks((mode == 2 ? gd : Ld) * N);
 #define NERF_DENSE_BWD(B, M)                                                                \
   dense_levels_bwd_kernel<B, M><<<nb, THREADS, 0, s>>>(g, gs, x, y, z, N, Ld, gd, scale, L, \

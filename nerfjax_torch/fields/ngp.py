@@ -36,10 +36,9 @@ class HashGridSpec:
     """Static hash-grid shape. ``fwd_corners``, ``grad_corners``,
     ``grad_levels``, ``dense_corners`` and ``dense_grad_levels`` name
     nerfjax's train-only estimators (nerfjax ``fields/ngp.py:49-95``); the
-    port's encode takes the exact values (8, 8, 0, 8, 0), the k = 1
-    hashed-level estimators (``fwd_corners``/``grad_corners`` 1, any
-    ``grad_levels``), any ``dense_grad_levels`` and ``dense_corners`` 1;
-    2..7 corners (leader + residual) are not ported."""
+    port's encode takes every value: 8 corners exact, 1 the k = 1 draw,
+    2..7 the leader + residual plan, any ``grad_levels`` and
+    ``dense_grad_levels``."""
 
     n_levels: int = 16
     n_features: int = 2

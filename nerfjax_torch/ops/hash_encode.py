@@ -1,12 +1,12 @@
 """Multiresolution hash-grid encoding, forward and table gradient
 (counterpart of ``nerfjax/ops/hash_encode.py``: ``_split_levels`` :42-48,
-``_hash_level_indices`` :72-100, ``_corner_weights`` :103-128, the k = 1
-plan ``_draw_corners``/``_select_drawn_indices``/``_draw_levels``/
+``_hash_level_indices`` :72-100, ``_corner_weights`` :103-128, the plan
+``_draw_corners``/``_select_drawn_indices``/``_draw_levels``/
 ``_level_subsample``/``_stochastic_corner_plan`` :131-290, the hashed-level
 custom VJP :293-409, the dense levels: exact ``_dense_levels_encode``
-:487-530, level-subset backward ``_dense_levels_encode_glv`` :538-672, k = 1
-``_dense_levels_encode_stoch`` :679-766; and ``hash_encode_planar``
-:774-814).
+:487-530, level-subset backward ``_dense_levels_encode_glv`` :538-672,
+stochastic ``_dense_levels_encode_stoch`` :679-766; and
+``hash_encode_planar`` :774-814).
 
 Semantics, not layout: nerfjax packs bf16 feature pairs into f32 words and
 builds dense-level cell-row tables because the TPU's gather pays per index.
@@ -18,42 +18,47 @@ build than it saves K4 (``PERF.md``). What matches nerfjax:
   * hashed levels: uint32 spatial hash ``x*1 ^ y*2654435761 ^ z*805459861``
     masked to the table size, table values rounded to bf16 as
     ``_pack_pairs_bf16`` rounds them, trilinear weights ``(wx*wy)*wz`` and
-    sums in float32; the k = 1 plan (one corner per level and point, drawn
-    with P = its weight from the f32 bits of the position) bit for bit;
+    sums in float32; the k-corner plan bit for bit: k = 1, one corner drawn
+    with P = its weight from the f32 bits of the position; k = 2..7, the
+    leader (largest weight, coef w_m) and k - 1 draws from the residual
+    weights (coef (1 - w_m) * f32(1/(k-1))). The backward plans b =
+    min(grad_corners, fwd_corners) corners (salt 0), over ``grad_levels``
+    drawn levels (g*coef)*(Lh/gl);
   * dense levels: base cell clamped to ``[0, r-2]``, fraction clipped to
     ``[0, 1]``, table values, weights and the corner sum in ``dtype``; under
     ``dense_grad_levels`` = gd (0 < gd < Ld) the same forward and a backward
     over gd levels drawn per point (salt ``_DENSE_GL_SALT``), f32 weights,
-    scaled Ld/gd; under ``dense_corners`` = 1 the k = 1 plan with clamped
-    weights (salt ``_DENSE_SALT``), bf16-rounded table values, float32 out.
-    ``dense_corners`` of 2..7 (leader + residual) is not ported.
+    scaled Ld/gd; under ``dense_corners`` = k < 8 the k-corner plan with
+    clamped weights (salt ``_DENSE_SALT``), bf16-rounded table values,
+    float32 out, and a backward over b = min(grad_corners, k) corners.
 
 Kernels (CUDA C++ for sm_90a, ``nerfjax_torch/csrc/hash_encode.cu``, built
 by ``nerfjax_torch._build`` and called through ctypes on PyTorch's current
 stream):
 
-  * ``hash_levels_fwd`` (K1): the hashed levels' exact or k = 1 forward;
-    the exact one reads the hashed columns packed into bf16 pairs (one
-    word per entry, ``pack_pairs_bf16_plain``'s layout) by a pass in front
-    of it; the k = 1 one is one thread per (level, point) over a 2-D grid,
-    with 32-bit entries;
-  * ``hash_levels_bwd`` (K2): their table gradient, exact, k = 1, or k = 1
-    over ``grad_levels`` drawn levels scaled Lh/gl;
+  * ``hash_levels_fwd`` (K1): the hashed levels' exact or k-corner
+    forward; the exact one reads the hashed columns packed into bf16 pairs
+    (one word per entry, ``pack_pairs_bf16_plain``'s layout) by a pass in
+    front of it; the k-corner ones are one thread per (level, point) over a
+    2-D grid, with 32-bit entries;
+  * ``hash_levels_bwd`` (K2): their table gradient, exact, or to the b
+    planned corners (k = 1 or leader + residual), over all levels or over
+    ``grad_levels`` drawn levels scaled Lh/gl;
   * ``table_grad_scatter`` (K3): ``out[p][idx_k] += g_p[k]`` into two f32
     planes, out-of-range indices dropped; the function of the Pallas
     kernels ``grad_onehot``/``grad_rowscatter`` (benchmarks/micro_onehot.py).
     The dense levels' table gradient goes through it, into the dense
     columns of the one [2, total] gradient that K2 adds the hashed levels'
     into;
-  * ``dense_levels_fwd`` (K4): the dense levels' exact or k = 1 forward, the
-    cell-row gather of the Pallas kernel ``_dma_gather_fn``
+  * ``dense_levels_fwd`` (K4): the dense levels' exact or k-corner forward,
+    the cell-row gather of the Pallas kernel ``_dma_gather_fn``
     (benchmarks/micro_pallas_gather.py) with the blend around it; it reads
     the dense columns packed by ``pack_pairs`` (a pass in front of it: one
     entry per column holding both planes);
   * ``dense_levels_bwd`` (K5): the dense levels' table gradient staged as
-    K3's (idx, v0, v1), exact, k = 1, or over gd drawn levels, whose
-    cotangent take is the Pallas kernel ``_take_along_axis_probe``'s
-    function.
+    K3's (idx, v0, v1), exact, to the b planned corners, or over gd drawn
+    levels, whose cotangent take is the Pallas kernel
+    ``_take_along_axis_probe``'s function.
 
 K1 and K4 store in the encode's dtype into an ``out=`` slice of its
 [2, L, N] output (rows contiguous, any plane stride), so the encode
@@ -104,42 +109,45 @@ def _split_levels(spec: HashGridSpec) -> tuple[list[dict], list[dict]]:
     return dense, hashed
 
 
-def check_supported(spec: HashGridSpec) -> None:
-    """Raise for the estimators the port does not have yet."""
-    if spec.fwd_corners not in (1, 8) or spec.grad_corners not in (1, 8):
-        raise NotImplementedError(
-            f"hash_fwd_corners={spec.fwd_corners}, hash_grad_corners={spec.grad_corners}: "
-            "only the exact (8) and k = 1 hashed-level estimators are ported; "
-            "k >= 2 (leader + residual) is ROADMAP Queue 1 item 'k >= 2'"
-        )
-    dense, _ = _split_levels(spec)
-    if dense and 1 < spec.dense_corners < 8:
-        raise NotImplementedError(
-            f"hash_dense_corners={spec.dense_corners}: only the exact (8) and k = 1 dense-level "
-            "estimators are ported; 2..7 (leader + residual) is ROADMAP Queue 1 item 'k >= 2'"
-        )
-
-
 def _bwd_mode(spec: HashGridSpec, Lh: int) -> tuple[int, int]:
-    """(mode, gl) of the hashed-level backward: 0 exact, 1 k = 1, 2 k = 1
-    over gl drawn levels. Under a k = 1 forward the backward replays its
-    plan (nerfjax: b = min(grad_corners, fwd_corners) = 1)."""
-    if spec.fwd_corners == 8 and spec.grad_corners == 8:
+    """(mode, gl) of the hashed-level backward: 0 exact, 1 stochastic (the
+    ``_grad_corners`` plan per level), 2 the same over gl drawn levels
+    scaled Lh/gl."""
+    if _grad_corners(spec) == 8:
         return 0, 0
     gl = spec.grad_levels
     return (2, gl) if 0 < gl < Lh else (1, 0)
 
 
+def _grad_corners(spec: HashGridSpec) -> int:
+    """b, the corners of the hashed levels' backward plan (nerfjax:
+    b = min(grad_corners, fwd_corners)): 8 exact; at b = fwd_corners < 8 it
+    replays the forward's plan, at b < fwd_corners it plans anew with b."""
+    return min(spec.grad_corners, spec.fwd_corners, 8)
+
+
 def _dense_mode(spec: HashGridSpec, Ld: int) -> tuple[int, int]:
     """(mode, gd) of the dense levels, as ``hash_encode_planar`` branches:
-    1 k = 1 forward and backward (``dense_corners`` = 1; its backward
-    replays the plan, b = min(grad_corners, 1) = 1); else 2, the exact
-    forward with the backward over gd drawn levels, for 0 < gd < Ld; else
-    0 exact (a gd >= Ld is the exact path, unscaled)."""
+    1 stochastic forward and backward (``dense_corners`` = k < 8; the
+    backward plans ``_dense_grad_corners`` corners); else 2, the exact
+    forward with the backward over gd drawn levels, for 0 < gd < Ld; else 0
+    exact (a gd >= Ld is the exact path, unscaled)."""
     if spec.dense_corners < 8:
         return 1, 0
     gd = spec.dense_grad_levels
     return (2, gd) if 0 < gd < Ld else (0, 0)
+
+
+def _dense_grad_corners(spec: HashGridSpec) -> int:
+    """b of the stochastic dense backward: min(grad_corners, dense_corners)
+    (nerfjax ``_dense_stoch_bwd``)."""
+    return min(spec.grad_corners, spec.dense_corners)
+
+
+def _rinv(b: int) -> float:
+    """f32(1/(b - 1)), the residual draws' share of the residual mass
+    (nerfjax's ``np.float32(1.0 / (k - 1))``); 0 for b < 2."""
+    return float(np.float32(1.0 / (b - 1))) if b >= 2 else 0.0
 
 
 # -- the plan (plain torch) ---------------------------------------------------
@@ -277,14 +285,50 @@ def _draw_levels(x, y, z, Lh: int, g: int, salt: int) -> torch.Tensor:
     return torch.stack(ids)
 
 
+def _plan(levels: list[dict], x, y, z, idx3: torch.Tensor, w, k: int, salt: int = 0):
+    """(sel [k, L, N] int64, coef [k, L, N] float32): nerfjax's
+    ``_stochastic_corner_plan`` from the corners' indices idx3 [L, 8, N] and
+    float32 weights w ([L, 8, N], or a list of 8 [L, N]).
+
+      k = 1: one corner drawn with P = its weight, coef 1;
+      k >= 2: the leader m, the first of the largest weights (a strict >
+        over corners 0..7, as jnp.argmax breaks ties), with coef w_m, then
+        k - 1 draws from the residual weights w * (1 - onehot(m)) (their
+        sequential CDF; u scaled by its last entry, total = 1 - w_m), each
+        with coef total * f32(1/(k-1)). At total = 0 (a lattice vertex)
+        every draw is corner 7 with coef 0.
+    """
+    w = torch.stack(list(w), dim=1) if isinstance(w, (list, tuple)) else w
+    L, _, N = idx3.shape
+    if k == 1:
+        c = _draw_corners(x, y, z, _sequential_cdf(list(w.unbind(1))), L, 1, salt)
+        return idx3.gather(1, c[0][:, None, :]).permute(1, 0, 2), torch.ones(1, L, N, device=w.device)
+    m = torch.zeros(L, N, dtype=torch.int64, device=w.device)
+    wm = w[:, 0]
+    for c in range(1, 8):
+        better = w[:, c] > wm
+        m = torch.where(better, c, m)
+        wm = torch.where(better, w[:, c], wm)
+    onehot = (torch.arange(8, device=w.device)[None, :, None] == m[:, None, :]).to(torch.float32)
+    cdfr = _sequential_cdf(list((w * (1.0 - onehot)).unbind(1)))
+    draws = _draw_corners(x, y, z, cdfr, L, k - 1, salt)  # [k-1, L, N]
+    sel = torch.cat([idx3.gather(1, m[:, None, :]).permute(1, 0, 2),
+                     torch.stack([idx3.gather(1, d[:, None, :])[:, 0, :] for d in draws])])
+    coef_r = cdfr[:, 7, :] * _rinv(k)
+    return sel, torch.cat([wm[None], coef_r[None].expand(k - 1, L, N)])
+
+
+def _hash_plan(spec: HashGridSpec, hashed: list[dict], x, y, z, k: int):
+    """The hashed levels' k-corner plan (salt 0; indices relative to the
+    first hashed level): ``_plan``'s (sel, coef)."""
+    idx3 = torch.stack(_hash_level_indices(spec, hashed, x, y, z), dim=1)  # [Lh, 8, N]
+    return _plan(hashed, x, y, z, idx3, _corner_weights(hashed, x, y, z), k)
+
+
 def _plan_k1(spec: HashGridSpec, hashed: list[dict], x, y, z) -> torch.Tensor:
     """The k = 1 plan: [Lh, N] int64 index of the drawn corner of each
-    (level, point), relative to the first hashed level (nerfjax
-    ``_stochastic_corner_plan`` with k = 1; its coef is 1)."""
-    idx3 = torch.stack(_hash_level_indices(spec, hashed, x, y, z), dim=1)  # [Lh, 8, N]
-    cdf = _sequential_cdf(_corner_weights(hashed, x, y, z))
-    c = _draw_corners(x, y, z, cdf, len(hashed), 1)[0]
-    return idx3.gather(1, c[:, None, :])[:, 0, :]
+    (level, point), relative to the first hashed level."""
+    return _hash_plan(spec, hashed, x, y, z, 1)[0][0]
 
 
 def _dense_geometry(lp: dict, x, y, z, dtype):
@@ -323,14 +367,26 @@ def _dense_corner_arrays(dense: list[dict], x, y, z, dtype):
     return torch.stack(idx), torch.stack(w)
 
 
-def _dense_plan_k1(dense: list[dict], x, y, z) -> torch.Tensor:
-    """The dense levels' k = 1 plan: [Ld, N] int64 entry of the corner drawn
-    with P = its clamped float32 weight (nerfjax ``_stochastic_corner_plan``
-    with k = 1, ``clamp=True``, ``salt=_DENSE_SALT``)."""
+def _dense_plan(dense: list[dict], x, y, z, k: int):
+    """The dense levels' k-corner plan: ``_plan``'s (sel [k, Ld, N] entries
+    of the planes, coef) with clamped float32 weights and ``DENSE_SALT``
+    (nerfjax ``_stochastic_corner_plan(clamp=True, salt=_DENSE_SALT)``)."""
     idx, w = _dense_corner_arrays(dense, x, y, z, torch.float32)
-    cdf = _sequential_cdf(list(w.unbind(1)))
-    c = _draw_corners(x, y, z, cdf, len(dense), 1, DENSE_SALT)[0]
-    return idx.gather(1, c[:, None, :])[:, 0, :]
+    return _plan(dense, x, y, z, idx, w, k, DENSE_SALT)
+
+
+def _dense_plan_k1(dense: list[dict], x, y, z) -> torch.Tensor:
+    """The dense levels' k = 1 plan: [Ld, N] int64 entry of the drawn corner."""
+    return _dense_plan(dense, x, y, z, 1)[0][0]
+
+
+def _estimate(tbl: torch.Tensor, sel: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
+    """[2, L, N] float32 sum over j of tbl[:, sel_j] * coef_j, in j order
+    (the k-corner estimate; at k = 1 the drawn value itself)."""
+    e = tbl[:, sel[0]] * coef[0]
+    for j in range(1, sel.shape[0]):
+        e = e + tbl[:, sel[j]] * coef[j]
+    return e
 
 
 def _dense_width(dense: list[dict]) -> int:
@@ -342,13 +398,16 @@ def _dense_width(dense: list[dict]) -> int:
 
 
 def hash_levels_fwd_plain(spec: HashGridSpec, planes: torch.Tensor, x, y, z):
-    """(out [2, Lh, N] float32, sel [Lh, N] int64 or None): the hashed levels'
-    exact forward, or (``fwd_corners`` = 1) the k = 1 estimate and its plan."""
+    """(out [2, Lh, N] float32, sel or None): the hashed levels' exact
+    forward, or (``fwd_corners`` = k < 8) the k-corner estimate from
+    bf16-rounded table values and its plan, sel [Lh, N] int64 at k = 1,
+    [k, Lh, N] at k >= 2 (the leader first)."""
     _, hashed = _split_levels(spec)
-    if spec.fwd_corners == 1:
+    k = spec.fwd_corners
+    if k < 8:
         tbl = planes[:, hashed[0]["offset"]:].to(torch.bfloat16).to(torch.float32)
-        sel = _plan_k1(spec, hashed, x, y, z)
-        return torch.stack([tbl[0][sel], tbl[1][sel]]), sel
+        sel, coef = _hash_plan(spec, hashed, x, y, z, k)
+        return _estimate(tbl, sel, coef), sel[0] if k == 1 else sel
     t0, t1 = _unpack_pairs_plain(pack_pairs_bf16_plain(planes[:, hashed[0]["offset"]:]))
     idx = _hash_level_indices(spec, hashed, x, y, z)
     w = _corner_weights(hashed, x, y, z)
@@ -389,11 +448,12 @@ def table_grad_scatter_plain(idx: torch.Tensor, g0: torch.Tensor, g1: torch.Tens
     return out
 
 
-def hash_levels_bwd_plain(spec: HashGridSpec, g: torch.Tensor, x, y, z, out: torch.Tensor) -> torch.Tensor:
-    """The hashed levels' table gradient from the upstream gradient g
-    [2, Lh, N] (bf16 or float32, widened to float32 first: exact), added
-    into the hashed columns of the [2, total] float32 planes ``out``,
-    returned."""
+def hash_bwd_entries(spec: HashGridSpec, g: torch.Tensor, x, y, z):
+    """(idx [K] int64 into the planes, v0, v1 [K] float32): the terms of the
+    hashed levels' table gradient from the upstream gradient g [2, Lh, N]
+    (bf16 or float32, widened to float32 first: exact): exact, g*w to the 8
+    corners of each (level, point); or g*coef to the b planned corners
+    (``_grad_corners``), over gl drawn levels (g*coef)*(Lh/gl)."""
     _, hashed = _split_levels(spec)
     base, Lh = hashed[0]["offset"], len(hashed)
     mode, gl = _bwd_mode(spec, Lh)
@@ -403,14 +463,21 @@ def hash_levels_bwd_plain(spec: HashGridSpec, g: torch.Tensor, x, y, z, out: tor
         w = torch.stack(_corner_weights(hashed, x, y, z))
         v0, v1 = g[0][None] * w, g[1][None] * w
     else:
-        idx = _plan_k1(spec, hashed, x, y, z)
-        v0, v1 = g[0], g[1]
+        idx, coef = _hash_plan(spec, hashed, x, y, z, _grad_corners(spec))  # [b, Lh, N]
+        v0, v1 = g[0][None] * coef, g[1][None] * coef
         if mode == 2:
-            ids = _draw_levels(x, y, z, Lh, gl, LEVEL_SALT)  # [gl, N]
+            ids = _draw_levels(x, y, z, Lh, gl, LEVEL_SALT)[None].expand(idx.shape[0], -1, -1)  # [b, gl, N]
             scale = float(np.float32(Lh / gl))
-            idx = idx.gather(0, ids)
-            v0, v1 = v0.gather(0, ids) * scale, v1.gather(0, ids) * scale
-    return table_grad_scatter_plain((idx + base).reshape(-1), v0.reshape(-1), v1.reshape(-1), out)
+            idx = idx.gather(1, ids)
+            v0, v1 = v0.gather(1, ids) * scale, v1.gather(1, ids) * scale
+    return (idx + base).reshape(-1), v0.reshape(-1), v1.reshape(-1)
+
+
+def hash_levels_bwd_plain(spec: HashGridSpec, g: torch.Tensor, x, y, z, out: torch.Tensor) -> torch.Tensor:
+    """The hashed levels' table gradient (``hash_bwd_entries``' terms) added
+    into the hashed columns of the [2, total] float32 planes ``out``,
+    returned."""
+    return table_grad_scatter_plain(*hash_bwd_entries(spec, g, x, y, z), out)
 
 
 def k2_runs(spec: HashGridSpec, x, y, z) -> torch.Tensor:
@@ -455,17 +522,17 @@ def k3_atomic_count(idx: torch.Tensor, T: int) -> int:
 
 
 def dense_levels_fwd_plain(spec: HashGridSpec, planes: torch.Tensor, x, y, z, dtype=torch.float32):
-    """(out [2, Ld, N], sel [Ld, N] int64 or None): the dense levels' exact
-    forward in ``dtype`` (every op rounds to it), or (``dense_corners`` = 1)
-    the k = 1 estimate in float32 from bf16-rounded table values, and its
-    plan."""
+    """(out [2, Ld, N], sel or None): the dense levels' exact forward in
+    ``dtype`` (every op rounds to it), or (``dense_corners`` = k < 8) the
+    k-corner estimate in float32 from bf16-rounded table values and its
+    plan, sel [Ld, N] int64 at k = 1, [k, Ld, N] at k >= 2."""
     dense, _ = _split_levels(spec)
     mode, _ = _dense_mode(spec, len(dense))
     planes = planes[:, : _dense_width(dense)]
     if mode == 1:
-        sel = _dense_plan_k1(dense, x, y, z)
-        tbl = planes.to(torch.bfloat16).to(torch.float32)
-        return torch.stack([tbl[0][sel], tbl[1][sel]]), sel
+        k = spec.dense_corners
+        sel, coef = _dense_plan(dense, x, y, z, k)
+        return _estimate(planes.to(torch.bfloat16).to(torch.float32), sel, coef), sel[0] if k == 1 else sel
     tbl = planes.to(dtype)
     idx, w = _dense_corner_arrays(dense, x, y, z, dtype)
     e0 = torch.zeros_like(w[:, 0])
@@ -479,12 +546,15 @@ def dense_levels_fwd_plain(spec: HashGridSpec, planes: torch.Tensor, x, y, z, dt
 def dense_levels_bwd_plain(spec: HashGridSpec, g: torch.Tensor, x, y, z, dtype=torch.float32):
     """(idx [K] int32, v0, v1 [K] float32): K3's inputs for the dense levels'
     table gradient from their upstream gradient g [2, Ld, N] (taken in
-    ``dtype``), entries in (row, corner, point) order:
+    ``dtype``):
 
-      * exact: K = Ld*8*N, each corner's g*w formed in ``dtype`` (the
-        product's VJP in nerfjax; ROADMAP Queue 3: nerfjax's bf16 row
-        scatter then accumulates in bf16, K3 in float32);
-      * k = 1: K = Ld*N, g at the planned corner (``_dense_stoch_bwd``);
+      * exact: K = Ld*8*N in (level, corner, point) order, each corner's
+        g*w formed in ``dtype`` (the product's VJP in nerfjax; ROADMAP
+        Queue 3: nerfjax's bf16 row scatter then accumulates in bf16, K3 in
+        float32);
+      * stochastic (``dense_corners`` < 8): K = Ld*b*N in (level, draw,
+        point) order, g*coef at the b planned corners
+        (``_dense_grad_corners``; ``_dense_stoch_bwd``);
       * level subset: K = gd*8*N over gd levels drawn per point, the drawn
         level's cotangent taken along the level axis (nerfjax's
         take_along_axis), float32 weights, (w*g)*(Ld/gd) (``_dense_glv_bwd``).
@@ -494,8 +564,9 @@ def dense_levels_bwd_plain(spec: HashGridSpec, g: torch.Tensor, x, y, z, dtype=t
     mode, gd = _dense_mode(spec, Ld)
     g = g.to(dtype)
     if mode == 1:
-        idx = _dense_plan_k1(dense, x, y, z)
-        v0, v1 = g[0].to(torch.float32), g[1].to(torch.float32)
+        sel, coef = _dense_plan(dense, x, y, z, _dense_grad_corners(spec))  # [b, Ld, N]
+        g32 = g.to(torch.float32)
+        idx, v0, v1 = (t.transpose(0, 1) for t in (sel, g32[0][None] * coef, g32[1][None] * coef))
     elif mode == 0:
         idx, w = _dense_corner_arrays(dense, x, y, z, dtype)
         v0 = (g[0][:, None, :] * w).to(torch.float32)
@@ -521,14 +592,14 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("hash_encode")
     vp, i32, i64, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32, ctypes.c_float
-    lib.nerf_hash_levels_fwd.argtypes = [vp, i64, i64, vp, vp, vp, i64, i32, vp, vp, u32, i32, vp, i64, i32, vp, vp,
-                                         vp]
+    lib.nerf_hash_levels_fwd.argtypes = [vp, i64, i64, vp, vp, vp, i64, i32, vp, vp, u32, i32, f32, vp, i64, i32, vp,
+                                         vp, vp]
     lib.nerf_hash_levels_bwd.argtypes = [vp, i64, i32, i64, i64, vp, vp, vp, i64, i32, vp, vp, u32, i32, i32, f32,
-                                         vp, vp, vp]
+                                         i32, f32, vp, vp, vp]
     lib.nerf_table_grad_scatter.argtypes = [vp, vp, vp, i64, i64, i64, vp, vp, vp]
     lib.nerf_pack_pairs.argtypes = [vp, vp, i64, i32, vp, vp]
-    lib.nerf_dense_levels_fwd.argtypes = [vp, vp, vp, vp, i64, i32, vp, vp, vp, i32, vp, i64, i32, vp, vp]
-    lib.nerf_dense_levels_bwd.argtypes = [vp, i64, i32, vp, vp, vp, i64, i32, vp, vp, vp, i32, i32, f32,
+    lib.nerf_dense_levels_fwd.argtypes = [vp, vp, vp, vp, i64, i32, vp, vp, vp, i32, i32, f32, vp, i64, i32, vp, vp]
+    lib.nerf_dense_levels_bwd.argtypes = [vp, i64, i32, vp, vp, vp, i64, i32, vp, vp, vp, i32, i32, f32, i32, f32,
                                           vp, vp, vp, vp]
     for fn in (lib.nerf_hash_levels_fwd, lib.nerf_hash_levels_bwd, lib.nerf_table_grad_scatter,
                lib.nerf_pack_pairs, lib.nerf_dense_levels_fwd, lib.nerf_dense_levels_bwd):
@@ -597,11 +668,22 @@ def _check_level_out(name: str, out: torch.Tensor, rows: int, N: int, dtypes, de
                          f"{out.dtype} strides {out.stride()} on {out.device}")
 
 
+def _check_sel(name: str, sel: torch.Tensor | None, k: int, rows: int, N: int, device) -> None:
+    """Raise unless ``sel`` is None or, under a k-corner plan (k < 8), a
+    contiguous int32 on ``device`` of [rows, N] (k = 1) or [k, rows, N]."""
+    if sel is None:
+        return
+    shape = (rows, N) if k == 1 else (k, rows, N)
+    if k == 8 or sel.shape != shape or sel.dtype != torch.int32 or not sel.is_contiguous() or sel.device != device:
+        raise ValueError(f"{name}: sel must be a contiguous {list(shape)} int32 on {device}, under a "
+                         f"k-corner plan (k < 8; here k = {k})")
+
+
 def hash_levels_fwd(spec: HashGridSpec, planes: torch.Tensor, x, y, z, *, sel: torch.Tensor | None = None,
                     out: torch.Tensor | None = None) -> torch.Tensor:
     """Hashed-level forward -> [2, Lh, N] from the full [2, total] float32
     planes and x, y, z [N] float32 in [0, 1]: the exact trilinear sum, or
-    (``spec.fwd_corners`` = 1) the k = 1 estimate.
+    (``spec.fwd_corners`` = k < 8) the k-corner estimate.
 
     out: optional [2, Lh, N] float32 or bf16 with contiguous rows and any
     plane stride (the hashed rows of the encode's output); the values are
@@ -610,39 +692,35 @@ def hash_levels_fwd(spec: HashGridSpec, planes: torch.Tensor, x, y, z, *, sel: t
 
     The exact mode on the card first packs the hashed columns into one
     bf16-pair word per entry (a [total - base] int32 buffer allocated here)
-    and reads one word per corner; the k = 1 mode is one thread per (level,
-    point) over a 2-D grid, with 32-bit entries (total < 2^31).
+    and reads one word per corner; the k-corner modes are one thread per
+    (level, point) over a 2-D grid, with 32-bit entries (total < 2^31).
 
-    sel: optional [Lh, N] int32 that receives the k = 1 plan (indices
-    relative to the first hashed level); the plain version fills it too.
+    sel: optional int32 that receives the plan (indices relative to the
+    first hashed level): [Lh, N] at k = 1, [k, Lh, N] at k >= 2 (the leader
+    first); the plain version fills it too.
     """
     _, hashed = _split_levels(spec)
-    Lh, N = len(hashed), x.shape[0]
+    Lh, N, k = len(hashed), x.shape[0], min(spec.fwd_corners, 8)
     if out is not None:
         _check_level_out("hash_levels_fwd", out, Lh, N, (torch.float32, torch.bfloat16), x.device)
+    _check_sel("hash_levels_fwd", sel, k, Lh, N, x.device)
     if _device_kind("hash_levels_fwd", x) == "cpu":
         res, plan = hash_levels_fwd_plain(spec, planes, x, y, z)
-        if sel is not None and plan is not None:
+        if sel is not None:
             sel.copy_(plan)
         return res if out is None else out.copy_(res)
-    k1 = spec.fwd_corners == 1
-    if k1 and planes.dim() == 2 and planes.shape[1] >= 2**31:
-        raise ValueError(f"hash_levels_fwd: planes hold {planes.shape[1]} columns; the k = 1 kernel takes "
+    if k < 8 and planes.dim() == 2 and planes.shape[1] >= 2**31:
+        raise ValueError(f"hash_levels_fwd: planes hold {planes.shape[1]} columns; the k-corner kernels take "
                          "fewer than 2^31")
     _check_positions("hash_levels_fwd", planes, x, y, z)
-    if sel is not None:
-        if not k1 or sel.shape != (Lh, N) or sel.dtype != torch.int32 or not sel.is_contiguous() \
-                or sel.device != x.device:
-            raise ValueError(f"hash_levels_fwd: sel must be a contiguous [{Lh}, {N}] int32 on "
-                             f"{x.device}, under fwd_corners = 1")
     if out is None:
         out = torch.empty(2, Lh, N, dtype=torch.float32, device=x.device)
     if N:
         base, scales, offsets, mask = _level_arrays(spec, hashed)
-        words = None if k1 else torch.empty(planes.shape[1] - base, dtype=torch.int32, device=x.device)
+        words = None if k < 8 else torch.empty(planes.shape[1] - base, dtype=torch.int32, device=x.device)
         err = _lib().nerf_hash_levels_fwd(
             planes.data_ptr(), planes.shape[1], base, x.data_ptr(), y.data_ptr(), z.data_ptr(), N,
-            Lh, scales.ctypes.data, offsets.ctypes.data, mask, int(k1), out.data_ptr(), out.stride(0),
+            Lh, scales.ctypes.data, offsets.ctypes.data, mask, k, _rinv(k), out.data_ptr(), out.stride(0),
             int(out.dtype == torch.bfloat16), 0 if sel is None else sel.data_ptr(),
             0 if words is None else words.data_ptr(), _stream(x),
         )
@@ -654,16 +732,17 @@ def hash_levels_fwd(spec: HashGridSpec, planes: torch.Tensor, x, y, z, *, sel: t
 def hash_levels_bwd(spec: HashGridSpec, g: torch.Tensor, x, y, z, out: torch.Tensor) -> torch.Tensor:
     """Table gradient of the hashed levels from the upstream gradient g
     [2, Lh, N], added into the hashed columns of the [2, total] float32
-    planes ``out`` and returned: exact, k = 1, or k = 1 over
-    ``spec.grad_levels`` drawn levels scaled Lh/gl, replaying the forward's
-    plan. g is bf16 or float32, each plane's [Lh, N] contiguous (a slice of
+    planes ``out`` and returned: exact, or g*coef to the b =
+    min(grad_corners, fwd_corners) planned corners (replaying the forward's
+    plan at b = fwd_corners), over all levels or over ``spec.grad_levels``
+    drawn levels scaled Lh/gl. g is bf16 or float32, each plane's [Lh, N] contiguous (a slice of
     the encode's [2, L, N] cotangent will do): the kernel reads it in place
     and widens each value to float32 (exact).
 
     The exact mode on the card merges each warp's runs of equal indices and
     adds each run's sums with one float2 atomic into a zeroed interleaved
     scratch ``[total - base, 2]`` float32, allocated here and added into
-    ``out`` by a second pass; the k = 1 modes add straight into ``out``."""
+    ``out`` by a second pass; the planned modes add straight into ``out``."""
     _, hashed = _split_levels(spec)
     if _device_kind("hash_levels_bwd", x) == "cpu":
         return hash_levels_bwd_plain(spec, g, x, y, z, out)
@@ -680,10 +759,11 @@ def hash_levels_bwd(spec: HashGridSpec, g: torch.Tensor, x, y, z, out: torch.Ten
         base, scales, offsets, mask = _level_arrays(spec, hashed)
         scale = float(np.float32(Lh / gl)) if mode == 2 else 1.0
         scratch = torch.zeros(total - base, 2, dtype=torch.float32, device=x.device) if mode == 0 else None
+        b = _grad_corners(spec)
         err = _lib().nerf_hash_levels_bwd(
             g.data_ptr(), g.stride(0), int(g.dtype == torch.bfloat16), total, base, x.data_ptr(), y.data_ptr(),
             z.data_ptr(), N, Lh,
-            scales.ctypes.data, offsets.ctypes.data, mask, mode, gl, scale, out.data_ptr(),
+            scales.ctypes.data, offsets.ctypes.data, mask, mode, gl, scale, b, _rinv(b), out.data_ptr(),
             0 if scratch is None else scratch.data_ptr(), _stream(x),
         )
         _raise_if_failed("hash_levels_bwd", err)
@@ -756,29 +836,31 @@ def dense_levels_fwd(spec: HashGridSpec, planes: torch.Tensor, x, y, z, dtype=to
                      sel: torch.Tensor | None = None, out: torch.Tensor | None = None) -> torch.Tensor:
     """Dense-level forward -> [2, Ld, N] from the full [2, total] float32
     planes and x, y, z [N] float32 in [0, 1]: the exact trilinear sum in
-    ``dtype``, or (``spec.dense_corners`` = 1) the k = 1 estimate in float32.
+    ``dtype``, or (``spec.dense_corners`` = k < 8) the k-corner estimate in
+    float32.
 
     out: optional [2, Ld, N] with contiguous rows and any plane stride (the
     dense rows of the encode's output), in ``dtype`` (exact) or in float32
-    or bf16 (k = 1: each value rounded as ``.to(out.dtype)`` rounds it, an
-    exact cast); the values are written into it and it is returned.
+    or bf16 (k-corner: each value rounded as ``.to(out.dtype)`` rounds it);
+    the values are written into it and it is returned.
 
     On the card the dense columns are first packed into one entry per
     column (``pack_pairs``: bf16 pairs, float2 in exact float32), and the
     kernel reads one entry per corner, one thread per point over the levels.
 
-    sel: optional [Ld, N] int32 that receives the k = 1 plan (entries of the
-    planes); the plain version fills it too.
+    sel: optional int32 that receives the plan (entries of the planes):
+    [Ld, N] at k = 1, [k, Ld, N] at k >= 2; the plain version fills it too.
     """
     dense, _ = _split_levels(spec)
     Ld, N = len(dense), x.shape[0]
-    k1 = _dense_mode(spec, Ld)[0] == 1
+    k = spec.dense_corners if _dense_mode(spec, Ld)[0] == 1 else 8
     if out is not None:
-        _check_level_out("dense_levels_fwd", out, Ld, N, (torch.float32, torch.bfloat16) if k1 else (dtype,),
+        _check_level_out("dense_levels_fwd", out, Ld, N, (torch.float32, torch.bfloat16) if k < 8 else (dtype,),
                          x.device)
+    _check_sel("dense_levels_fwd", sel, k, Ld, N, x.device)
     if _device_kind("dense_levels_fwd", x) == "cpu":
         res, plan = dense_levels_fwd_plain(spec, planes, x, y, z, dtype)
-        if sel is not None and plan is not None:
+        if sel is not None:
             sel.copy_(plan)
         return res if out is None else out.copy_(res)
     _check_dtype("dense_levels_fwd", dtype)
@@ -787,20 +869,15 @@ def dense_levels_fwd(spec: HashGridSpec, planes: torch.Tensor, x, y, z, dtype=to
     if planes.shape[1] < T or T >= 2**31:
         raise ValueError(f"dense_levels_fwd: planes hold {planes.shape[1]} columns, the dense levels "
                          f"{T} (the kernel takes fewer than 2^31)")
-    if sel is not None:
-        if not k1 or sel.shape != (Ld, N) or sel.dtype != torch.int32 or not sel.is_contiguous() \
-                or sel.device != x.device:
-            raise ValueError(f"dense_levels_fwd: sel must be a contiguous [{Ld}, {N}] int32 on "
-                             f"{x.device}, under dense_corners = 1")
     if out is None:
-        out = torch.empty(2, Ld, N, dtype=torch.float32 if k1 else dtype, device=x.device)
+        out = torch.empty(2, Ld, N, dtype=torch.float32 if k < 8 else dtype, device=x.device)
     if N:
         scales, res, offsets = _dense_level_arrays(dense)
-        mode = 2 if k1 else int(dtype == torch.bfloat16)
+        mode = int(dtype == torch.bfloat16) if k == 8 else 2 if k == 1 else 3
         pairs = pack_pairs(planes[:, :T], f32=mode == 0)
         err = _lib().nerf_dense_levels_fwd(
             pairs.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(), N, Ld, scales.ctypes.data,
-            res.ctypes.data, offsets.ctypes.data, mode, out.data_ptr(), out.stride(0),
+            res.ctypes.data, offsets.ctypes.data, mode, k, _rinv(k), out.data_ptr(), out.stride(0),
             int(out.dtype == torch.bfloat16), 0 if sel is None else sel.data_ptr(), _stream(x),
         )
         _raise_if_failed("dense_levels_fwd", err)
@@ -811,9 +888,10 @@ def dense_levels_fwd(spec: HashGridSpec, planes: torch.Tensor, x, y, z, dtype=to
 def dense_levels_bwd(spec: HashGridSpec, g: torch.Tensor, x, y, z, dtype=torch.float32):
     """K3's inputs (idx [K] int32, v0, v1 [K] float32) for the dense levels'
     table gradient from their upstream gradient g [2, Ld, N] (taken in
-    ``dtype``; each plane's [Ld, N] contiguous): exact, k = 1 (replaying the
-    forward's plan) or over ``spec.dense_grad_levels`` drawn levels scaled
-    Ld/gd, as ``dense_levels_bwd_plain`` describes."""
+    ``dtype``; each plane's [Ld, N] contiguous): exact, to the b planned
+    corners (replaying the forward's plan at b = dense_corners) or over
+    ``spec.dense_grad_levels`` drawn levels scaled Ld/gd, as
+    ``dense_levels_bwd_plain`` describes."""
     dense, _ = _split_levels(spec)
     if _device_kind("dense_levels_bwd", x) == "cpu":
         return dense_levels_bwd_plain(spec, g, x, y, z, dtype)
@@ -827,7 +905,8 @@ def dense_levels_bwd(spec: HashGridSpec, g: torch.Tensor, x, y, z, dtype=torch.f
     if g.device != x.device:
         raise ValueError(f"dense_levels_bwd: g on {g.device}, x on {x.device}")
     mode, gd = _dense_mode(spec, Ld)
-    K = {0: Ld * 8, 1: Ld, 2: gd * 8}[mode] * N
+    b = _dense_grad_corners(spec) if mode == 1 else 8
+    K = {0: Ld * 8, 1: Ld * b, 2: gd * 8}[mode] * N
     idx = torch.empty(K, dtype=torch.int32, device=x.device)
     v0 = torch.empty(K, dtype=torch.float32, device=x.device)
     v1 = torch.empty(K, dtype=torch.float32, device=x.device)
@@ -837,7 +916,7 @@ def dense_levels_bwd(spec: HashGridSpec, g: torch.Tensor, x, y, z, dtype=torch.f
         err = _lib().nerf_dense_levels_bwd(
             g.data_ptr(), g.stride(0), int(dtype == torch.bfloat16), x.data_ptr(), y.data_ptr(),
             z.data_ptr(), N, Ld, scales.ctypes.data, res.ctypes.data, offsets.ctypes.data, mode, gd,
-            scale, idx.data_ptr(), v0.data_ptr(), v1.data_ptr(), _stream(x),
+            scale, b, _rinv(b), idx.data_ptr(), v0.data_ptr(), v1.data_ptr(), _stream(x),
         )
         _raise_if_failed("dense_levels_bwd", err)
         launch_counts["dense_levels_bwd"] += 1
@@ -902,7 +981,6 @@ def hash_encode_planar(
       Each level kind's kernel writes its rows in ``dtype`` (the hashed
       levels' float32 values rounded once, as nerfjax's concat casts them).
     """
-    check_supported(spec)
     if spec.n_features != 2:
         raise ValueError(f"the planar encode needs 2 features, got {spec.n_features}")
     enc = _HashEncode.apply(planes, x, y, z, spec, dtype)

@@ -14,14 +14,15 @@ single pass) run in float32, the backward runs the hash-grid gradient
 kernels once per field pass, and AdamW steps with the OneCycle learning
 rate.
 
-Ported: the tuned single-pass NGP path (``cfg/blender_scene_tuned.yml``),
-also with ``hash_dense_grad_levels`` > 0 or ``hash_dense_corners: 1``, and
-the coarse->pdf->fine path of the reference's configs
-(``cfg/blender_scene.yml``: ``single_pass: false``, with or without the
-grid, either CDF sampler, the exact estimators). Not ported, each raising
-``NotImplementedError``: ``hash_fwd_corners``/``hash_grad_corners`` and
-``hash_dense_corners`` of 2..7, vanilla NeRF (``ngp: false``) and more than
-one card (``mesh_shape``, ``shard_hash_table``).
+Ported: the single-pass NGP paths (``cfg/blender_scene_tuned.yml``,
+``cfg/blender_scene_fast.yml``) with every train-only estimator
+(``hash_fwd_corners``, ``hash_grad_corners`` and ``hash_dense_corners`` of
+1..8: k = 1 or leader + residual; ``hash_grad_levels``,
+``hash_dense_grad_levels``), and the coarse->pdf->fine path of the
+reference's configs (``cfg/blender_scene.yml``: ``single_pass: false``,
+with or without the grid, either CDF sampler). Not ported, each raising
+``NotImplementedError``: vanilla NeRF (``ngp: false``) and more than one
+card (``mesh_shape``, ``shard_hash_table``).
 
 Randomness: nerfjax folds the step into its key (``fold_in(key, step)``),
 so a resumed run draws what an uninterrupted one would. The port reseeds
@@ -117,10 +118,6 @@ def build_fields(cfg: Mapping, train: bool = False, device="cpu"):
             f"hash_extra_dense_levels={extra_dense} would store a res-{worst['res']} "
             f"level dense ({worst['size']:,} entries) — lower it"
         )
-    if train:
-        from nerfjax_torch.ops.hash_encode import check_supported
-
-        check_supported(spec)
     field = InstantNGP(
         nerf_type=nerf_type,
         n_levels=n_levels,

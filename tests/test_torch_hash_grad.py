@@ -129,11 +129,3 @@ def test_scatter_wrappers_add_into_out(wrapper):
     for bad in (torch.zeros(3, total), torch.zeros(2, total, dtype=torch.float64), torch.zeros(total, 2).t()):
         with pytest.raises(ValueError):
             call(bad)
-
-
-@pytest.mark.parametrize("field", ["fwd_corners", "grad_corners"])
-def test_k2_estimators_raise(field):
-    spec = HashGridSpec(**BASE, **{field: 2})
-    x = torch.zeros(4)
-    with pytest.raises(NotImplementedError):
-        he.hash_encode_planar(spec, torch.zeros(2, spec.total_table_size), x, x, x)

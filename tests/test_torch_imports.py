@@ -67,7 +67,8 @@ def test_every_port_module_imports_without_nerfjax_and_jax():
     assert out.returncode == 0, out.stderr
     mods = out.stdout.split()
     assert len(mods) >= 24
-    for name in ("render", "render_image", "rays", "probes", "cli.render", "cli.eval_psnr"):
+    for name in ("render", "render_image", "rays", "probes", "cli.render", "cli.eval_psnr", "postprocess",
+                 "formats.tiff", "formats.vti", "cli.post_process_vol", "cli.write_format"):
         assert f"nerfjax_torch.{name}" in mods
 
 

@@ -683,6 +683,198 @@ def test_render_image_runs_the_head_kernel(cuda_device):
     assert fused_mlp.launch_counts["fused_ngp_head"] >= 2 and fused_mlp.launch_counts["fused_ngp_head"] % 2 == 0
 
 
+# -- leader + residual (k >= 2) ------------------------------------------------------
+
+DROP_IN_LR = dict(n_levels=16, log2_hashmap_size=19)  # cfg/blender_scene_fast.yml's model: 4 dense + 12 hashed
+
+
+def _lr_positions(spec, N: int, seed: int, device):
+    """x, y, z [N] on ``device``: ray samples (neighbouring lanes share
+    cells), then the plan's edge cases at the front: the origin (the 8
+    weights tie), (1, 1, 1) (a dense corner of weight 1: total = 0) and
+    lattice points of every hashed level (total = 0)."""
+    x, y, z = (c[:N].contiguous() for c in _ray_samples(-(-N // 64), 64, seed, device))
+    _, hashed = hash_encode._split_levels(spec)
+    lattice = torch.tensor(np.concatenate([(np.arange(1, 5) - 0.5) / lp["scale"] for lp in hashed]),
+                           dtype=torch.float32, device=device)
+    for c in (x, y, z):
+        c[0], c[1] = 0.0, 1.0
+        c[2 : 2 + lattice.numel()] = lattice
+    return x, y, z
+
+
+def _scatter_bound(idx, v0, v1, total: int, device, prior: float = 0.0):
+    """2 * max(n, 8) * 2^-24 * (|prior| + sum|terms|) per entry of n terms
+    added into ``prior``: two f32 sums of the same terms in any order lie
+    within it."""
+    zeros = lambda: torch.zeros(2, total, device=device)  # noqa: E731
+    one = torch.ones_like(v0)
+    mass = hash_encode.table_grad_scatter_plain(idx, v0.abs(), v1.abs(), zeros())
+    count = hash_encode.table_grad_scatter_plain(idx, one, one, zeros())
+    return 2.0 * count.clamp_min(8.0) * 2.0**-24 * (mass + abs(prior)) + 1e-30
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [2, 3, 7])
+@pytest.mark.parametrize("kind", ["hashed", "dense"])
+@pytest.mark.parametrize("spec_kw", [TUNED, DROP_IN_LR], ids=["tuned", "fast"])
+def test_lr_forward_matches_plain(cuda_device, spec_kw, kind, k, dtype):
+    """K1 (hash_fwd_corners = k) and K4 (hash_dense_corners = k) at k >= 2
+    equal their plain versions with torch.equal, output (into a slice of the
+    encode's layout in dtype) and plan (sel [k, L, N]), at the tuned and the
+    fast cfg's specs; one launch each."""
+    spec = HashGridSpec(**spec_kw, **({"fwd_corners": k} if kind == "hashed" else {"dense_corners": k}))
+    dense, hashed = hash_encode._split_levels(spec)
+    rows = len(hashed if kind == "hashed" else dense)
+    rng = np.random.default_rng(60 + k)
+    planes = torch.from_numpy(rng.uniform(-1, 1, (2, spec.total_table_size)).astype(np.float32)).to(cuda_device)
+    N = 100_003
+    x, y, z = _lr_positions(spec, N, 61, cuda_device)
+    buf = torch.empty(2, len(dense) + len(hashed), N, dtype=dtype, device=cuda_device)
+    out = buf[:, len(dense):] if kind == "hashed" else buf[:, : len(dense)]
+    sel = torch.full((k, rows, N), -1, dtype=torch.int32, device=cuda_device)
+    name = "hash_levels_fwd" if kind == "hashed" else "dense_levels_fwd"
+    before = hash_encode.launch_counts[name]
+    if kind == "hashed":
+        got = hash_encode.hash_levels_fwd(spec, planes, x, y, z, sel=sel, out=out)
+        ref, plan = hash_encode.hash_levels_fwd_plain(spec, planes, x, y, z)
+    else:
+        got = hash_encode.dense_levels_fwd(spec, planes, x, y, z, dtype, sel=sel, out=out)
+        ref, plan = hash_encode.dense_levels_fwd_plain(spec, planes, x, y, z, dtype)
+    torch.cuda.synchronize()
+    assert hash_encode.launch_counts[name] == before + 1
+    assert plan.shape == (k, rows, N) and torch.equal(sel.long(), plan)
+    assert got.data_ptr() == out.data_ptr() and _same_bits(got, ref.to(dtype))
+
+
+LR_BWD = [(8, 2, 0), (8, 3, 2), (2, 8, 0), (3, 3, 2), (7, 7, 0), (7, 2, 2), (3, 1, 0)]
+
+
+@pytest.mark.parametrize("gdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fwd,grad,gl", LR_BWD)
+def test_lr_hash_levels_bwd_matches_plain(cuda_device, fwd, grad, gl, gdt):
+    """K2 with b = min(grad, fwd) planned corners per row (b >= 2: leader +
+    residual; b = 1 under a k >= 2 forward: the k = 1 plan), over all levels
+    or gl drawn levels ((g*coef)*(Lh/gl)), from a bf16 or f32 cotangent,
+    within the atomic-order bound of the plain scatter of the same terms,
+    and adding into planes that hold values; one launch."""
+    spec = HashGridSpec(**DROP_IN_LR, fwd_corners=fwd, grad_corners=grad, grad_levels=gl)
+    _, hashed = hash_encode._split_levels(spec)
+    N, total = 100_003, spec.total_table_size
+    x, y, z = _lr_positions(spec, N, 62, cuda_device)
+    g = torch.from_numpy(np.random.default_rng(63).normal(size=(2, len(hashed), N)).astype(np.float32))
+    g = g.to(cuda_device, gdt)
+    terms = hash_encode.hash_bwd_entries(spec, g, x, y, z)
+    assert terms[0].numel() == min(grad, fwd) * (gl or len(hashed)) * N
+    zeros = lambda: torch.zeros(2, total, device=cuda_device)  # noqa: E731
+    before = hash_encode.launch_counts["hash_levels_bwd"]
+    got = hash_encode.hash_levels_bwd(spec, g, x, y, z, zeros())
+    ref = hash_encode.hash_levels_bwd_plain(spec, g, x, y, z, zeros())
+    torch.cuda.synchronize()
+    assert hash_encode.launch_counts["hash_levels_bwd"] == before + 1
+    assert bool(((got - ref).abs() <= _scatter_bound(*terms, total, cuda_device)).all())
+    assert got[:, : hashed[0]["offset"]].abs().max() == 0
+    prior = torch.ones(2, total, device=cuda_device)  # K2 adds into planes that hold values
+    into = hash_encode.hash_levels_bwd(spec, g, x, y, z, prior.clone())
+    ref = hash_encode.hash_levels_bwd_plain(spec, g, x, y, z, prior.clone())
+    assert bool(((into - ref).abs() <= _scatter_bound(*terms, total, cuda_device, prior=1.0)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dc,grad", [(2, 8), (3, 3), (7, 8), (7, 2), (3, 1)])
+def test_lr_dense_levels_bwd_matches_plain(cuda_device, dc, grad, dtype):
+    """K5 with b = min(grad, dense_corners) planned corners (b >= 2: leader
+    + residual, entries in (level, draw, point) order) equals its plain
+    version with torch.equal; K3 on its output within the atomic-order
+    bound, inside the dense columns."""
+    spec = HashGridSpec(**DROP_IN_LR, dense_corners=dc, grad_corners=grad)
+    dense, _ = hash_encode._split_levels(spec)
+    N, total, b = 100_003, spec.total_table_size, min(grad, dc)
+    x, y, z = _lr_positions(spec, N, 64, cuda_device)
+    g = torch.from_numpy(np.random.default_rng(65).normal(size=(2, len(dense), N)).astype(np.float32))
+    g = g.to(cuda_device, dtype)
+    before = hash_encode.launch_counts["dense_levels_bwd"]
+    got = hash_encode.dense_levels_bwd(spec, g, x, y, z, dtype)
+    ref = hash_encode.dense_levels_bwd_plain(spec, g, x, y, z, dtype)
+    torch.cuda.synchronize()
+    assert hash_encode.launch_counts["dense_levels_bwd"] == before + 1
+    assert got[0].numel() == b * len(dense) * N
+    for a, r in zip(got, ref):
+        assert a.dtype == r.dtype and torch.equal(a, r)
+    zeros = lambda: torch.zeros(2, total, device=cuda_device)  # noqa: E731
+    scattered = hash_encode.table_grad_scatter(*got, zeros())
+    plain = hash_encode.table_grad_scatter_plain(*got, zeros())
+    assert bool(((scattered - plain).abs() <= _scatter_bound(*got, total, cuda_device)).all())
+    assert scattered[:, hash_encode._dense_width(dense):].abs().max() == 0
+
+
+def _small_step(cfg: dict, device):
+    """A fresh train state for ``cfg`` on ``device`` with its grid updated
+    once (fixed jitter), and a batch of 256 seeded rays aimed through the
+    [-0.5, 0.5]^3 cube: (state, settings, batch)."""
+    from nerfjax_torch.ops.occupancy import draw_update_jitter
+    from nerfjax_torch.train import TrainSettings, make_train_state, update_occupancy
+
+    settings = TrainSettings.from_cfg(cfg, 100)
+    state = make_train_state(cfg, settings, seed=0, device=device)
+    rng = np.random.default_rng(66)
+    o = rng.normal(size=(256, 3)).astype(np.float32)
+    o = 2.5 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    d = rng.uniform(-0.5, 0.5, (256, 3)).astype(np.float32) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    batch = {"rays_o": o, "rays_d": d, "rgb": rng.uniform(size=(256, 3)).astype(np.float32),
+             "t_near": np.full(256, 1.0, np.float32), "t_far": np.full(256, 4.0, np.float32)}
+    jitter = draw_update_jitter(settings.occ_spec(), torch.Generator().manual_seed(1), "cpu")
+    update_occupancy(state, jitter=jitter.to(device))
+    return state, settings, {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def test_fast_step_on_the_card_matches_the_cpu(cuda_device):
+    """One step of cfg/blender_scene_fast.yml's estimators (exact forward,
+    the k = 2 table gradient) at a small size in float32, card (kernels)
+    against CPU (plain versions), with the CPU's grid and the same sampler
+    uniforms: losses within 1e-5 relative, every gradient within rtol 1e-4
+    (atol 1e-4 x its largest entry); K2 ran with b = 2."""
+    from nerfjax_torch.train import train_step
+
+    cfg = {"ngp": True, "nerf_type": "small", "hash_n_levels": 8, "single_pass": True, "occupancy_grid": True,
+           "occ_resolution": 16, "occ_segments": 8, "N_samples": 16, "N_importance": 32, "precision": "fp32",
+           "hash_grad_corners": 2, "lr": 5e-3}
+    cpu, settings, batch_c = _small_step(cfg, "cpu")
+    card, _, batch_k = _small_step(cfg, cuda_device)
+    card.occ_grid = cpu.occ_grid.to(cuda_device)
+    xi = torch.rand(256, 48, generator=torch.Generator().manual_seed(2))
+    cpu.step = card.step = 1
+    m_cpu = train_step(cpu, batch_c, u_strat=xi)
+    hash_encode.reset_launch_counts()
+    m_card = train_step(card, batch_k, u_strat=xi.to(cuda_device))
+    torch.cuda.synchronize()
+    assert hash_encode._grad_corners(card.field.spec) == 2 and hash_encode.launch_counts["hash_levels_bwd"] == 1
+    assert abs(float(m_card["loss_fine"]) - float(m_cpu["loss_fine"])) <= 1e-5 * float(m_cpu["loss_fine"])
+    for (name, pc), pk in zip(cpu.field.named_parameters(), card.field.parameters()):
+        gc, gk = pc.grad, pk.grad.cpu()
+        assert torch.allclose(gk, gc, rtol=1e-4, atol=1e-4 * float(gc.abs().max())), name
+
+
+@pytest.mark.parametrize("knob", [{"hash_grad_corners": 2, "hash_fwd_corners": 8, "hash_grad_levels": 0},
+                                  {"hash_fwd_corners": 2, "hash_grad_corners": 2, "hash_grad_levels": 2,
+                                   "hash_dense_corners": 2}], ids=["fast", "k2"])
+def test_lr_train_step_launches_the_kernels(cuda_device, knob):
+    """A step with k >= 2 estimators on the card goes through K1-K5 (each
+    launched once in the step) with no NaN."""
+    from nerfjax_torch.train import train_step
+
+    cfg = {"ngp": True, "nerf_type": "small", "hash_n_levels": 8, "hash_extra_dense_levels": 1,
+           "single_pass": True, "occupancy_grid": True, "occ_resolution": 16, "occ_segments": 8,
+           "N_samples": 8, "N_importance": 16, **knob}
+    state, _, batch = _small_step(cfg, cuda_device)
+    hash_encode.reset_launch_counts()
+    m = train_step(state, batch)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(m["loss_fine"]))
+    assert all(n >= 1 for n in hash_encode.launch_counts.values()), hash_encode.launch_counts
+
+
 # -- the probe kernels ---------------------------------------------------------------
 
 from nerfjax_torch import probes  # noqa: E402

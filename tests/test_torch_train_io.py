@@ -98,8 +98,7 @@ def test_default_device_needs_a_card(tmp_path, monkeypatch):
         train(_cfg(tmp_path))
 
 
-@pytest.mark.parametrize("over", [{"hash_grad_corners": 2}, {"hash_fwd_corners": 2}, {"hash_dense_corners": 2},
-                                  {"hash_dense_corners": 7}, {"shard_hash_table": True},
+@pytest.mark.parametrize("over", [{"shard_hash_table": True},
                                   {"ngp": False, "single_pass": False}, {"mesh_shape": [1, 1]}])
 def test_unported_options_raise(tmp_path, over):
     with pytest.raises(NotImplementedError):

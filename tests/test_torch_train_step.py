@@ -2,15 +2,18 @@
 around it (schedule, AdamW, batches), at a small size of the tuned
 single-pass configuration (NGP small, 8 levels, 1 promoted dense level,
 24 samples per ray, 16^3 occupancy grid in 4 partitions, 8 segments, k = 1
-forward and backward over 2 drawn levels) and of the drop-in configuration
-of cfg/blender_scene.yml (two passes, 8 stratified + 16 importance samples,
+forward and backward over 2 drawn levels), of the fast configuration of
+cfg/blender_scene_fast.yml (16 + 32 samples from the grid's exact CDF
+sampler, the exact forward and the k = 2 leader + residual table gradient;
+2 dense and 6 hashed levels) and of the drop-in configuration of
+cfg/blender_scene.yml (two passes, 8 stratified + 16 importance samples,
 no grid, the exact estimators; 2 dense and 6 hashed levels).
 
 nerfjax's step runs under ``jax.disable_jit()``, as the body of
 ``make_train_step``'s step (train.py:392-425) spells it: the occupancy
 update, ``jax.value_and_grad(loss_fn)`` and the optax AdamW update. Compiled,
 XLA's CPU backend contracts ``o + d*z`` into an FMA, which moves the
-position bits the k = 1 draws are keyed on; op by op, JAX rounds the
+position bits the k = 1 and k = 2 draws are keyed on; op by op, JAX rounds the
 product and the sum separately, as the port does. The port gets the
 uniforms nerfjax draws (``u_strat`` of the first sampler, ``u_pdf`` of the
 importance sampler, the jitter of the occupancy update), recomputed here
@@ -53,6 +56,13 @@ CFG = {
 # cfg/blender_scene.yml's sampler and estimators (its keys over CFG's)
 DROP_IN = {"occupancy_grid": False, "single_pass": False, "occ_fast_cdf": False, "hash_extra_dense_levels": 0,
            "hash_grad_corners": 8, "hash_fwd_corners": 8, "hash_grad_levels": 0}
+# cfg/blender_scene_fast.yml's sampler and estimators (its keys over CFG's): 16 + 32 samples from the
+# grid's exact CDF sampler, the whole grid per update, the exact forward and the k = 2 leader + residual
+# table gradient. The grid keeps CFG's 8 segments: over the fast cfg's 128, nerfjax's CPU cumsum and sum
+# are not sequential (the port's are), so the sample positions, and with them the k = 2 draws keyed on
+# their bits, differ at some points (ROADMAP Queue 3)
+FAST = {"N_samples": 16, "N_importance": 32, "hash_extra_dense_levels": 0, "hash_grad_corners": 2,
+        "hash_fwd_corners": 8, "hash_grad_levels": 0, "occ_fast_cdf": False, "occ_update_partitions": 1}
 CASES = {
     "fp32": {"precision": "fp32"},
     "fp32_twin": {"precision": "fp32", "dist_last": 1e6, "grad_clip": 1.0},
@@ -61,6 +71,8 @@ CASES = {
     "bf16_dc1": {"hash_dense_corners": 1},
     "dropin_fp32": {**DROP_IN, "precision": "fp32"},
     "dropin_bf16": DROP_IN,
+    "fast_fp32": {**FAST, "precision": "fp32"},
+    "fast_bf16": FAST,
 }
 
 
