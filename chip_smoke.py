@@ -176,6 +176,24 @@ and the chain's tail:
      float32 (phase 9's rule) and in bf16 (the CPU tests' bf16 step
      bound).
 
+Added for the fast op point's quality and the redesign of K2 b >= 2:
+
+  Q. (after 7e) the quality phase: benchmarks/psnr_parity.py's protocol on
+     the port (parity_cfg: arms spass2, the fast cfg's estimators, and
+     spass8, the exact gradient; NGP-medium, batch 2048, 600 steps on
+     tests/synthetic.make_ray_npz's sphere, seeds 0-2; eval at 64 + 128 on
+     4,096 held-out rays of seed 9999): each run's eval PSNR beside
+     nerfjax's recorded one, each arm's mean and its verdict against
+     nerfjax's three-seed range (reported; a run below
+     PARITY_RUN_FLOOR_DB or not finite, or an arm mean below
+     PARITY_FLOOR_DB, fails). Alone: python3 chip_smoke.py --only quality
+     [--seeds 0-7];
+  7d. every hash kernel timed at the fast step's captured call, K2 b = 2
+     beside its adds (k2_lr_atomic_count) and the first design's 2*b*Lh*N;
+  every timing: a (p, k, k, p) set whose two kernel or two plain runs
+     differ by more than TIMING_AGREE is taken again, up to TIMING_SETS
+     sets, every run printed, the medians reported.
+
 The last two lines are a JSON object with each kernel's launches (summed
 over the main paths: the 512^3 extraction, the tuned, drop-in and fast
 train() runs, the k2 knob steps, the eval renders, the probe entry point),
@@ -940,19 +958,39 @@ def _check_scatter(label: str, got, ref, mass, count) -> float:
     return float(err.max())
 
 
+TIMING_SETS = 3  # (p, k, k, p) sets a timing takes at most, until one set's two runs of each agree
+TIMING_AGREE = 1.25  # the largest ratio between two runs of one set that counts as agreement
+
+
+def _agree(a: float, b: float) -> bool:
+    return max(a, b) <= TIMING_AGREE * min(a, b)
+
+
 def _time_kernel(kern, plain, library, bound, library_name: str = "index_add_", fill=None) -> dict:
     """Device ms per call (_time_ms) of a kernel's wrapper and its plain
-    version (runs p, k, k, p), of its one-call library yardstick where
-    there is one (runs l, l), beside its bound (or None); and the wrapper's
-    wall ms per call (_wall_ms, the host's Python included). ``fill``: the
-    caller's zero fill of the columns a scatter adds into, which kern,
-    plain and library leave out (their adds pile up over the runs); it is
-    timed alone and in front of the wrapper (the combined figure)."""
-    runs = (_time_ms(plain), _time_ms(kern), _time_ms(kern), _time_ms(plain))
+    version, in sets of runs p, k, k, p, of its one-call library yardstick
+    where there is one (runs l, l), beside its bound (or None); and the
+    wrapper's wall ms per call (_wall_ms, the host's Python included).
+    A set whose two kernel runs or two plain runs differ by more than
+    TIMING_AGREE times is taken again, up to TIMING_SETS sets; every run is
+    kept and ms and plain_ms are the medians over all sets' runs. Raises
+    if no set agrees. ``fill``: the caller's zero fill of the columns a
+    scatter adds into, which kern, plain and library leave out (their adds
+    pile up over the runs); it is timed alone and in front of the wrapper
+    (the combined figure)."""
+    sets = []
+    for _ in range(TIMING_SETS):
+        sets.append((_time_ms(plain), _time_ms(kern), _time_ms(kern), _time_ms(plain)))
+        if _agree(sets[-1][1], sets[-1][2]) and _agree(sets[-1][0], sets[-1][3]):
+            break
+    else:
+        raise AssertionError(f"{TIMING_SETS} timing sets (p, k, k, p) in a row disagree by more than "
+                             f"{TIMING_AGREE}x: " + "; ".join(", ".join(f"{v * 1e3:.1f}" for v in r) for r in sets))
     lib = (_time_ms(library), _time_ms(library)) if library is not None else ()
-    t = {"ms": (runs[1] + runs[2]) / 2, "plain_ms": (runs[0] + runs[3]) / 2,
+    t = {"ms": float(np.median([r[i] for r in sets for i in (1, 2)])),
+         "plain_ms": float(np.median([r[i] for r in sets for i in (0, 3)])),
          "library_ms": sum(lib) / 2 if lib else None, "library_name": library_name, "bound": bound,
-         "runs": runs + lib, "wall_ms": _wall_ms(kern)}
+         "sets": sets, "library_runs": lib, "wall_ms": _wall_ms(kern)}
     if fill is not None:
         t["fill_ms"] = _time_ms(fill)
         t["with_fill_ms"] = _time_ms(lambda: (fill(), kern()))
@@ -960,16 +998,18 @@ def _time_kernel(kern, plain, library, bound, library_name: str = "index_add_", 
 
 
 def _timing_line(t: dict) -> str:
-    r = ", ".join(f"{v * 1e3:.1f}" for v in t["runs"])
+    r = " | ".join(", ".join(f"{v * 1e3:.1f}" for v in runs) for runs in t["sets"])
+    if t["library_ms"] is not None:
+        r += " | " + ", ".join(f"{v * 1e3:.1f}" for v in t["library_runs"])
     lib = "" if t["library_ms"] is None else f", {t['library_name']} {t['library_ms'] * 1e3:.1f} us"
-    order = "p,k,k,p,l,l" if t["library_ms"] is not None else "p,k,k,p"
+    order = ("p,k,k,p" + " | p,k,k,p" * (len(t["sets"]) - 1) + (" | l,l" if t["library_ms"] is not None else ""))
     bound = "" if t["bound"] is None else f", bound {t['bound'][0] * 1e3:.1f} us ({t['bound'][1]})"
     if "bound_f32_out" in t:  # K1: the bound had it written a float32 output; its random reads
         bound += (f" (with a float32 output {t['bound_f32_out'][0] * 1e3:.1f} us; {t['sectors']:,} random 4-byte "
                   f"reads, one 32-byte sector each: {t['sectors'] * 32 / t['ms'] / 1e9:.2f} TB/s of sectors)")
     fill = "" if "fill_ms" not in t else (f"; net of the caller's zero fill, which takes {t['fill_ms'] * 1e3:.1f} us "
                                           f"alone; fill + kernel {t['with_fill_ms'] * 1e3:.1f} us")
-    return (f"device: kernel {t['ms'] * 1e3:.1f} us, plain {t['plain_ms'] * 1e3:.1f} us{lib} per call "
+    return (f"device: kernel {t['ms'] * 1e3:.1f} us, plain {t['plain_ms'] * 1e3:.1f} us{lib} per call, medians "
             f"(runs {order}: {r}){bound}; wall per kernel call {t['wall_ms'] * 1e3:.1f} us{fill}")
 
 
@@ -1269,12 +1309,18 @@ def step_kernels_vs_plain(cap: dict, label: str, stats: dict, timed=()) -> dict:
                lambda: he.hash_levels_bwd_plain(spec, g, x, y, z, buf), None, k2_bound, buf[:, base:].zero_)
         checked.append(f"K2 {['exact', f'b={b}', f'b={b} over {gl} of {Lh} levels'][mode]} within the atomic-order "
                        f"bound, max |err| {err:.3g}")
+        atomics = None
         if mode == 0:
             atomics = {"first": 16 * Lh * N, "runs": he.k2_atomic_count(spec, x, y, z)}
             checked.append(f"K2 exact's atomics: {atomics['runs']:,} float2 adds of merged runs (the first design's "
                            f"16*Lh*N: {atomics['first']:,} float adds)")
-            if "hash_levels_bwd" in out:
-                out["hash_levels_bwd"]["atomics"] = atomics
+        elif b >= 2 and mode == 1:
+            atomics = {"first": 2 * b * Lh * N, "runs": 2 * he.k2_lr_atomic_count(spec, g, x, y, z)}
+            checked.append(f"K2 b={b}'s atomics: {atomics['runs']:,} float adds of merged runs that hold a nonzero "
+                           f"term ({int(he.k2_lr_runs(spec, x, y, z).sum()):,} runs of {b * Lh * N:,} terms; "
+                           f"the first design's 2*b*Lh*N: {atomics['first']:,} float adds)")
+        if atomics is not None and "hash_levels_bwd" in out:
+            out["hash_levels_bwd"]["atomics"] = atomics
 
     phase(f"hash kernels at the {label} (N={N:,}, {Ld} dense + {Lh} hashed levels): " + "; ".join(checked))
     for name, t in out.items():
@@ -1761,9 +1807,154 @@ def train_fast(tmp: Path, stats: dict) -> dict:
         raise AssertionError(f"fast: K2's plan holds {K:,} terms, not b = 2 per hashed level and point")
     phase(f"fast step: K2 plans b = 2 corners (leader + 1 residual draw): {K:,} terms over {len(hashed)} levels x "
           f"{x.shape[0]:,} points")
-    timings = step_kernels_vs_plain(cap, "fast step", stats, ("hash_levels_bwd",))
+    timings = step_kernels_vs_plain(cap, "fast step", stats, STEP_KERNELS)
     return {"launches": launches, "ms_per_step": med, "timings": timings, "psnr": (first, last), "busy_ms": busy,
             "traced_ms": traced, "idle": idle}
+
+
+# benchmarks/psnr_parity.py's protocol (run_one :267-319, _cfg :75-215,
+# _eval_psnr :238-264), repeated on the port: NGP-medium, batch 2048, 600
+# steps (12 epochs of 50) on tests/synthetic.py's sphere, eval at uniform
+# 64 + 128 on 4,096 held-out rays of seed 9999
+PARITY_BATCH = 2048
+PARITY_STEPS = 600
+PARITY_STEPS_PER_EPOCH = 50  # psnr_parity.STEPS_PER_EPOCH: the training NPZ holds batch * 50 rays
+PARITY_EVAL_RAYS = 4096
+PARITY_EVAL_SEED = 9999
+PARITY_EVAL_SAMPLES = (64, 128)
+PARITY_SEEDS = (0, 1, 2)
+# nerfjax's eval PSNR in dB for seeds 0, 1, 2 (benchmarks/psnr_parity.json:
+# sphere, medium, batch 2048, 600 steps): a quality number of the method,
+# not a time
+PARITY_NERFJAX_DB = {"spass2": (32.091, 32.010, 31.625), "spass8": (33.117, 31.066, 31.854)}
+PARITY_FLOOR_DB = 30.0  # the least mean eval PSNR of an arm's seeds
+# the least eval PSNR of every run: a step that does not learn stays near the
+# sphere's first PSNR (~7 dB), while a healthy run of this protocol spreads
+# over a few dB by seed (on an H100 spass2 seed 1 lands at 29.6-29.7 dB;
+# nerfjax's spass8 seeds span 31.07-33.12)
+PARITY_RUN_FLOOR_DB = 25.0
+PARITY_SEED_SLACK_DB = 0.5  # a run in range lies at most this far below nerfjax's lowest seed
+
+
+def parity_cfg(arm: str, rays_file: Path, out_dir: Path):
+    """The port's copy of psnr_parity._cfg(tag, arm, 2048, 600, rays_file,
+    nerf_type="medium") for arms "spass2" (single pass, 16 + 32 samples from
+    the 128-segment occupancy CDF, the exact forward, hash_grad_corners 2:
+    the fast cfg's estimators) and "spass8" (the same, exact gradient),
+    overlaid on the port's base defaults as _cfg overlays nerfjax's;
+    tests/test_torch_quality_protocol.py holds it equal to _cfg on every
+    key the port reads."""
+    from nerfjax_torch.config import ConfigNode, with_defaults
+
+    return with_defaults(ConfigNode({
+        "scene_name": out_dir.name, "ngp": True, "nerf_type": "medium", "batch_size": PARITY_BATCH,
+        "num_epochs": PARITY_STEPS // PARITY_STEPS_PER_EPOCH, "lr": 5e-4, "N_samples": 16, "N_importance": 32,
+        "precision": "bf16", "occupancy_grid": True, "hash_grad_corners": {"spass2": 2, "spass8": 8}[arm],
+        "single_pass": True, "hash_n_levels": 16, "hash_extra_dense_levels": 0, "hash_fwd_corners": 8,
+        "hash_dense_corners": 8, "hash_grad_levels": 0, "hash_dense_grad_levels": 0, "occ_fast_cdf": False,
+        "occ_update_partitions": 1, "occ_segments": 128, "rays_file": str(rays_file), "output_dir": str(out_dir),
+        "checkpoint_dir": str(out_dir / "checkpoints"),
+    }))
+
+
+def _synthetic_module():
+    """tests/synthetic.py, loaded by its path: the numpy data generator that
+    nerfjax's parity rows were trained on (it imports only numpy)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("synthetic", HERE / "tests" / "synthetic.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _parity_eval_psnr(final: Path, cfg, data: dict) -> float:
+    """_eval_psnr on the port: the checkpoint's field renders the held-out
+    rays with the two-pass sampler (stratified 64, then 128 from the
+    coarse weights, train=False) in the cfg's precision; PSNR =
+    -10 log10(MSE) against their rgbs."""
+    import torch
+
+    from nerfjax_torch.checkpoint import load_field
+    from nerfjax_torch.render import render_rays_planar
+
+    field = load_field(final, cfg, device="cuda")
+    ro, rd, tn, tf = (torch.from_numpy(data[k]).cuda() for k in ("rays_o", "rays_d", "t_near", "t_far"))
+    with torch.no_grad():
+        rgb = render_rays_planar(field, field, ro, rd, tn, tf, *PARITY_EVAL_SAMPLES, train=False,
+                                 dtype=torch.bfloat16 if cfg["precision"] == "bf16" else torch.float32,
+                                 generator=torch.Generator(device="cuda").manual_seed(0))["rgb_fine"]
+    mse = float(np.mean((rgb.cpu().numpy() - data["rgbs"]) ** 2))
+    return -10.0 * float(np.log10(mse))
+
+
+def quality_parity(tmp: Path, seeds=PARITY_SEEDS) -> dict:
+    """The fast op point's quality under nerfjax's own protocol: arms spass2
+    and spass8 (parity_cfg), each seed trained by nerfjax_torch.train.train
+    on the card from tests/synthetic.make_ray_npz rays (batch * 50 rays of
+    its seed: one NPZ per seed, shared by both arms) and evaluated on the
+    4,096 held-out rays of seed 9999 (_parity_eval_psnr). One line per run
+    (the port's eval PSNR beside nerfjax's for the same arm and seed where
+    benchmarks/psnr_parity.json has one, wall seconds, steps) and one per
+    arm (the mean, the verdict against nerfjax's three-seed range: in range
+    if the mean lies within [min, max] and no seed is more than
+    PARITY_SEED_SLACK_DB below the min). After every run has printed its
+    line, raises on a run that is not finite, misses its steps or lies
+    below PARITY_RUN_FLOOR_DB, or an arm whose mean lies below
+    PARITY_FLOOR_DB; the verdict itself is only reported."""
+    import torch
+
+    from nerfjax_torch.train import train
+
+    syn = _synthetic_module()
+    t0 = time.perf_counter()
+    eval_data = syn.make_ray_npz(tmp / "parity_eval.npz", n_rays=PARITY_EVAL_RAYS, seed=PARITY_EVAL_SEED,
+                                 scene="sphere")
+    rays = {}
+    for seed in seeds:
+        rays[seed] = tmp / f"parity_rays_s{seed}.npz"
+        syn.make_ray_npz(rays[seed], n_rays=PARITY_BATCH * PARITY_STEPS_PER_EPOCH, seed=seed, scene="sphere")
+    phase(f"quality: tests/synthetic.make_ray_npz sphere NPZs ({len(seeds)} x "
+          f"{PARITY_BATCH * PARITY_STEPS_PER_EPOCH:,} training rays, {PARITY_EVAL_RAYS:,} eval rays of seed "
+          f"{PARITY_EVAL_SEED}) in {time.perf_counter() - t0:.1f} s")
+    result, failed = {}, []
+    for arm, ref in PARITY_NERFJAX_DB.items():
+        runs = []
+        for seed in seeds:
+            cfg = parity_cfg(arm, rays[seed], tmp / f"parity_{arm}_s{seed}")
+            t1 = time.perf_counter()
+            out = train(cfg, seed=seed, log_every=PARITY_STEPS, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            psnr = _parity_eval_psnr(Path(cfg["checkpoint_dir"]) / "nerf_final.pth", cfg, eval_data)
+            nerfjax = f"{ref[seed]:.3f}" if seed < len(ref) else "not recorded"
+            phase(f"quality {arm} seed {seed}: eval PSNR {psnr:.3f} dB (nerfjax {nerfjax}), {out['steps']} steps in "
+                  f"{wall:.1f} s wall, train PSNR of the last 50 steps {np.mean(out['psnr'][-50:]):.2f} dB")
+            if not np.isfinite(psnr) or not np.isfinite(out["psnr"]).all() or psnr < PARITY_RUN_FLOOR_DB:
+                failed.append(f"{arm} seed {seed}: eval PSNR {psnr:.3f} dB (floor {PARITY_RUN_FLOOR_DB}), training "
+                              f"PSNR {'finite' if np.isfinite(out['psnr']).all() else 'not finite'}")
+            if out["steps"] != PARITY_STEPS:
+                failed.append(f"{arm} seed {seed}: {out['steps']} steps, not {PARITY_STEPS}")
+            runs.append({"seed": seed, "psnr": psnr, "wall_s": wall, "steps": out["steps"]})
+        psnrs = [r["psnr"] for r in runs]
+        mean, lo, hi = float(np.mean(psnrs)), min(ref), max(ref)
+        in_range = lo <= mean <= hi and min(psnrs) >= lo - PARITY_SEED_SLACK_DB
+        spread = f", sd {np.std(psnrs, ddof=1):.3f}" if len(psnrs) > 1 else ""
+        phase(f"quality {arm}: mean eval PSNR {mean:.3f} dB over seeds {tuple(seeds)}{spread}, lowest "
+              f"{min(psnrs):.3f} (nerfjax mean {np.mean(ref):.3f} over seeds 0-2, range [{lo:.3f}, {hi:.3f}]): "
+              f"{'in' if in_range else 'OUT OF'} nerfjax's range (mean within it, no seed below "
+              f"{lo - PARITY_SEED_SLACK_DB:.3f})")
+        if mean < PARITY_FLOOR_DB:
+            failed.append(f"{arm}: mean eval PSNR {mean:.3f} dB < {PARITY_FLOOR_DB}")
+        result[arm] = {"runs": runs, "mean": mean, "in_range": in_range}
+    gap = result["spass2"]["mean"] - result["spass8"]["mean"]
+    ref_gap = np.mean(PARITY_NERFJAX_DB["spass2"]) - np.mean(PARITY_NERFJAX_DB["spass8"])
+    phase(f"quality: the b = 2 gradient's cost, mean spass2 - mean spass8, {gap:+.3f} dB on the port over seeds "
+          f"{tuple(seeds)} (nerfjax {ref_gap:+.3f} dB over seeds 0-2)")
+    phase(f"quality phase: {time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise AssertionError("quality: " + "; ".join(failed))
+    return result
 
 
 def train_k2_knob(tmp: Path, stats: dict) -> dict:
@@ -2348,6 +2539,20 @@ def render_card_vs_cpu(final: Path) -> None:
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of nerfjax_torch on one CUDA card (every phase by default)")
+    ap.add_argument("--only", choices=["quality"], default=None,
+                    help="run only the card, the build and this phase (no kernels line, no final line)")
+    ap.add_argument("--seeds", default=None,
+                    help="with --only quality: the seeds to train, e.g. 0-7 or 0,3,5 (default 0,1,2: nerfjax's)")
+    args = ap.parse_args()
+    seeds = PARITY_SEEDS
+    if args.seeds is not None:
+        if args.only != "quality":
+            ap.error("--seeds needs --only quality: the full run trains nerfjax's seeds 0, 1, 2")
+        lo, _, hi = args.seeds.partition("-")
+        seeds = tuple(range(int(lo), int(hi) + 1)) if hi else tuple(int(v) for v in args.seeds.split(","))
     if not (HERE / "nerfjax_torch").is_dir():
         raise SystemExit(f"chip_smoke: no nerfjax_torch/ beside {Path(__file__).name}; run it from a checkout")
     sys.path.insert(0, str(HERE))
@@ -2356,6 +2561,11 @@ def main() -> int:
     smi = card()
     phase(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     build()
+    if args.only == "quality":
+        with tempfile.TemporaryDirectory() as tmp:
+            quality_parity(Path(tmp), seeds)
+        phase("--only quality: done")
+        return 0
     stats = kernels_vs_plain()
     k4_shapes = {}  # K4 at each main-path call: the kernels line's extra keys
     with tempfile.TemporaryDirectory() as tmp:
@@ -2379,7 +2589,9 @@ def main() -> int:
         knobs = {label: train_dense_knob(Path(tmp), label, hstats) for label in DENSE_KNOBS}
         fast = train_fast(Path(tmp), hstats)
         k2 = train_k2_knob(Path(tmp), hstats)
+        quality = quality_parity(Path(tmp))
         k1_shapes["k2_knob_step"] = k2["timings"]["hash_levels_fwd"]
+        k1_shapes["fast_step"] = fast["timings"]["hash_levels_fwd"]
         dropin = train_dropin(Path(tmp))
         passes = dropin.pop("step_inputs")
         # K1, K3 and K2 exact at the drop-in passes; the kernels line carries them beside the tuned step's times
@@ -2400,6 +2612,7 @@ def main() -> int:
         for which in ("coarse", "fine"):
             shapes[f"dropin_{which}"] = dropin_timed[which]["dense_levels_fwd"]
         shapes["k2_knob_step"] = k2["timings"]["dense_levels_fwd"]
+        shapes["fast_step"] = fast["timings"]["dense_levels_fwd"]
         extract_trained(trained["cfg"], trained["final"])
         tail = tail_on_trained(trained["cfg"], trained["final"], Path(tmp))
         evals = {"tuned": eval_render(trained["final"], TUNED_CFG, "tuned", stats, hstats),
@@ -2414,7 +2627,10 @@ def main() -> int:
           + f"; fast run PSNR first/last 20 steps {fast['psnr'][0]:.2f}/{fast['psnr'][1]:.2f} dB, device busy "
           + f"{fast['busy_ms']:.2f} of {fast['traced_ms']:.2f} ms per 8 warm steps; tail seconds "
           + ", ".join(f"{k} {v:.2f}" for k, v in tail.items()) + "; eval render, 64+128: "
-          + ", ".join(f"{k} {v['rays_per_s']:,.0f} rays/s" for k, v in evals.items()))
+          + ", ".join(f"{k} {v['rays_per_s']:,.0f} rays/s" for k, v in evals.items())
+          + "; quality (psnr_parity protocol), mean eval PSNR: "
+          + ", ".join(f"{arm} {q['mean']:.3f} dB ({'in' if q['in_range'] else 'out of'} nerfjax's range)"
+                      for arm, q in quality.items()))
     # launches on the main paths, each counted from 0 around its run: the
     # 512^3 extraction, the tuned and the drop-in train(), the eval renders
     paths = {"extraction": extract_launches, "tuned train": trained["launches"], "drop-in train": dropin["launches"],
@@ -2475,13 +2691,17 @@ def main() -> int:
         # the k >= 2 modes: K2 b = 2 at the fast step, K2 b = 2 over 2 levels and K5 b = 2 at the k2 knob step
         # (K1 k = 2 and K4 k = 2 there are among the shapes below)
         lr_calls = {"hash_levels_bwd": {"fast_step": fast["timings"], "k2_knob_step": k2["timings"]},
-                    "dense_levels_bwd": {"k2_knob_step": k2["timings"]}}.get(name, {})
+                    "dense_levels_bwd": {"fast_step": fast["timings"], "k2_knob_step": k2["timings"]},
+                    "table_grad_scatter": {"fast_step": fast["timings"]}}.get(name, {})
         for label, timings in lr_calls.items():
             t = timings[name]
             kernels[-1].update({f"{label}_ms": t["ms"], f"{label}_plain_ms": t["plain_ms"],
                                 f"{label}_bound_ms": t["bound"][0]})
             if "fill_ms" in t:
                 kernels[-1].update({f"{label}_with_fill_ms": t["with_fill_ms"], f"{label}_fill_ms": t["fill_ms"]})
+            if "atomics" in t:
+                kernels[-1].update({f"{label}_atomics": t["atomics"]["runs"],
+                                    f"{label}_atomics_first_design": t["atomics"]["first"]})
         if name == "pack_pairs":  # K4's table pass (its time is in K4's too): the drop-in fine pass's, extra keys
             t = dropin_timed["fine"][name]
             kernels[-1].update(dropin_fine_ms=t["ms"], dropin_fine_plain_ms=t["plain_ms"],

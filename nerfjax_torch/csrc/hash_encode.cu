@@ -164,10 +164,27 @@
 // planned entries: coef w_m for the leader, total * rinv for each draw,
 // rinv = f32(1/(k-1)) from the host (a product, as nerfjax forms it; at
 // total = 0 every draw is corner 7 with coef 0). Like k = 1, they are bound
-// by random requests: K1 and K4 read k entries per (level, point), K2 issues
-// 2b float atomics per row, K5 writes 12 bytes per planned entry for K3,
-// in (level, draw, point) order so that neighbouring lanes share entries
-// as K3's run merge expects. Simple kernels first; PERF.md has their times.
+// by random requests: K1 and K4 read k entries per (level, point), K2 adds
+// two floats per planned entry, K5 writes 12 bytes per planned entry for
+// K3, in (level, draw, point) order so that neighbouring lanes share
+// entries as K3's run merge expects. PERF.md has their times.
+//
+// K2 b >= 2 at the fast step (12 hashed levels, N = 393,216, b = 2) first
+// ran one thread per point over its 12 levels, two float atomics per
+// planned entry straight into the planes: 18.9M adds in ~400 us on an H100
+// 80GB HBM3 (700 W), half of K2 k = 1's rate. Two causes were measured
+// (PERF.md keeps every arm's time). Not contention: the fast step's warps
+// hold 1.04 terms per run of equal indices (its 48 samples a ray spread
+// over the ray's occupied segments), and shuffling the points changed
+// nothing. The working set: a thread walking all 12 levels keeps all 12
+// levels' columns of the gradient (50 MB, the L2's size) live, and one
+// thread per (level, point) on a 2-D grid, level-major as K1 k = 1, took
+// it to ~241 us; merging runs (merge_run) ~235; a float2 scratch with its
+// fill and fold ~245. Then the data: ~80 % of the step's cotangent values
+// are exactly 0 (samples behind the surface and in empty space), and
+// adding 0 changes no entry, so a run whose sums are both 0 adds nothing
+// and a warp whose g are all 0 skips its row: ~75 us. The gl mode keeps
+// its one thread per point over its drawn rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -601,18 +618,75 @@ hash_levels_bwd_kernel(const void* __restrict__ g, int64_t gs, int64_t total, in
   }
 }
 
-// K2, b >= 2 (leader + residual). g, grad as for K2 k = 1. One thread per
-// point over its rows (the Lh levels, or under SUBSET the gl drawn levels
-// with scale = Lh/gl): per row the leader + residual plan of b corners, and
-// g*coef (under SUBSET (g*coef)*scale, in that order) added to each planned
-// corner with scatter_add2 (b corners per row; a corner drawn twice adds
-// twice).
-template <bool SUBSET, bool G16>
+// K2, b >= 2 (leader + residual) over the Lh levels. g, grad as for K2
+// k = 1; N < 2^31. One thread per (level, point) over a 2-D grid
+// (blockIdx.y the level, as K1 k = 1): level-major, so that about one
+// level's columns of the gradient are live in the L2 at a time. g*coef to
+// each of the b planned corners (a corner drawn twice adds twice): per
+// draw j the lanes of the warp whose indices are equal sum their terms
+// (merge_run) and each run's last lane adds both sums, one float atomic
+// into each plane, unless both sums are 0 (adding 0 changes no entry; most
+// of a step's cotangent is 0: samples behind the surface and in empty
+// space). A warp whose g are all 0 adds nothing. Lanes past N take part
+// in the shuffles with no add.
+template <bool G16>
 __global__ void __launch_bounds__(THREADS)
 hash_levels_bwd_lr_kernel(const void* __restrict__ g, int64_t gs, int64_t total, int64_t base,
                           const float* __restrict__ xs, const float* __restrict__ ys,
-                          const float* __restrict__ zs, int64_t N, int Lh, int rows, float scale, int b,
-                          float rinv, Levels L, uint32_t mask, float* __restrict__ grad) {
+                          const float* __restrict__ zs, int N, int b, float rinv, Levels L, uint32_t mask,
+                          float* __restrict__ grad) {
+  const int n = blockIdx.x * THREADS + threadIdx.x;
+  const int l = blockIdx.y;
+  const bool live = n < N;
+  float x = 0.0f, y = 0.0f, z = 0.0f, g0 = 0.0f, g1 = 0.0f;
+  if (live) {
+    const int64_t t = static_cast<int64_t>(l) * N + n;
+    x = xs[n];
+    y = ys[n];
+    z = zs[n];
+    g0 = load_g<G16>(g, t);
+    g1 = load_g<G16>(g, gs + t);
+  }
+  if (__ballot_sync(FULL_WARP, g0 != 0.0f || g1 != 0.0f) == 0) return;
+  int ix, iy, iz;
+  float tx, ty, tz;
+  lattice(x, L.scale[l], ix, tx);
+  lattice(y, L.scale[l], iy, ty);
+  lattice(z, L.scale[l], iz, tz);
+  LeaderPlan p;
+  leader_plan(tx, ty, tz, p);
+  const uint32_t seed = position_seed(x, y, z, 0u);
+  const float cr = __fmul_rn(p.cdfr[7], rinv);
+  const int64_t T = total - base;
+  for (int j = 0; j < b; ++j) {
+    int64_t i = -1;  // -1: no add
+    float v0 = 0.0f, v1 = 0.0f;
+    if (live) {
+      const float coef = j == 0 ? p.wm : cr;
+      v0 = __fmul_rn(g0, coef);
+      v1 = __fmul_rn(g1, coef);
+      i = hash_index(ix, iy, iz, plan_corner(p, seed, l, j), mask) + L.offset[l];
+      if (i >= T) i = -1;
+    }
+    if (merge_run(i, v0, v1) && i >= 0 && (v0 != 0.0f || v1 != 0.0f)) {
+      atomicAdd(grad + base + i, v0);
+      atomicAdd(grad + total + base + i, v1);
+    }
+  }
+}
+
+// K2, b >= 2 over gl drawn levels (scale = Lh/gl). g, grad as for K2
+// k = 1. One thread per point over its gl draws: draw r's level l, its
+// leader + residual plan of b corners, and (g*coef)*scale (in that order)
+// added to each planned corner with scatter_add2 (a corner drawn twice
+// adds twice). Its time follows each thread's chain of loads and plan, not
+// its adds: a run merge or a skip of its zero adds made it slower (PERF.md).
+template <bool G16>
+__global__ void __launch_bounds__(THREADS)
+hash_levels_bwd_lr_gl_kernel(const void* __restrict__ g, int64_t gs, int64_t total, int64_t base,
+                             const float* __restrict__ xs, const float* __restrict__ ys,
+                             const float* __restrict__ zs, int64_t N, int Lh, int gl, float scale, int b,
+                             float rinv, Levels L, uint32_t mask, float* __restrict__ grad) {
   const int64_t n = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
   if (n >= N) return;
   const float x = xs[n], y = ys[n], z = zs[n];
@@ -620,8 +694,8 @@ hash_levels_bwd_lr_kernel(const void* __restrict__ g, int64_t gs, int64_t total,
   float* o0 = grad + base;
   float* o1 = grad + total + base;
   const int64_t T = total - base;
-  for (int r = 0; r < rows; ++r) {
-    const int l = SUBSET ? draw_level(lseed, r, Lh) : r;
+  for (int r = 0; r < gl; ++r) {
+    const int l = draw_level(lseed, r, Lh);
     int ix, iy, iz;
     float tx, ty, tz;
     lattice(x, L.scale[l], ix, tx);
@@ -633,11 +707,7 @@ hash_levels_bwd_lr_kernel(const void* __restrict__ g, int64_t gs, int64_t total,
     const float cr = __fmul_rn(p.cdfr[7], rinv);
     for (int j = 0; j < b; ++j) {
       const float coef = j == 0 ? p.wm : cr;
-      float v0 = __fmul_rn(g0, coef), v1 = __fmul_rn(g1, coef);
-      if (SUBSET) {
-        v0 = __fmul_rn(v0, scale);
-        v1 = __fmul_rn(v1, scale);
-      }
+      const float v0 = __fmul_rn(__fmul_rn(g0, coef), scale), v1 = __fmul_rn(__fmul_rn(g1, coef), scale);
       scatter_add2(o0, o1, T, hash_index(ix, iy, iz, plan_corner(p, seed, l, j), mask) + L.offset[l], v0, v1);
     }
   }
@@ -1031,7 +1101,8 @@ extern "C" int nerf_hash_levels_fwd(const float* planes, int64_t total, int64_t 
 
 // mode: 0 exact, 1 b planned corners per level, 2 the same over gl drawn
 // levels scaled by `scale`; b: 1 (k = 1) or 2..7 (leader + residual, rinv =
-// f32(1/(b-1))). g: bf16 (g_bf16) or f32, plane stride gs. Exact only:
+// f32(1/(b-1)); in mode 1, N < 2^31). g: bf16 (g_bf16) or f32, plane
+// stride gs. Exact only:
 // scratch, a zeroed [total - base, 2] f32 buffer, which K2 exact adds into
 // and the fold kernel launched after it adds into grad.
 extern "C" int nerf_hash_levels_bwd(const void* g, int64_t gs, int g_bf16, int64_t total, int64_t base,
@@ -1057,16 +1128,25 @@ extern "C" int nerf_hash_levels_bwd(const void* g, int64_t gs, int g_bf16, int64
     return static_cast<int>(cudaGetLastError());
   }
   const int rows = mode == 2 ? gl : Lh;
-  if (b >= 2) {
-#define NERF_K2_LR(S, G)                                                                                    \
-  hash_levels_bwd_lr_kernel<S, G><<<blocks(N), THREADS, 0, s>>>(g, gs, total, base, x, y, z, N, Lh, rows, scale, \
-                                                                 b, rinv, L, mask, grad)
-    if (mode == 1) {
-      if (g_bf16) NERF_K2_LR(false, true); else NERF_K2_LR(false, false);
+  if (b >= 2 && mode == 1) {
+    if (N >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid(blocks(N), Lh);
+    const int n = static_cast<int>(N);
+    if (g_bf16) {
+      hash_levels_bwd_lr_kernel<true><<<grid, THREADS, 0, s>>>(g, gs, total, base, x, y, z, n, b, rinv, L, mask, grad);
     } else {
-      if (g_bf16) NERF_K2_LR(true, true); else NERF_K2_LR(true, false);
+      hash_levels_bwd_lr_kernel<false><<<grid, THREADS, 0, s>>>(g, gs, total, base, x, y, z, n, b, rinv, L, mask, grad);
     }
-#undef NERF_K2_LR
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (b >= 2) {
+    if (g_bf16) {
+      hash_levels_bwd_lr_gl_kernel<true><<<blocks(N), THREADS, 0, s>>>(g, gs, total, base, x, y, z, N, Lh, gl, scale,
+                                                                      b, rinv, L, mask, grad);
+    } else {
+      hash_levels_bwd_lr_gl_kernel<false><<<blocks(N), THREADS, 0, s>>>(g, gs, total, base, x, y, z, N, Lh, gl, scale,
+                                                                       b, rinv, L, mask, grad);
+    }
     return static_cast<int>(cudaGetLastError());
   }
 #define NERF_K2_K1(M, G) \

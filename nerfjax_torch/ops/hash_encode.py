@@ -501,6 +501,42 @@ def k2_atomic_count(spec: HashGridSpec, x, y, z) -> int:
     return int(k2_runs(spec, x, y, z).sum())
 
 
+def k2_lr_runs(spec: HashGridSpec, x, y, z) -> torch.Tensor:
+    """[b, rows, N] bool for K2's b >= 2 modes (rows: the Lh levels, or the
+    gl drawn levels): True where point n's lane starts a run that the card
+    sums and adds once. Over all levels a warp is 32 points in a row of n
+    at one level and one draw, and a run starts at its first lane and
+    wherever the index differs from the previous lane's; over gl drawn
+    levels every term is added on its own (all True)."""
+    _, hashed = _split_levels(spec)
+    N = x.shape[0]
+    g = torch.zeros(2, len(hashed), N, device=x.device)
+    idx = hash_bwd_entries(spec, g, x, y, z)[0].reshape(_grad_corners(spec), -1, N)
+    head = torch.ones_like(idx, dtype=torch.bool)
+    if _bwd_mode(spec, len(hashed))[0] == 1:
+        head[..., 1:] = idx[..., 1:] != idx[..., :-1]
+        head[..., ::32] = True
+    return head
+
+
+def k2_lr_atomic_count(spec: HashGridSpec, g: torch.Tensor, x, y, z) -> int:
+    """The adds K2's b >= 2 modes issue on the card for the upstream
+    gradient g and positions x, y, z, each one float atomic into each
+    plane: over all levels, the runs of ``k2_lr_runs`` that hold a nonzero
+    term (the card skips a run whose two sums are 0, which adds nothing;
+    most of a train step's cotangent is 0); over gl drawn levels, every
+    term (b * gl * N). The first design over all levels added every term:
+    b * Lh * N."""
+    head = k2_lr_runs(spec, x, y, z).reshape(-1)
+    if _bwd_mode(spec, len(_split_levels(spec)[1]))[0] == 2:
+        return head.numel()
+    _, v0, v1 = hash_bwd_entries(spec, g, x, y, z)
+    run = torch.cumsum(head.to(torch.int64), 0) - 1
+    nonzero = torch.zeros(int(head.sum()), dtype=torch.int64, device=head.device)
+    nonzero.index_add_(0, run, ((v0 != 0) | (v1 != 0)).to(torch.int64))
+    return int((nonzero > 0).sum())
+
+
 def k3_runs(idx: torch.Tensor, T: int) -> torch.Tensor:
     """[K] bool: True where K3's lane k starts a run of its warp (a warp is
     32 lanes in a row of k; a run starts at its first lane and wherever the
@@ -742,7 +778,11 @@ def hash_levels_bwd(spec: HashGridSpec, g: torch.Tensor, x, y, z, out: torch.Ten
     The exact mode on the card merges each warp's runs of equal indices and
     adds each run's sums with one float2 atomic into a zeroed interleaved
     scratch ``[total - base, 2]`` float32, allocated here and added into
-    ``out`` by a second pass; the planned modes add straight into ``out``."""
+    ``out`` by a second pass; the planned modes add straight into ``out``:
+    b >= 2 over all levels one thread per (level, point) (N < 2^31), each
+    warp's runs of equal indices merged per draw and a run whose sums are 0
+    left out (``k2_lr_runs``); k = 1 and b >= 2 over gl drawn levels one
+    thread per point over its rows."""
     _, hashed = _split_levels(spec)
     if _device_kind("hash_levels_bwd", x) == "cpu":
         return hash_levels_bwd_plain(spec, g, x, y, z, out)

@@ -1,9 +1,11 @@
-"""The exact hashed-level table gradient's merged design (K2 exact on the
-card: each warp sums its runs of equal indices and adds each run once),
-checked on the CPU: ``k2_atomic_count`` on hand-made positions, and a
-plain-torch emulation of the merge against ``hash_levels_bwd_plain``. The
-kernel itself is held against its plain version on the card
-(tests/test_torch_kernels_cuda.py)."""
+"""The hashed-level table gradient's merged designs (K2 exact and K2 b >= 2
+on the card: each warp sums its runs of equal indices and adds each run
+once), checked on the CPU: ``k2_atomic_count`` and ``k2_lr_atomic_count``
+on hand-made positions, and plain-torch emulations of the merges against
+``hash_levels_bwd_plain``. The kernels themselves are held against their
+plain version on the card (tests/test_torch_kernels_cuda.py)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -112,3 +114,126 @@ def test_merged_sums_match_plain(inputs):
     bound = 2.0 * count.clamp_min(8.0) * 2.0**-24 * mass + 1e-30
     assert bool(((got - ref).abs() <= bound).all())
     assert got[:, : hashed[0]["offset"]].abs().max() == 0 and np.count_nonzero(got.numpy()) > 0
+
+
+# -- K2 b >= 2: one run per (row, draw, warp of 32 points in a row of n) -------------
+
+
+def _lr_spec(b: int, gl: int) -> HashGridSpec:
+    return dataclasses.replace(SPEC, fwd_corners=b, grad_corners=b, grad_levels=gl)
+
+
+def _lr_inputs(inputs: str):
+    if inputs == "one_position":
+        return _one_position(1000)
+    if inputs == "rays":  # the fast step's layout: 48 sorted samples a ray
+        return _rays(n_rays=40, n_samples=48, seed=4)
+    return _xyz(np.random.default_rng(5).uniform(0.0, 1.0, (3, 2000)))
+
+
+def _merged_lr_plain(spec, g, x, y, z, out):
+    """K2 b >= 2's merged design in plain torch: the plain version's terms
+    (``hash_bwd_entries``, laid out [b, rows, N]), each run of
+    ``k2_lr_runs`` summed in float32 in lane order, then the run sums
+    scattered into ``out``, but for runs whose two sums are 0 (over gl
+    drawn levels every term is a run of its own)."""
+    idx, v0, v1 = he.hash_bwd_entries(spec, g, x, y, z)
+    head = he.k2_lr_runs(spec, x, y, z).reshape(-1)
+    run = torch.cumsum(head.to(torch.int64), 0) - 1
+    n_runs = int(head.sum())
+    s0, s1 = (torch.zeros(n_runs).index_add_(0, run, v) for v in (v0, v1))
+    add = (s0 != 0) | (s1 != 0)
+    return he.table_grad_scatter_plain(idx[head][add], s0[add], s1[add], out)
+
+
+def _lr_terms(spec, N: int) -> int:
+    """b * rows * N: the terms of a b >= 2 plan."""
+    return he._grad_corners(spec) * (spec.grad_levels or LH) * N
+
+
+def _g(N: int, seed: int, zero_from: int | None = None) -> torch.Tensor:
+    """[2, LH, N] float32 normal upstream gradient, 0 at points zero_from.. (a
+    ray's samples behind its surface)."""
+    g = torch.from_numpy(np.random.default_rng(seed).normal(size=(2, LH, N)).astype(np.float32))
+    if zero_from is not None:
+        g[..., zero_from:] = 0.0
+    return g
+
+
+@pytest.mark.parametrize("gl", [0, 2])
+@pytest.mark.parametrize("b", [2, 3, 7])
+@pytest.mark.parametrize("inputs", ["one_position", "rays", "uniform"])
+def test_lr_merged_sums_match_plain(inputs, b, gl):
+    """Within the atomic-order bound 2 * max(n, 8) * 2^-24 * sum|terms| per
+    entry of n terms: the merge only reorders each entry's f32 sum."""
+    spec = _lr_spec(b, gl)
+    x, y, z = _lr_inputs(inputs)
+    N, total = x.shape[0], spec.total_table_size
+    g = _g(N, 6)
+    g[:, :, 100:300] = 0.0  # a band of zero cotangent: its runs add nothing
+    got = _merged_lr_plain(spec, g, x, y, z, torch.zeros(2, total))
+    ref = he.hash_levels_bwd_plain(spec, g, x, y, z, torch.zeros(2, total))
+    mass = he.hash_levels_bwd_plain(spec, g.abs(), x, y, z, torch.zeros(2, total))
+    idx = he.hash_bwd_entries(spec, g, x, y, z)[0]
+    one = torch.ones(idx.shape[0])
+    count = he.table_grad_scatter_plain(idx, one, one, torch.zeros(2, total))
+    bound = 2.0 * count.clamp_min(8.0) * 2.0**-24 * mass + 1e-30
+    assert bool(((got - ref).abs() <= bound).all())
+    assert got[:, : he._split_levels(spec)[1][0]["offset"]].abs().max() == 0 and np.count_nonzero(got.numpy()) > 0
+    runs = int(he.k2_lr_runs(spec, x, y, z).sum())
+    if gl:  # one add per term, zero or not
+        assert he.k2_lr_atomic_count(spec, g, x, y, z) == runs == idx.shape[0]
+    else:  # fewer adds than runs: the zero band's runs add nothing
+        assert he.k2_lr_atomic_count(spec, g, x, y, z) < runs <= idx.shape[0]
+
+
+@pytest.mark.parametrize("gl", [0, 2])
+@pytest.mark.parametrize("N", [64, 50])
+def test_lr_one_position_gives_one_run_per_warp_row_and_draw(N, gl):
+    """Every point at one position: over all levels each (level, draw) of a
+    warp is one run, a partial last warp (N = 50) one more; over gl drawn
+    levels (the same levels at every point: the draws are keyed on the
+    position's bits) every term is one add."""
+    for b in (2, 7):
+        spec = _lr_spec(b, gl)
+        x, y, z = _one_position(N)
+        expect = b * gl * N if gl else b * LH * -(-N // 32)
+        assert he.k2_lr_atomic_count(spec, _g(N, 8), x, y, z) == expect
+
+
+@pytest.mark.parametrize("gl", [0, 2])
+def test_lr_zero_cotangent_adds_nothing(gl):
+    """At one position, N = 128 (4 warps), over all levels: g = 0 from point
+    64 on leaves the first two warps' runs, g = 0 everywhere none. Over gl
+    drawn levels every term is added, zero or not."""
+    spec = _lr_spec(3, gl)
+    x, y, z = _one_position(128)
+    half, none = (he.k2_lr_atomic_count(spec, _g(128, 9, zero_from=k), x, y, z) for k in (64, 0))
+    assert (half, none) == ((3 * gl * 128,) * 2 if gl else (3 * LH * 2, 0))
+
+
+def test_lr_sorted_samples_along_rays_merge():
+    spec = _lr_spec(2, 0)
+    x, y, z = _rays(n_rays=40, n_samples=48, seed=7)
+    N = x.shape[0]
+    assert 2 * LH * -(-N // 32) < he.k2_lr_atomic_count(spec, _g(N, 10), x, y, z) < 2 * LH * N
+
+
+def test_lr_distinct_neighbours_give_one_add_per_term():
+    """Points on a line along x, three cells of the coarsest hashed level
+    apart: neighbouring lanes' planned entries differ at every level and
+    draw, so no run merges, and each nonzero term is one add (at levels
+    where a point sits on a lattice point the residual mass, and so the
+    residual draws' terms, are 0)."""
+    N = 16
+    x = (np.arange(N) * 3 + 0.5) / he._split_levels(SPEC)[1][0]["scale"]
+    assert x.max() < 1.0
+    x, y, z = _xyz(np.stack([x, np.full(N, 0.5), np.full(N, 0.5)]))
+    for b, gl in ((2, 0), (7, 0), (3, 2)):
+        spec = _lr_spec(b, gl)
+        g = _g(N, 11)
+        _, v0, v1 = he.hash_bwd_entries(spec, g, x, y, z)
+        assert int(he.k2_lr_runs(spec, x, y, z).sum()) == _lr_terms(spec, N)
+        nonzero = int(((v0 != 0) | (v1 != 0)).sum())
+        assert 0 < nonzero < _lr_terms(spec, N)
+        assert he.k2_lr_atomic_count(spec, g, x, y, z) == (_lr_terms(spec, N) if gl else nonzero)

@@ -780,6 +780,50 @@ def test_lr_hash_levels_bwd_matches_plain(cuda_device, fwd, grad, gl, gdt):
     assert bool(((into - ref).abs() <= _scatter_bound(*terms, total, cuda_device, prior=1.0)).all())
 
 
+@pytest.mark.parametrize("b,gl", [(2, 0), (7, 0), (2, 2)])
+@pytest.mark.parametrize("inputs", ["one_position", "rays", "one_point"])
+def test_k2_lr_matches_plain_under_contention(cuda_device, inputs, b, gl):
+    """K2 b >= 2 (over all levels each warp's runs of equal indices merged
+    per (level, draw), one add of both sums per run) within the
+    atomic-order bound under the worst contention: every point at one
+    position (N = 100,003: the last warp of each level is partial), the
+    fast step's layout of 48 sorted samples a ray, and N = 1; over all
+    levels and over gl drawn levels; also adding into planes that hold
+    values; one launch."""
+    spec = HashGridSpec(**DROP_IN_LR, fwd_corners=b, grad_corners=b, grad_levels=gl)
+    _, hashed = hash_encode._split_levels(spec)
+    total = spec.total_table_size
+    if inputs == "one_position":
+        x, y, z = (torch.full((100_003,), v, device=cuda_device) for v in (0.3, 0.6, 0.2))
+    elif inputs == "rays":
+        x, y, z = _ray_samples(2083, 48, 64, cuda_device)
+    else:
+        x, y, z = _positions(1, 65, cuda_device)
+    N = x.shape[0]
+    g = torch.from_numpy(np.random.default_rng(66).normal(size=(2, len(hashed), N)).astype(np.float32))
+    g = g.to(cuda_device, torch.bfloat16)
+    terms = hash_encode.hash_bwd_entries(spec, g, x, y, z)
+    zeros = lambda: torch.zeros(2, total, device=cuda_device)  # noqa: E731
+    before = hash_encode.launch_counts["hash_levels_bwd"]
+    got = hash_encode.hash_levels_bwd(spec, g, x, y, z, zeros())
+    torch.cuda.synchronize()
+    assert hash_encode.launch_counts["hash_levels_bwd"] == before + 1
+    ref = hash_encode.hash_levels_bwd_plain(spec, g, x, y, z, zeros())
+    assert bool(((got - ref).abs() <= _scatter_bound(*terms, total, cuda_device)).all())
+    assert got[:, : hashed[0]["offset"]].abs().max() == 0 and bool((got != 0).any())
+    if inputs == "one_position" and not gl:  # every lane of a level adds to one entry per draw: whole warps
+        assert hash_encode.k2_lr_atomic_count(spec, g, x, y, z) == b * len(hashed) * -(-N // 32)
+    prior = torch.from_numpy(np.random.default_rng(67).normal(size=(2, total)).astype(np.float32)).to(cuda_device)
+    into = hash_encode.hash_levels_bwd(spec, g, x, y, z, prior.clone())
+    ref = hash_encode.hash_levels_bwd_plain(spec, g, x, y, z, prior.clone())
+    idx, v0, _ = terms
+    one = torch.ones_like(v0)
+    count = hash_encode.table_grad_scatter_plain(idx, one, one, zeros())
+    mass = hash_encode.hash_levels_bwd_plain(spec, g.abs(), x, y, z, zeros())
+    bound = 2.0 * (count + 1).clamp_min(8.0) * 2.0**-24 * (mass + prior.abs()) + 1e-30
+    assert bool(((into - ref).abs() <= bound).all())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dc,grad", [(2, 8), (3, 3), (7, 8), (7, 2), (3, 1)])
 def test_lr_dense_levels_bwd_matches_plain(cuda_device, dc, grad, dtype):
