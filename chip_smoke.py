@@ -194,6 +194,15 @@ Added for the fast op point's quality and the redesign of K2 b >= 2:
      differ by more than TIMING_AGREE is taken again, up to TIMING_SETS
      sets, every run printed, the medians reported.
 
+Added for the redesigns of K1 k >= 2 (on the packed bf16-pair words) and
+K2 b >= 2 over gl drawn levels (terms of 0 left out):
+
+  7, 7b, 7c, 7d, 7e. the share of the hashed levels' cotangent that is 0
+     (values; (level, point) pairs 0 in both planes) at every captured
+     step, a summary line, and the kernels line's cotangent_zero_share;
+  7e. K2 over gl levels beside its adds (k2_lr_atomic_count: its terms
+     that are not 0) and the first design's 2*b*gl*N.
+
 The last two lines are a JSON object with each kernel's launches (summed
 over the main paths: the 512^3 extraction, the tuned, drop-in and fast
 train() runs, the k2 knob steps, the eval renders, the probe entry point),
@@ -369,7 +378,10 @@ def _time_ms(fn, iters: int = 20) -> float:
     The trace counts only if it holds every call's device events: iters
     times those of one call, traced alone just before. A trace that drops
     events (seen about once in 100, some with none, some with half the
-    calls) is taken again, up to 5 times."""
+    calls) is taken again, up to 5 times. Where all 5 drop events (seen
+    once, in a burst), the time is taken with CUDA events around the
+    calls instead (_wall_ms: the host's gaps between calls included) and
+    a line says so."""
     import torch
 
     fn()
@@ -381,7 +393,10 @@ def _time_ms(fn, iters: int = 20) -> float:
         if per_call > 0 and events == iters * per_call:
             return us / 1e3 / iters
         seen.append(f"{events} events in {iters} calls, {per_call} in one")
-    raise AssertionError(f"5 profiler traces in a row dropped device events: {'; '.join(seen)}")
+    ms = _wall_ms(fn, iters)
+    phase(f"5 profiler traces in a row dropped device events ({'; '.join(seen)}): timed with CUDA events "
+          f"instead, {ms * 1e3:.1f} us per call, the host's gaps between calls included")
+    return ms
 
 
 def _head_inputs(N: int, E: int, dt: str):
@@ -1127,8 +1142,8 @@ def _k1_at_call(spec, planes, x, y, z, out, label: str, timed: bool):
         return None
     bound, bound_f32 = _k1_bounds(spec, x, y, z, plan, got.element_size())
     t = _time_kernel(call, lambda: he.hash_levels_fwd_plain(spec, planes, x, y, z), None, bound)
-    # sectors: both planes of each planned corner; exact: one packed word a corner
-    t.update(N=N, bound_f32_out=bound_f32, sectors=(2 * k if k < 8 else 8) * Lh * N)
+    # sectors: k = 1 both planes of its planned corner; k >= 2 one packed word a planned entry, exact a corner
+    t.update(N=N, bound_f32_out=bound_f32, sectors=(2 if k == 1 else k) * Lh * N)
     return t
 
 
@@ -1290,6 +1305,11 @@ def step_kernels_vs_plain(cap: dict, label: str, stats: dict, timed=()) -> dict:
                              he.hash_levels_bwd_plain(spec, g.abs(), x, y, z, _zeros2(total)),
                              _k2_count(spec, g, x, y, z, total))
         fold("hash_levels_bwd", err)
+        zero = g == 0  # the hashed rows of the encode's cotangent
+        share = {"values": float(zero.float().mean()), "pairs": float((zero[0] & zero[1]).float().mean())}
+        stats["hash_levels_bwd"].setdefault("zero_share", {})[label] = share
+        checked.append(f"the hashed levels' cotangent: {share['values']:.2%} of its values 0, {share['pairs']:.2%} of "
+                       "its (level, point) pairs 0 in both planes")
 
         def k2_bound():
             # net of the fill: positions in, the g rows read (under a level
@@ -1319,6 +1339,10 @@ def step_kernels_vs_plain(cap: dict, label: str, stats: dict, timed=()) -> dict:
             checked.append(f"K2 b={b}'s atomics: {atomics['runs']:,} float adds of merged runs that hold a nonzero "
                            f"term ({int(he.k2_lr_runs(spec, x, y, z).sum()):,} runs of {b * Lh * N:,} terms; "
                            f"the first design's 2*b*Lh*N: {atomics['first']:,} float adds)")
+        elif b >= 2:
+            atomics = {"first": 2 * b * gl * N, "runs": 2 * he.k2_lr_atomic_count(spec, g, x, y, z)}
+            checked.append(f"K2 b={b} over {gl} levels' atomics: {atomics['runs']:,} float adds of its terms that are "
+                           f"not 0 (the first design's 2*b*gl*N: {atomics['first']:,} float adds)")
         if atomics is not None and "hash_levels_bwd" in out:
             out["hash_levels_bwd"]["atomics"] = atomics
 
@@ -2641,6 +2665,9 @@ def main() -> int:
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     phase("main-path launches: " + "; ".join(f"{k} {v}" for k, v in paths.items()))
+    zero_share = hstats["hash_levels_bwd"]["zero_share"]  # the hashed cotangent at every captured step
+    phase("the hashed levels' cotangent, share of its values 0: "
+          + "; ".join(f"{label} {v['values']:.2%}" for label, v in zero_share.items()))
     kernels = []
     for name, line in (("fused_ngp_head", 28), ("fused_ngp_density", 98)):
         bound, by = stats[name]["bound"]
@@ -2679,6 +2706,8 @@ def main() -> int:
                 if "atomics" in t:
                     kernels[-1].update({f"dropin_{which}_atomics": t["atomics"]["runs"],
                                         f"dropin_{which}_atomics_first_design": t["atomics"]["first"]})
+        if name == "hash_levels_bwd":
+            kernels[-1]["cotangent_zero_share"] = {label: v["values"] for label, v in zero_share.items()}
         if name == "table_grad_scatter":
             kernels[-1]["atomics"] = h["atomics"]["runs"]
             kernels[-1]["atomics_first_design"] = h["atomics"]["first"]

@@ -63,7 +63,8 @@
 // entries, the fastest arm at the grid update's call (56.7 us against
 // 58.6). One request per entry (bf16 pairs packed in front, as K1 exact
 // reads them) halves the kernel, but the pack of the 3.7M hashed columns
-// (16.6 us) costs more than that saves at the tuned step.
+// (16.6 us then, one entry a thread) cost more than that saved at the
+// tuned step.
 //
 // K1 and K4 store into the encode's [2, L, N] output in its dtype, each into
 // its rows through a plane stride: no float32 part, no cast, no concat.
@@ -169,6 +170,18 @@
 // K3, in (level, draw, point) order so that neighbouring lanes share
 // entries as K3's run merge expects. PERF.md has their times.
 //
+// K1 k >= 2 first read both planes of each planned entry, 2k random 4-byte
+// loads per (level, point) (5.5M at the k2 knob step: 7 hashed levels, N =
+// 196,608, k = 2), ~48 us on an H100 80GB HBM3 (700 W). Its plan alone
+// takes ~11 us, the loads of a fixed plan from the planes ~49: it is bound
+// by those random requests, as K1 k = 1 is. It now reads one bf16-pair word
+// per planned entry from the pack in front of it (half the requests, and a
+// 15 MB table that the L2 holds where the planes' 29 MB miss it), with the
+// k loads issued together (k a template parameter: a runtime k unrolled to
+// 7 with predication was 23 % slower at k = 7); the pack moves four entries
+// a thread with 16-byte loads and stores (13.5 us, one entry a thread
+// 16.5). Together ~37 us at k = 2, ~51 at k = 7 (first design ~144).
+//
 // K2 b >= 2 at the fast step (12 hashed levels, N = 393,216, b = 2) first
 // ran one thread per point over its 12 levels, two float atomics per
 // planned entry straight into the planes: 18.9M adds in ~400 us on an H100
@@ -184,7 +197,15 @@
 // are exactly 0 (samples behind the surface and in empty space), and
 // adding 0 changes no entry, so a run whose sums are both 0 adds nothing
 // and a warp whose g are all 0 skips its row: ~75 us. The gl mode keeps
-// its one thread per point over its drawn rows.
+// its one thread per point over its drawn rows: at the k2 knob step (2 of
+// 7 levels, b = 2) the 1.57M float atomics of its own plan, issued alone
+// from a precomputed plan, take ~19.5-20.8 us, as long as the kernel
+// (~20.5), so every arm that added work around the same adds (a (point,
+// draw) grid, level-major threads with or without lists of each level's
+// points, merged runs) was slower. It leaves out its terms of 0: ~5 % of
+// them at the knob's step 34 (21.0 us against 22.0), 89 % at its step 384,
+// once the occupancy grid has emptied, as at the tuned run's end (5.1 us
+// against 20.5).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -422,18 +443,20 @@ hash_levels_fwd_k1_kernel(const float* __restrict__ planes, int total, int base,
   if (sel != nullptr) sel[t] = i;
 }
 
-// K1, k >= 2 (leader + residual). planes, out, as K1 k = 1; sel (optional):
-// [k, Lh, N] int32, the plan (leader first). One thread per (level, point)
-// over a 2-D grid, as K1 k = 1: the 8 weights, the leader, the residual CDF
-// and the k - 1 draws, then the k corners' bf16-rounded values of both
-// planes, summed e = f_0*w_m, e += f_j*coef_r in j order in f32 (coef_r =
-// total*rinv, rinv = f32(1/(k-1)) from the host) and stored in out's type.
-template <typename OutT>
+// K1, k >= 2 (leader + residual), K = k corners. words: the packed hashed
+// table ([T] bf16 pairs, pack_pairs_bf16_kernel, run in front as for K1
+// exact); out as K1 k = 1; sel (optional): [K, Lh, N] int32, the plan
+// (leader first). One thread per (level, point) over a 2-D grid, as K1
+// k = 1: the 8 weights, the leader, the residual CDF and the K - 1 draws,
+// then all K planned words loaded together (one 4-byte load per entry, both
+// planes widened from it by a shift), summed e = f_0*w_m, e += f_j*coef_r
+// in j order in f32 (coef_r = total*rinv, rinv = f32(1/(K-1)) from the
+// host) and stored in out's type.
+template <int K, typename OutT>
 __global__ void __launch_bounds__(THREADS)
-hash_levels_fwd_lr_kernel(const float* __restrict__ planes, int total, int base,
-                          const float* __restrict__ xs, const float* __restrict__ ys,
-                          const float* __restrict__ zs, int N, Levels L, uint32_t mask, int k, float rinv,
-                          OutT* __restrict__ out, int64_t os, int32_t* __restrict__ sel) {
+hash_levels_fwd_lr_kernel(const uint32_t* __restrict__ words, const float* __restrict__ xs,
+                          const float* __restrict__ ys, const float* __restrict__ zs, int N, Levels L, uint32_t mask,
+                          float rinv, OutT* __restrict__ out, int64_t os, int32_t* __restrict__ sel) {
   const int n = blockIdx.x * THREADS + threadIdx.x;
   if (n >= N) return;
   const int l = blockIdx.y;
@@ -446,35 +469,57 @@ hash_levels_fwd_lr_kernel(const float* __restrict__ planes, int total, int base,
   LeaderPlan p;
   leader_plan(tx, ty, tz, p);
   const uint32_t seed = position_seed(x, y, z, 0u);
-  const float cr = __fmul_rn(p.cdfr[7], rinv);
-  const int64_t t = static_cast<int64_t>(l) * N + n, LN = static_cast<int64_t>(gridDim.y) * N;
-  float e0 = 0.0f, e1 = 0.0f;
-  for (int j = 0; j < k; ++j) {
-    const int i = static_cast<int>(hash_index(ix, iy, iz, plan_corner(p, seed, l, j), mask) + L.offset[l]);
-    const float coef = j == 0 ? p.wm : cr;
-    const float a = __fmul_rn(bf16_round(__ldg(planes + base + i)), coef);
-    const float b = __fmul_rn(bf16_round(__ldg(planes + total + base + i)), coef);
-    e0 = j == 0 ? a : __fadd_rn(e0, a);
-    e1 = j == 0 ? b : __fadd_rn(e1, b);
-    if (sel != nullptr) sel[j * LN + t] = i;
+  int i[K];
+  uint32_t w[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    i[j] = static_cast<int>(hash_index(ix, iy, iz, plan_corner(p, seed, l, j), mask) + L.offset[l]);
+    w[j] = __ldg(words + i[j]);
   }
+  const float cr = __fmul_rn(p.cdfr[7], rinv);
+  float e0 = __fmul_rn(__uint_as_float(w[0] << 16), p.wm), e1 = __fmul_rn(__uint_as_float(w[0] & 0xFFFF0000u), p.wm);
+#pragma unroll
+  for (int j = 1; j < K; ++j) {
+    e0 = __fadd_rn(e0, __fmul_rn(__uint_as_float(w[j] << 16), cr));
+    e1 = __fadd_rn(e1, __fmul_rn(__uint_as_float(w[j] & 0xFFFF0000u), cr));
+  }
+  const int64_t t = static_cast<int64_t>(l) * N + n;
   store_rn(out, t, e0);
   store_rn(out, os + t, e1);
+  if (sel != nullptr) {
+    const int64_t LN = static_cast<int64_t>(gridDim.y) * N;
+#pragma unroll
+    for (int j = 0; j < K; ++j) sel[j * LN + t] = i[j];
+  }
 }
 
-// The pack in front of K1 exact: word[i] = bf16(p0[i]) | bf16(p1[i]) << 16
-// for the T hashed entries (nerfjax's _pack_pairs_bf16 layout: plane 0 in
-// the low half, plane 1 in the high half, a __nv_bfloat162), rounded as
-// bf16_round rounds. Coalesced: one thread per entry.
+// The pack in front of K1 exact and K1 k >= 2 (and K4's table in its bf16
+// modes): word[i] = bf16(p0[i]) | bf16(p1[i]) << 16 for the T entries
+// (nerfjax's _pack_pairs_bf16 layout: plane 0 in the low half, plane 1 in
+// the high half, a __nv_bfloat162), rounded as bf16_round rounds. A stream
+// bound by its 12 bytes per entry: where p0, p1 and words are 16-byte
+// aligned, each thread packs four entries a step from two 16-byte loads
+// into one 16-byte store (the T % 4 left over one at a time), else one
+// entry a step.
+__device__ __forceinline__ uint32_t bf16_pair(float a, float b) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(a))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(b))) << 16);
+}
+
 __global__ void __launch_bounds__(THREADS)
 pack_pairs_bf16_kernel(const float* __restrict__ p0, const float* __restrict__ p1, int64_t T,
                        uint32_t* __restrict__ words) {
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x; i < T;
-       i += static_cast<int64_t>(gridDim.x) * THREADS) {
-    const uint32_t lo = __bfloat16_as_ushort(__float2bfloat16_rn(p0[i]));
-    const uint32_t hi = __bfloat16_as_ushort(__float2bfloat16_rn(p1[i]));
-    words[i] = lo | (hi << 16);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * THREADS;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+  const bool vec = ((reinterpret_cast<uintptr_t>(p0) | reinterpret_cast<uintptr_t>(p1) |
+                     reinterpret_cast<uintptr_t>(words)) & 15) == 0;
+  const int64_t T4 = vec ? T / 4 : 0;
+  for (int64_t i = first; i < T4; i += stride) {
+    const float4 a = reinterpret_cast<const float4*>(p0)[i], b = reinterpret_cast<const float4*>(p1)[i];
+    reinterpret_cast<uint4*>(words)[i] = make_uint4(bf16_pair(a.x, b.x), bf16_pair(a.y, b.y), bf16_pair(a.z, b.z),
+                                                    bf16_pair(a.w, b.w));
   }
+  for (int64_t i = 4 * T4 + first; i < T; i += stride) words[i] = bf16_pair(p0[i], p1[i]);
 }
 
 // K1 exact. words: the packed hashed table ([T] bf16 pairs, pack above);
@@ -676,11 +721,14 @@ hash_levels_bwd_lr_kernel(const void* __restrict__ g, int64_t gs, int64_t total,
 }
 
 // K2, b >= 2 over gl drawn levels (scale = Lh/gl). g, grad as for K2
-// k = 1. One thread per point over its gl draws: draw r's level l, its
-// leader + residual plan of b corners, and (g*coef)*scale (in that order)
-// added to each planned corner with scatter_add2 (a corner drawn twice
-// adds twice). Its time follows each thread's chain of loads and plan, not
-// its adds: a run merge or a skip of its zero adds made it slower (PERF.md).
+// k = 1. One thread per point over its gl draws: draw r's level l, its g,
+// its leader + residual plan of b corners, and (g*coef)*scale (in that
+// order) added to each planned corner with scatter_add2 (a corner drawn
+// twice adds twice), but for a term whose two values are 0 (adding 0
+// changes no entry; a draw whose g are both 0 plans nothing). Its time is
+// its float atomics': the adds of its own plan alone take as long, so a
+// (point, draw) grid, level-major work and merged runs, which add work
+// around the same adds, were slower (PERF.md).
 template <bool G16>
 __global__ void __launch_bounds__(THREADS)
 hash_levels_bwd_lr_gl_kernel(const void* __restrict__ g, int64_t gs, int64_t total, int64_t base,
@@ -696,6 +744,8 @@ hash_levels_bwd_lr_gl_kernel(const void* __restrict__ g, int64_t gs, int64_t tot
   const int64_t T = total - base;
   for (int r = 0; r < gl; ++r) {
     const int l = draw_level(lseed, r, Lh);
+    const float g0 = load_g<G16>(g, l * N + n), g1 = load_g<G16>(g, gs + l * N + n);
+    if (g0 == 0.0f && g1 == 0.0f) continue;
     int ix, iy, iz;
     float tx, ty, tz;
     lattice(x, L.scale[l], ix, tx);
@@ -703,12 +753,13 @@ hash_levels_bwd_lr_gl_kernel(const void* __restrict__ g, int64_t gs, int64_t tot
     lattice(z, L.scale[l], iz, tz);
     LeaderPlan p;
     leader_plan(tx, ty, tz, p);
-    const float g0 = load_g<G16>(g, l * N + n), g1 = load_g<G16>(g, gs + l * N + n);
     const float cr = __fmul_rn(p.cdfr[7], rinv);
     for (int j = 0; j < b; ++j) {
       const float coef = j == 0 ? p.wm : cr;
       const float v0 = __fmul_rn(__fmul_rn(g0, coef), scale), v1 = __fmul_rn(__fmul_rn(g1, coef), scale);
-      scatter_add2(o0, o1, T, hash_index(ix, iy, iz, plan_corner(p, seed, l, j), mask) + L.offset[l], v0, v1);
+      if (v0 != 0.0f || v1 != 0.0f) {
+        scatter_add2(o0, o1, T, hash_index(ix, iy, iz, plan_corner(p, seed, l, j), mask) + L.offset[l], v0, v1);
+      }
     }
   }
 }
@@ -1060,42 +1111,62 @@ extern "C" int nerf_hash_max_levels() { return MAX_LEVELS; }
 // under k < 8). k: the corners, 8 exact, 1 k = 1, 2..7 leader + residual
 // with rinv = f32(1/(k-1)). out: [2, Lh, N] in bf16 (out_bf16) or f32,
 // plane stride os, level stride N. sel (optional, k < 8): [Lh, N] (k = 1)
-// or [k, Lh, N] int32. Exact (k = 8) only: words, a [total - base] uint32
-// buffer that the pack fills and K1 exact reads.
+// or [k, Lh, N] int32. k >= 2 (exact and leader + residual): words, a
+// [total - base] uint32 buffer that the pack fills and K1 reads.
 extern "C" int nerf_hash_levels_fwd(const float* planes, int64_t total, int64_t base,
                                     const float* x, const float* y, const float* z, int64_t N,
                                     int Lh, const float* scales, const int64_t* offsets,
                                     uint32_t mask, int k, float rinv, void* out, int64_t os, int out_bf16,
                                     int32_t* sel, uint32_t* words, void* stream) {
   Levels L;
-  if (!fill_levels(L, Lh, scales, offsets) || k < 1 || k > 8 || (k == 8 && words == nullptr) ||
+  if (!fill_levels(L, Lh, scales, offsets) || k < 1 || k > 8 || (k >= 2 && words == nullptr) ||
       (k < 8 && (total >= (int64_t{1} << 31) || N >= (int64_t{1} << 31)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   __nv_bfloat16* o16 = static_cast<__nv_bfloat16*>(out);
   float* o32 = static_cast<float*>(out);
-  if (k < 8) {
-    const int t = static_cast<int>(total), b = static_cast<int>(base), n = static_cast<int>(N);
-    const dim3 grid(blocks(N), Lh);
-    if (k == 1 && out_bf16) {
-      hash_levels_fwd_k1_kernel<<<grid, THREADS, 0, s>>>(planes, t, b, x, y, z, n, L, mask, o16, os, sel);
-    } else if (k == 1) {
-      hash_levels_fwd_k1_kernel<<<grid, THREADS, 0, s>>>(planes, t, b, x, y, z, n, L, mask, o32, os, sel);
-    } else if (out_bf16) {
-      hash_levels_fwd_lr_kernel<<<grid, THREADS, 0, s>>>(planes, t, b, x, y, z, n, L, mask, k, rinv, o16, os, sel);
-    } else {
-      hash_levels_fwd_lr_kernel<<<grid, THREADS, 0, s>>>(planes, t, b, x, y, z, n, L, mask, k, rinv, o32, os, sel);
-    }
-  } else {
-    const int64_t T = total - base;
-    pack_pairs_bf16_kernel<<<stride_blocks(T), THREADS, 0, s>>>(planes + base, planes + total + base, T, words);
+  const int64_t T = total - base;
+  if (k >= 2) {
+    pack_pairs_bf16_kernel<<<stride_blocks((T + 3) / 4), THREADS, 0, s>>>(planes + base, planes + total + base, T,
+                                                                       words);
+  }
+  if (k == 8) {
     if (out_bf16) {
       hash_levels_fwd_exact_kernel<<<blocks(Lh * N), THREADS, 0, s>>>(words, x, y, z, N, Lh, L, mask, o16, os);
     } else {
       hash_levels_fwd_exact_kernel<<<blocks(Lh * N), THREADS, 0, s>>>(words, x, y, z, N, Lh, L, mask, o32, os);
     }
+    return static_cast<int>(cudaGetLastError());
   }
+  const int n = static_cast<int>(N);
+  const dim3 grid(blocks(N), Lh);
+  if (k == 1) {
+    const int t = static_cast<int>(total), b = static_cast<int>(base);
+    if (out_bf16) {
+      hash_levels_fwd_k1_kernel<<<grid, THREADS, 0, s>>>(planes, t, b, x, y, z, n, L, mask, o16, os, sel);
+    } else {
+      hash_levels_fwd_k1_kernel<<<grid, THREADS, 0, s>>>(planes, t, b, x, y, z, n, L, mask, o32, os, sel);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+#define NERF_K1_LR(K)                                                                                           \
+  case K:                                                                                                       \
+    if (out_bf16) {                                                                                             \
+      hash_levels_fwd_lr_kernel<K><<<grid, THREADS, 0, s>>>(words, x, y, z, n, L, mask, rinv, o16, os, sel);    \
+    } else {                                                                                                    \
+      hash_levels_fwd_lr_kernel<K><<<grid, THREADS, 0, s>>>(words, x, y, z, n, L, mask, rinv, o32, os, sel);    \
+    }                                                                                                           \
+    break
+  switch (k) {
+    NERF_K1_LR(2);
+    NERF_K1_LR(3);
+    NERF_K1_LR(4);
+    NERF_K1_LR(5);
+    NERF_K1_LR(6);
+    NERF_K1_LR(7);
+  }
+#undef NERF_K1_LR
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1183,7 +1254,7 @@ extern "C" int nerf_pack_pairs(const float* p0, const float* p1, int64_t T, int 
   if (f32) {
     pack_pairs_f32_kernel<<<stride_blocks(T), THREADS, 0, s>>>(p0, p1, T, static_cast<float2*>(words));
   } else {
-    pack_pairs_bf16_kernel<<<stride_blocks(T), THREADS, 0, s>>>(p0, p1, T, static_cast<uint32_t*>(words));
+    pack_pairs_bf16_kernel<<<stride_blocks((T + 3) / 4), THREADS, 0, s>>>(p0, p1, T, static_cast<uint32_t*>(words));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -37,10 +37,10 @@ by ``nerfjax_torch._build`` and called through ctypes on PyTorch's current
 stream):
 
   * ``hash_levels_fwd`` (K1): the hashed levels' exact or k-corner
-    forward; the exact one reads the hashed columns packed into bf16 pairs
-    (one word per entry, ``pack_pairs_bf16_plain``'s layout) by a pass in
-    front of it; the k-corner ones are one thread per (level, point) over a
-    2-D grid, with 32-bit entries;
+    forward; the exact and k >= 2 ones read the hashed columns packed into
+    bf16 pairs (one word per entry, ``pack_pairs_bf16_plain``'s layout) by
+    a pass in front of them; the k-corner ones are one thread per (level,
+    point) over a 2-D grid, with 32-bit entries;
   * ``hash_levels_bwd`` (K2): their table gradient, exact, or to the b
     planned corners (k = 1 or leader + residual), over all levels or over
     ``grad_levels`` drawn levels scaled Lh/gl;
@@ -507,7 +507,8 @@ def k2_lr_runs(spec: HashGridSpec, x, y, z) -> torch.Tensor:
     sums and adds once. Over all levels a warp is 32 points in a row of n
     at one level and one draw, and a run starts at its first lane and
     wherever the index differs from the previous lane's; over gl drawn
-    levels every term is added on its own (all True)."""
+    levels (one thread per point over its draws) every term is a run of
+    its own (all True)."""
     _, hashed = _split_levels(spec)
     N = x.shape[0]
     g = torch.zeros(2, len(hashed), N, device=x.device)
@@ -522,14 +523,12 @@ def k2_lr_runs(spec: HashGridSpec, x, y, z) -> torch.Tensor:
 def k2_lr_atomic_count(spec: HashGridSpec, g: torch.Tensor, x, y, z) -> int:
     """The adds K2's b >= 2 modes issue on the card for the upstream
     gradient g and positions x, y, z, each one float atomic into each
-    plane: over all levels, the runs of ``k2_lr_runs`` that hold a nonzero
-    term (the card skips a run whose two sums are 0, which adds nothing;
-    most of a train step's cotangent is 0); over gl drawn levels, every
-    term (b * gl * N). The first design over all levels added every term:
-    b * Lh * N."""
+    plane: the runs of ``k2_lr_runs`` that hold a nonzero term (the card
+    skips a run whose two sums are 0, which adds nothing; most of a fast
+    train step's cotangent is 0). Over gl drawn levels every term is a run,
+    so that is its terms that are not 0. The first designs added every
+    term: b * Lh * N over all levels, b * gl * N over gl drawn levels."""
     head = k2_lr_runs(spec, x, y, z).reshape(-1)
-    if _bwd_mode(spec, len(_split_levels(spec)[1]))[0] == 2:
-        return head.numel()
     _, v0, v1 = hash_bwd_entries(spec, g, x, y, z)
     run = torch.cumsum(head.to(torch.int64), 0) - 1
     nonzero = torch.zeros(int(head.sum()), dtype=torch.int64, device=head.device)
@@ -726,10 +725,12 @@ def hash_levels_fwd(spec: HashGridSpec, planes: torch.Tensor, x, y, z, *, sel: t
     written into it, rounded as ``.to(out.dtype)`` rounds the float32
     result, and it is returned. Without it a float32 [2, Lh, N] is.
 
-    The exact mode on the card first packs the hashed columns into one
-    bf16-pair word per entry (a [total - base] int32 buffer allocated here)
-    and reads one word per corner; the k-corner modes are one thread per
-    (level, point) over a 2-D grid, with 32-bit entries (total < 2^31).
+    On the card every mode but k = 1 first packs the hashed columns into
+    one bf16-pair word per entry (a [total - base] int32 buffer allocated
+    here) and reads one word per corner (exact) or planned entry (k >= 2);
+    k = 1 reads both planes of its one entry. The k-corner modes are one
+    thread per (level, point) over a 2-D grid, with 32-bit entries (total
+    < 2^31).
 
     sel: optional int32 that receives the plan (indices relative to the
     first hashed level): [Lh, N] at k = 1, [k, Lh, N] at k >= 2 (the leader
@@ -753,7 +754,7 @@ def hash_levels_fwd(spec: HashGridSpec, planes: torch.Tensor, x, y, z, *, sel: t
         out = torch.empty(2, Lh, N, dtype=torch.float32, device=x.device)
     if N:
         base, scales, offsets, mask = _level_arrays(spec, hashed)
-        words = None if k < 8 else torch.empty(planes.shape[1] - base, dtype=torch.int32, device=x.device)
+        words = None if k == 1 else torch.empty(planes.shape[1] - base, dtype=torch.int32, device=x.device)
         err = _lib().nerf_hash_levels_fwd(
             planes.data_ptr(), planes.shape[1], base, x.data_ptr(), y.data_ptr(), z.data_ptr(), N,
             Lh, scales.ctypes.data, offsets.ctypes.data, mask, k, _rinv(k), out.data_ptr(), out.stride(0),
@@ -782,7 +783,8 @@ def hash_levels_bwd(spec: HashGridSpec, g: torch.Tensor, x, y, z, out: torch.Ten
     b >= 2 over all levels one thread per (level, point) (N < 2^31), each
     warp's runs of equal indices merged per draw and a run whose sums are 0
     left out (``k2_lr_runs``); k = 1 and b >= 2 over gl drawn levels one
-    thread per point over its rows."""
+    thread per point over its rows (b >= 2: a term whose two values are 0
+    left out)."""
     _, hashed = _split_levels(spec)
     if _device_kind("hash_levels_bwd", x) == "cpu":
         return hash_levels_bwd_plain(spec, g, x, y, z, out)

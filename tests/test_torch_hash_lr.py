@@ -180,3 +180,28 @@ def test_k_corner_backward_terms_per_row(b):
     got = he.hash_levels_bwd(spec, g, x, y, z, torch.zeros(2, spec.total_table_size))
     np.testing.assert_allclose(float(got[0].sum()), Lh, rtol=1e-6)
     assert float(got[:, : hashed[0]["offset"]].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("N", [1, 33, 2048])
+@pytest.mark.parametrize("k", range(2, 8))
+def test_k1_packed_words_emulation_equals_plain(k, N):
+    """K1 k >= 2 as the card runs it, in plain torch: the hashed columns
+    packed into bf16-pair words (pack_pairs_bf16_plain), the k planned
+    words gathered together, each widened by a shift and summed e =
+    f_0*w_m, e += f_j*coef_r in j order in float32; equal bit for bit to
+    hash_levels_fwd_plain at N = 1, 33 (not a multiple of 32) and 2048."""
+    spec = HashGridSpec(**BASE, fwd_corners=k)
+    hashed = _levels("hashed")
+    table, xyz, _ = _inputs(40 + k)
+    planes = torch.from_numpy(table)
+    x, y, z = (torch.from_numpy(c[:N].copy()) for c in xyz)
+    sel, coef = he._hash_plan(spec, hashed, x, y, z, k)
+    words = he.pack_pairs_bf16_plain(planes[:, hashed[0]["offset"]:])[sel]  # [k, Lh, N], gathered together
+    f0, f1 = he._unpack_pairs_plain(words.reshape(-1))
+    f = torch.stack([f0, f1]).reshape(2, *words.shape)
+    e = f[:, 0] * coef[0]
+    for j in range(1, k):
+        e = e + f[:, j] * coef[j]
+    ref, plan = he.hash_levels_fwd_plain(spec, planes, x, y, z)
+    assert torch.equal(plan, sel)
+    assert torch.equal(e.view(torch.int32), ref.view(torch.int32))

@@ -181,10 +181,10 @@ def test_lr_merged_sums_match_plain(inputs, b, gl):
     assert bool(((got - ref).abs() <= bound).all())
     assert got[:, : he._split_levels(spec)[1][0]["offset"]].abs().max() == 0 and np.count_nonzero(got.numpy()) > 0
     runs = int(he.k2_lr_runs(spec, x, y, z).sum())
-    if gl:  # one add per term, zero or not
-        assert he.k2_lr_atomic_count(spec, g, x, y, z) == runs == idx.shape[0]
-    else:  # fewer adds than runs: the zero band's runs add nothing
-        assert he.k2_lr_atomic_count(spec, g, x, y, z) < runs <= idx.shape[0]
+    # fewer adds than runs: the zero band's runs add nothing
+    assert he.k2_lr_atomic_count(spec, g, x, y, z) < runs <= idx.shape[0]
+    if gl:  # over gl drawn levels each term is a run of its own
+        assert runs == idx.shape[0]
 
 
 @pytest.mark.parametrize("gl", [0, 2])
@@ -203,13 +203,13 @@ def test_lr_one_position_gives_one_run_per_warp_row_and_draw(N, gl):
 
 @pytest.mark.parametrize("gl", [0, 2])
 def test_lr_zero_cotangent_adds_nothing(gl):
-    """At one position, N = 128 (4 warps), over all levels: g = 0 from point
-    64 on leaves the first two warps' runs, g = 0 everywhere none. Over gl
-    drawn levels every term is added, zero or not."""
+    """At one position, N = 128 (4 warps): g = 0 from point 64 on leaves,
+    over all levels, the first two warps' runs and, over gl drawn levels,
+    the first 64 points' terms; g = 0 everywhere adds nothing."""
     spec = _lr_spec(3, gl)
     x, y, z = _one_position(128)
     half, none = (he.k2_lr_atomic_count(spec, _g(128, 9, zero_from=k), x, y, z) for k in (64, 0))
-    assert (half, none) == ((3 * gl * 128,) * 2 if gl else (3 * LH * 2, 0))
+    assert (half, none) == ((3 * gl * 64, 0) if gl else (3 * LH * 2, 0))
 
 
 def test_lr_sorted_samples_along_rays_merge():
@@ -224,7 +224,8 @@ def test_lr_distinct_neighbours_give_one_add_per_term():
     apart: neighbouring lanes' planned entries differ at every level and
     draw, so no run merges, and each nonzero term is one add (at levels
     where a point sits on a lattice point the residual mass, and so the
-    residual draws' terms, are 0)."""
+    residual draws' terms, are 0), over all levels and over gl drawn
+    levels alike."""
     N = 16
     x = (np.arange(N) * 3 + 0.5) / he._split_levels(SPEC)[1][0]["scale"]
     assert x.max() < 1.0
@@ -236,4 +237,69 @@ def test_lr_distinct_neighbours_give_one_add_per_term():
         assert int(he.k2_lr_runs(spec, x, y, z).sum()) == _lr_terms(spec, N)
         nonzero = int(((v0 != 0) | (v1 != 0)).sum())
         assert 0 < nonzero < _lr_terms(spec, N)
-        assert he.k2_lr_atomic_count(spec, g, x, y, z) == (_lr_terms(spec, N) if gl else nonzero)
+        assert he.k2_lr_atomic_count(spec, g, x, y, z) == nonzero
+
+
+# -- K2 b >= 2 over gl drawn levels: one thread per point over its draws --------------
+
+
+def _gl_kernel_plain(spec, g, x, y, z, out):
+    """K2 b >= 2 over gl drawn levels as the card runs it, in plain torch:
+    per point, per draw r its level l (``_draw_levels``), per planned
+    corner j the term (g[l]*coef_j)*scale in float32, added on its own
+    unless its two values are 0. Returns (out, the terms added)."""
+    _, hashed = he._split_levels(spec)
+    Lh, N = len(hashed), x.shape[0]
+    gl, b = spec.grad_levels, he._grad_corners(spec)
+    scale = float(np.float32(Lh / gl))
+    sel, coef = he._hash_plan(spec, hashed, x, y, z, b)  # [b, Lh, N]
+    ids = he._draw_levels(x, y, z, Lh, gl, he.LEVEL_SALT)  # [gl, N]
+    n = torch.arange(N)
+    idx, v0, v1 = [], [], []
+    for r in range(gl):
+        l = ids[r]
+        for j in range(b):
+            c = coef[j, l, n]
+            idx.append(sel[j, l, n] + hashed[0]["offset"])
+            v0.append((g[0, l, n] * c) * scale)
+            v1.append((g[1, l, n] * c) * scale)
+    idx, v0, v1 = torch.cat(idx), torch.cat(v0), torch.cat(v1)
+    add = (v0 != 0) | (v1 != 0)
+    return he.table_grad_scatter_plain(idx[add], v0[add], v1[add], out), int(add.sum())
+
+
+@pytest.mark.parametrize("b", [2, 3])
+@pytest.mark.parametrize("gl", range(1, LH))
+def test_gl_kernel_order_matches_plain(gl, b):
+    """Every gl of 1..Lh-1: the card's order and zero skip over uniform
+    points and one ray's sorted samples, with a band of zero cotangent,
+    within the atomic-order bound of hash_levels_bwd_plain; its adds are
+    k2_lr_atomic_count's; for gl >= 2 some point draws one level twice,
+    and that level's planned entries take both draws' terms."""
+    spec = _lr_spec(b, gl)
+    a = np.random.default_rng(12).uniform(0.0, 1.0, (3, 600))
+    rx, ry, rz = _rays(n_rays=2, n_samples=100, seed=13)
+    x, y, z = (torch.cat([torch.from_numpy(a[i].astype(np.float32)), r]) for i, r in enumerate((rx, ry, rz)))
+    N, total = x.shape[0], spec.total_table_size
+    g = _g(N, 14)
+    g[:, :, 200:300] = 0.0
+    got, adds = _gl_kernel_plain(spec, g, x, y, z, torch.zeros(2, total))
+    ref = he.hash_levels_bwd_plain(spec, g, x, y, z, torch.zeros(2, total))
+    mass = he.hash_levels_bwd_plain(spec, g.abs(), x, y, z, torch.zeros(2, total))
+    idx = he.hash_bwd_entries(spec, g, x, y, z)[0]
+    one = torch.ones(idx.shape[0])
+    count = he.table_grad_scatter_plain(idx, one, one, torch.zeros(2, total))
+    bound = 2.0 * count.clamp_min(8.0) * 2.0**-24 * mass + 1e-30
+    assert bool(((got - ref).abs() <= bound).all()) and np.count_nonzero(got.numpy()) > 0
+    assert adds == he.k2_lr_atomic_count(spec, g, x, y, z) < b * gl * N
+    ids = he._draw_levels(x, y, z, LH, gl, he.LEVEL_SALT)
+    twice = (ids[:, None, :] == ids[None, :, :]).sum((0, 1)) > gl  # a point that drew one level twice
+    assert bool(twice.any()) == (gl >= 2)
+    if gl >= 2:
+        n = int(torch.nonzero(twice)[0])
+        one_point = [c[n : n + 1] for c in (x, y, z)]
+        _, hashed = he._split_levels(spec)
+        level = int(torch.mode(ids[:, n]).values)  # the level drawn twice
+        leader = int(he._hash_plan(spec, hashed, *one_point, b)[0][0, level, 0]) + hashed[0]["offset"]
+        terms = he.hash_bwd_entries(spec, torch.ones(2, LH, 1), *one_point)[0]
+        assert int((terms == leader).sum()) >= 2

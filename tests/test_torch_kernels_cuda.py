@@ -824,6 +824,82 @@ def test_k2_lr_matches_plain_under_contention(cuda_device, inputs, b, gl):
     assert bool(((into - ref).abs() <= bound).all())
 
 
+@pytest.mark.parametrize("N", [1, 31, 33, 257, 100_003])
+@pytest.mark.parametrize("k", range(2, 8))
+def test_lr_hash_levels_fwd_on_packed_words_at_ragged_n(cuda_device, k, N):
+    """K1 k >= 2 (the hashed columns packed into bf16-pair words in front,
+    k planned words loaded together, k a template parameter) equals its
+    plain version with torch.equal, output and plan, in f32 and bf16, at
+    every k of 2..7 and at N that are not multiples of the block or the
+    warp; one launch a call."""
+    spec = HashGridSpec(**DROP_IN_LR, fwd_corners=k)
+    _, hashed = hash_encode._split_levels(spec)
+    rng = np.random.default_rng(70 + k)
+    planes = torch.from_numpy(rng.uniform(-1, 1, (2, spec.total_table_size)).astype(np.float32)).to(cuda_device)
+    x, y, z = _lr_positions(spec, N, 71, cuda_device) if N > 64 else _positions(N, 72, cuda_device)
+    ref, plan = hash_encode.hash_levels_fwd_plain(spec, planes, x, y, z)
+    for dtype in (torch.float32, torch.bfloat16):
+        sel = torch.full((k, len(hashed), N), -1, dtype=torch.int32, device=cuda_device)
+        before = hash_encode.launch_counts["hash_levels_fwd"]
+        got = hash_encode.hash_levels_fwd(spec, planes, x, y, z, sel=sel,
+                                          out=torch.empty(2, len(hashed), N, dtype=dtype, device=cuda_device))
+        torch.cuda.synchronize()
+        assert hash_encode.launch_counts["hash_levels_fwd"] == before + 1
+        assert _same_bits(got, ref.to(dtype)) and torch.equal(sel.long(), plan)
+
+
+@pytest.mark.parametrize("T", [1, 3, 4, 5, 1027, 753_489])
+@pytest.mark.parametrize("shift", [0, 1], ids=["aligned", "misaligned"])
+def test_pack_pairs_bf16_four_a_thread_and_the_rest(cuda_device, T, shift):
+    """The bf16-pair pack (four entries a thread from 16-byte loads where
+    both planes and the words are 16-byte aligned, else one at a time; the
+    T % 4 left over one at a time) equals pack_pairs_plain word for word,
+    from columns that start on and off a 16-byte boundary."""
+    rng = np.random.default_rng(73)
+    planes = torch.from_numpy(rng.uniform(-1, 1, (2, T + 8)).astype(np.float32)).to(cuda_device)
+    cols = planes[:, shift : shift + T]
+    got = hash_encode.pack_pairs(cols, False)
+    torch.cuda.synchronize()
+    assert torch.equal(got, hash_encode.pack_pairs_plain(cols, False))
+
+
+@pytest.mark.parametrize("gl", [1, 2, 3])
+@pytest.mark.parametrize("inputs", ["one_position", "rays"])
+def test_k2_gl_skips_zero_terms_under_contention(cuda_device, inputs, gl):
+    """K2 b = 2 over gl drawn levels (one thread per point over its draws,
+    terms of 0 left out) within the atomic-order bound under contention
+    (every point at one position; 48 sorted samples a ray), with a band of
+    zero cotangent and, for gl >= 2, points that draw one level twice; an
+    all-zero cotangent adds nothing: planes holding -0.0 keep their bits
+    (an add of +0.0 would make them +0.0)."""
+    spec = HashGridSpec(**DROP_IN_LR, fwd_corners=2, grad_corners=2, grad_levels=gl)
+    _, hashed = hash_encode._split_levels(spec)
+    Lh, total = len(hashed), spec.total_table_size
+    if inputs == "one_position":
+        x, y, z = (torch.full((100_003,), v, device=cuda_device) for v in (0.3, 0.6, 0.2))
+    else:
+        x, y, z = _ray_samples(2083, 48, 74, cuda_device)
+    N = x.shape[0]
+    ids = hash_encode._draw_levels(x, y, z, Lh, gl, hash_encode.LEVEL_SALT)
+    if gl >= 2 and inputs == "rays":
+        assert bool((ids[0] == ids[1]).any())
+    g = torch.from_numpy(np.random.default_rng(75).normal(size=(2, Lh, N)).astype(np.float32))
+    g[..., N // 3 : N // 2] = 0.0
+    g = g.to(cuda_device, torch.bfloat16)
+    terms = hash_encode.hash_bwd_entries(spec, g, x, y, z)
+    zeros = lambda: torch.zeros(2, total, device=cuda_device)  # noqa: E731
+    got = hash_encode.hash_levels_bwd(spec, g, x, y, z, zeros())
+    ref = hash_encode.hash_levels_bwd_plain(spec, g, x, y, z, zeros())
+    torch.cuda.synchronize()
+    assert bool(((got - ref).abs() <= _scatter_bound(*terms, total, cuda_device)).all())
+    assert got[:, : hashed[0]["offset"]].abs().max() == 0 and bool((got != 0).any())
+    assert hash_encode.k2_lr_atomic_count(spec, g, x, y, z) < 2 * gl * N
+    negzero = torch.full((2, total), -0.0, device=cuda_device)
+    out = hash_encode.hash_levels_bwd(spec, torch.zeros_like(g), x, y, z, negzero.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), negzero.view(torch.int32))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dc,grad", [(2, 8), (3, 3), (7, 8), (7, 2), (3, 1)])
 def test_lr_dense_levels_bwd_matches_plain(cuda_device, dc, grad, dtype):
