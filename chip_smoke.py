@@ -203,6 +203,36 @@ K2 b >= 2 over gl drawn levels (terms of 0 left out):
   7e. K2 over gl levels beside its adds (k2_lr_atomic_count: its terms
      that are not 0) and the first design's 2*b*gl*N.
 
+Added for the redesign of K4 k >= 2 ((level, point) threads, k a template
+parameter, the k loads in flight) and the chain's head (ray precompute and
+the prefetch):
+
+  3. the f32 head and density kernels timed at N = 524,288, E = 24 beside
+     their plain versions and bounds (on no main path: launches 0);
+  every K4 timing: its bound is that of the function (positions in, the
+     touched entries once, the output at the size of the encode's dtype
+     where the call wrote into its rows; k corners: with a float32 output
+     beside it), not of the pack in front of the kernel, a choice of
+     design; the call (pack included) and the kernel's own time net of the
+     pack, from the same trace, both stand beside it; a time below its
+     bound says so, and names the L2 as the cause only where the same call
+     timed with the L2 flushed reads at or above it;
+  L. K4 timed at k = 2, 3 and 7 into a bf16 output;
+  7b. K5 at the dgl1 step also timed with the L2 flushed in front of every
+     call (a device-to-device copy of twice the L2, left out of the time);
+  7. train()'s wall per step of the tuned run (its batches fed by
+     prefetch_to_device);
+  S. alone (python3 chip_smoke.py --only steps): the warm step medians of
+     the tuned, fast and drop-in cfgs (_warm_steps, a fresh state each)
+     before and after a train() of the same cfg, and train()'s wall per
+     step, so that a host-side change to train() (the prefetch) is read
+     on the steps after it and beside the parent's in one call;
+  H. (after 8c) the chain's head: 100 PNG frames of 800 x 800 in
+     nerf_synthetic's train split's shape (precompute_scene) through
+     python -m nerfjax_torch.cli.precompute_rays on the card: the rays
+     kept, each stage's seconds, the wall and rays/s, the NPZ read back;
+     4 frames on the card and on the CPU, masks equal, arrays within 1e-6.
+
 The last two lines are a JSON object with each kernel's launches (summed
 over the main paths: the 512^3 extraction, the tuned, drop-in and fast
 train() runs, the k2 knob steps, the eval renders, the probe entry point),
@@ -236,6 +266,7 @@ SPHERE_CENTER = np.array([0.10, -0.05, 0.0])
 SPHERE_RADIUS = 0.5
 KERNEL_SHAPES = [(n, e, dt) for n in (524_288, 1_000_003) for e in (24, 32, 40, 64) for dt in ("bf16", "f32")]
 MAIN_SHAPE = (524_288, 24, "bf16")  # the fine pass's call: 8192 cells x 64 voxels
+F32_SHAPE = (524_288, 24, "f32")  # the f32 kernels (--fp32 and precision: fp32 only: on no shipped cfg's path)
 # timed beside MAIN_SHAPE: 16, 20 and 32 levels
 WIDE_SHAPES = [(524_288, 32, "bf16"), (524_288, 40, "bf16"), (524_288, 64, "bf16")]
 # sha-256 prefixes of (rgb, sigma, density sigma) of the MLP kernels at E = 24
@@ -314,18 +345,18 @@ def _ulp_ok(got, ref) -> bool:
     return bool((_ulps(got, ref) <= 1).all())
 
 
-def _head_work(E: int, N: int, density: bool = False) -> tuple[float, float]:
+def _head_work(E: int, N: int, density: bool = False, size: int = 2) -> tuple[float, float]:
     """(bytes, operations) of the function that the head (density: the
-    density head) computes on N points of width E in bf16: enc (and sh)
-    read once, rgb and sigma (sigma) written once, nerfjax's bf16 W1..W5
-    (W1, W2) read once; two operations per multiply-add of its five
-    matmuls (W1, and W2's row 0). Neither the kernels' split into three
-    terms nor their padded weight layout is counted: the bound is the
-    function's."""
+    density head) computes on N points of width E in bf16 (``size`` 2) or
+    f32 (4): enc (and sh) read once, rgb and sigma (sigma) written once,
+    nerfjax's W1..W5 (W1, W2) read once; two operations per multiply-add
+    of its five matmuls (W1, and W2's row 0). Neither the kernels' split
+    into three terms nor their padded weight layout is counted: the bound
+    is the function's."""
     if density:
-        return 2 * ((E + 1) * N + E * 64 + 64 * 16), 2 * N * (E * 64 + 64)
+        return size * ((E + 1) * N + E * 64 + 64 * 16), 2 * N * (E * 64 + 64)
     macs = E * 64 + 64 * 16 + 32 * 64 + 64 * 64 + 64 * 3  # per point, and the weights' count
-    return 2 * ((E + 16 + 4) * N + macs), 2 * N * macs
+    return size * ((E + 16 + 4) * N + macs), 2 * N * macs
 
 
 def _wall_ms(fn, iters: int = 20) -> float:
@@ -348,13 +379,16 @@ def _wall_ms(fn, iters: int = 20) -> float:
 TRACE_PAD = 32  # spin kernels before and after a trace's calls: a trace may lose its first or last few events
 
 
-def _device_trace(fn, n: int, pad: int = TRACE_PAD) -> tuple[int, float]:
+def _device_trace(fn, n: int, pad: int = TRACE_PAD, only: str | None = None, skip: str | None = None
+                  ) -> tuple[int, float]:
     """(device events, summed device us) of fn's n calls, from a
     torch.profiler trace of the card alone. The calls sit between two runs
     of ``pad`` short spin kernels, left out of both counts: without them a
     trace was seen to lose one or two events of the calls it measures, at
     its start or its end (K1 exact's two kernels a call: 38 or 39 events
-    in 20 calls, 1 in one)."""
+    in 20 calls, 1 in one). ``only``: count only the events whose name
+    holds it (a wrapper's one kernel); ``skip``: leave out those whose
+    name holds it (an L2 flush in front of each call)."""
     import torch
     from torch.autograd import DeviceType
 
@@ -367,11 +401,12 @@ def _device_trace(fn, n: int, pad: int = TRACE_PAD) -> tuple[int, float]:
         for _ in range(pad):
             torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key
+              and (only is None or only in e.key) and (skip is None or skip not in e.key)]
     return sum(e.count for e in events), sum(e.self_device_time_total for e in events)
 
 
-def _time_ms(fn, iters: int = 20) -> float:
+def _time_ms(fn, iters: int = 20, only: str | None = None, skip: str | None = None, rest=None) -> float:
     """Device ms per call of fn: the summed durations of the kernels (and
     copies) it runs over iters calls, from a torch.profiler trace of the
     card alone (_device_trace); the host's time between them is left out.
@@ -381,21 +416,27 @@ def _time_ms(fn, iters: int = 20) -> float:
     calls) is taken again, up to 5 times. Where all 5 drop events (seen
     once, in a burst), the time is taken with CUDA events around the
     calls instead (_wall_ms: the host's gaps between calls included) and
-    a line says so."""
+    a line says so. ``only`` and ``skip`` filter the events by name
+    (_device_trace); there the fallback takes CUDA events around fn's
+    calls less those around ``rest``'s, the part of fn the filter leaves
+    out (the pack in front of K4, an L2 flush), timed alone."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     seen = []
     for attempt in range(5):
-        per_call, _ = _device_trace(fn, 1)
-        events, us = _device_trace(fn, iters)
+        per_call, _ = _device_trace(fn, 1, only=only, skip=skip)
+        events, us = _device_trace(fn, iters, only=only, skip=skip)
         if per_call > 0 and events == iters * per_call:
             return us / 1e3 / iters
         seen.append(f"{events} events in {iters} calls, {per_call} in one")
     ms = _wall_ms(fn, iters)
+    if only is not None or skip is not None:
+        ms -= _wall_ms(rest, iters)
     phase(f"5 profiler traces in a row dropped device events ({'; '.join(seen)}): timed with CUDA events "
-          f"instead, {ms * 1e3:.1f} us per call, the host's gaps between calls included")
+          f"instead, {ms * 1e3:.1f} us per call, the host's gaps between calls included"
+          + ("" if rest is None else ", less the part the trace would leave out, timed alone"))
     return ms
 
 
@@ -473,7 +514,7 @@ def kernels_vs_plain() -> dict:
                              lambda: fm.fused_ngp_head_plain(params, enc, sh), None, _bound(*_head_work(E, N), "bf16"))
             stats["fused_ngp_head"]["wide"][E] = t
             line += f"\n  fused_ngp_head E={E} (extra line): " + _timing_line(t)
-        if (N, E, dt) == MAIN_SHAPE:
+        if (N, E, dt) in (MAIN_SHAPE, F32_SHAPE):
             runs = {
                 "fused_ngp_head": (lambda: fm.fused_ngp_head(params, enc, sh, packed=packed),
                                    lambda: fm.fused_ngp_head_plain(params, enc, sh)),
@@ -481,9 +522,15 @@ def kernels_vs_plain() -> dict:
                                       lambda: fm.fused_ngp_density_plain(params, enc)),
             }
             for name, (kern, plain) in runs.items():
-                bound = _bound(*_head_work(E, N, density=name == "fused_ngp_density"), "bf16")
-                stats[name].update(_time_kernel(kern, plain, None, bound))
-                line += f"\n  {name}: " + _timing_line(stats[name])
+                bound = _bound(*_head_work(E, N, name == "fused_ngp_density", enc.element_size()), dt)
+                t = _time_kernel(kern, plain, None, bound)
+                if dt == "f32":  # an extra line and extra keys
+                    stats[name]["f32"] = t
+                    line += f"\n  {name} f32 (ngp_{'density' if 'density' in name else 'head'}_kernel): "
+                else:
+                    stats[name].update(t)
+                    line += f"\n  {name}: "
+                line += _timing_line(t)
         phase(line)
     stats["fused_ngp_head"].update(bit_equal_share=equal / total, max_err_ulp=worst)
     phase(f"bf16 head outputs over all shapes: {equal / total:.4%} bit-equal to plain, largest error {worst:.3f} "
@@ -802,8 +849,12 @@ def _positions(N: int, rng):
 
 
 def _dense_fwd_bound(Ld: int, touched: int, N: int, out_bytes: int, ops_per_row: int):
-    """K4's bound: positions in, the touched table entries (both planes) in
-    once, the [2, Ld, N] output out once; ops per (level, point)."""
+    """K4's bound, that of the function it computes: positions in, the
+    touched table entries (both f32 planes) in once, the [2, Ld, N] output
+    out once; ops per (level, point). The pack in front of the kernel is a
+    choice of design (the kernel could read the planes in place) and is
+    left out: the wrapper's call and its kernel alone are both set
+    against this bound."""
     return _bound(12 * N + 8 * touched + out_bytes * 2 * Ld * N, ops_per_row * Ld * N)
 
 
@@ -814,9 +865,12 @@ def _plan_ops(k: int) -> int:
     return 80 if k == 1 else 90 + 30 * (k - 1)
 
 
-def _k4_bound(spec, x, y, z, dtype):
-    """K4's bound at one call: exact, the cells' 8 corners (120 operations
-    per (level, point)); k corners, the planned entries (_plan_ops)."""
+def _k4_bound(spec, x, y, z, dtype, out_bytes: int | None = None):
+    """K4's bound at one call (_dense_fwd_bound): exact,
+    the cells' 8 corners (120 operations per (level, point)) and an output
+    in ``dtype``; k corners, the planned entries (_plan_ops) and an output
+    of ``out_bytes`` per value (the encode's dtype where the call wrote
+    into its rows; float32 by default, as the wrapper allocates it)."""
     import torch
 
     from nerfjax_torch.ops import hash_encode as he
@@ -826,23 +880,63 @@ def _k4_bound(spec, x, y, z, dtype):
     if he._dense_mode(spec, Ld)[0] == 1:
         k = spec.dense_corners
         touched = torch.unique(he._dense_plan(dense, x, y, z, k)[0]).numel()
-        return _dense_fwd_bound(Ld, touched, N, 4, _plan_ops(k))
+        return _dense_fwd_bound(Ld, touched, N, out_bytes or 4, _plan_ops(k))
     touched = torch.unique(he._dense_corner_arrays(dense, x, y, z, torch.float32)[0]).numel()
-    return _dense_fwd_bound(Ld, touched, N, torch.empty(0, dtype=dtype).element_size(), 120)
+    size = torch.empty(0, dtype=dtype).element_size()
+    return _dense_fwd_bound(Ld, touched, N, size, 120)
 
 
 def _k4_timed(shapes: dict, label: str, spec, planes, x, y, z, dtype) -> dict:
-    """K4 timed (runs p, k, k, p) beside its bound at one main-path call,
-    filed in ``shapes`` under ``label`` and printed (an extra line)."""
+    """K4 held to plain and timed at one main-path call (_k4_at_call, into
+    the wrapper's own output), filed in ``shapes`` under ``label`` and
+    printed (an extra line)."""
     from nerfjax_torch.ops import hash_encode as he
 
-    t = _time_kernel(lambda: he.dense_levels_fwd(spec, planes, x, y, z, dtype),
-                     lambda: he.dense_levels_fwd_plain(spec, planes, x, y, z, dtype), None,
-                     _k4_bound(spec, x, y, z, dtype))
-    t["N"] = x.shape[0]
-    shapes[label] = t
+    t = shapes[label] = _k4_at_call(spec, planes, x, y, z, dtype, None, label, True)
     mode = "exact" if he._dense_mode(spec, len(he._split_levels(spec)[0]))[0] != 1 else f"k={spec.dense_corners}"
     phase(f"  dense_levels_fwd at {label} ({mode} {dtype}, N={x.shape[0]:,}): " + _timing_line(t))
+    return t
+
+
+def _k4_at_call(spec, planes, x, y, z, dtype, out, label: str, timed: bool):
+    """K4 on the arguments of one main-path call against its plain version
+    with torch.equal (k corners: its plan too, through sel). Where the call
+    wrote into the encode's output (``out``: a [2, Ld, N] slice of it, in
+    the encode's dtype) the kernel writes into a fresh buffer of the same
+    dtype and strides and is held to the plain output cast to that dtype.
+    Timed (runs p, k, k, p) beside its bound with the output it writes and
+    with a float32 one, and its kernel net of the pack (the trace's
+    dense_levels_fwd events alone, kernel_ms), if ``timed``:
+    returns the timing, else None."""
+    import torch
+
+    from nerfjax_torch.ops import hash_encode as he
+
+    dense, _ = he._split_levels(spec)
+    Ld, N = len(dense), x.shape[0]
+    k = spec.dense_corners if he._dense_mode(spec, Ld)[0] == 1 else 8
+    ref, plan = he.dense_levels_fwd_plain(spec, planes, x, y, z, dtype)
+    sel = torch.empty(plan.shape, dtype=torch.int32, device=x.device) if k < 8 else None
+    if out is None:
+        got = he.dense_levels_fwd(spec, planes, x, y, z, dtype, sel=sel)
+        call = lambda: he.dense_levels_fwd(spec, planes, x, y, z, dtype)  # noqa: E731
+    else:
+        buf = torch.empty_strided(out.shape, out.stride(), dtype=out.dtype, device=out.device)
+        got = he.dense_levels_fwd(spec, planes, x, y, z, dtype, sel=sel, out=buf)
+        ref = ref.to(out.dtype)
+        call = lambda: he.dense_levels_fwd(spec, planes, x, y, z, dtype, out=buf)  # noqa: E731
+    if got.dtype != ref.dtype or not torch.equal(got, ref) or (k < 8 and not torch.equal(sel.long(), plan)):
+        raise AssertionError(f"dense_levels_fwd ({label}, N={N:,}): kernel != plain (output or plan)")
+    if not timed:
+        return None
+    t = _time_kernel(call, lambda: he.dense_levels_fwd_plain(spec, planes, x, y, z, dtype), None,
+                     _k4_bound(spec, x, y, z, dtype, got.element_size()))
+    if k < 8:
+        t["bound_f32_out"] = _k4_bound(spec, x, y, z, dtype, 4)
+    t["N"] = N
+    T, f32 = he._dense_width(dense), k == 8 and dtype == torch.float32
+    pack = lambda: he.pack_pairs(planes[:, :T], f32)  # noqa: E731
+    t["kernel_ms"] = float(np.median([_time_ms(call, only="dense_levels_fwd", rest=pack) for _ in range(2)]))
     return t
 
 
@@ -896,7 +990,7 @@ def dense_kernels_vs_plain(stats: dict) -> None:
         touched = torch.unique(he._dense_corner_arrays(dense, x, y, z, torch.float32)[0]).numel()
         t = _time_kernel(lambda: he.dense_levels_fwd(exact, planes, x, y, z, torch.bfloat16),
                          lambda: he.dense_levels_fwd_plain(exact, planes, x, y, z, torch.bfloat16), None,
-                         _dense_fwd_bound(Ld, touched, N, 2, 120))
+                         _k4_bound(exact, x, y, z, torch.bfloat16))
         phase(f"dense_levels_fwd exact N={N}: kernel == plain bit for bit (f32 and bf16); "
               f"{touched:,} of {he._dense_width(dense):,} dense entries touched")
         phase(f"  dense_levels_fwd exact bf16 N={N}: " + _timing_line(t))
@@ -912,7 +1006,7 @@ def dense_kernels_vs_plain(stats: dict) -> None:
         raise AssertionError("dense_levels_fwd k=1: plan or output differs from the plain version")
     t = _time_kernel(lambda: he.dense_levels_fwd(dc1, planes, x, y, z, torch.bfloat16),
                      lambda: he.dense_levels_fwd_plain(dc1, planes, x, y, z, torch.bfloat16), None,
-                     _dense_fwd_bound(Ld, torch.unique(plan).numel(), N, 4, 80))
+                     _k4_bound(dc1, x, y, z, torch.bfloat16))
     phase(f"dense_levels_fwd k=1 N={N}: sel == plain plan, output == plain (torch.equal)")
     phase(f"  dense_levels_fwd k=1 N={N}: " + _timing_line(t))
 
@@ -981,7 +1075,21 @@ def _agree(a: float, b: float) -> bool:
     return max(a, b) <= TIMING_AGREE * min(a, b)
 
 
-def _time_kernel(kern, plain, library, bound, library_name: str = "index_add_", fill=None) -> dict:
+FLUSH_EVENT = "Memcpy DtoD"  # the L2 flush's device event, left out of the times it precedes
+
+
+def _l2_flush():
+    """A call that streams twice the L2's size through it (one
+    device-to-device copy, FLUSH_EVENT in a trace), so that the call after
+    it finds nothing of its own in the L2."""
+    import torch
+
+    src = torch.empty(H100_L2_BYTES // 2, dtype=torch.float32, device="cuda")
+    dst = torch.empty_like(src)
+    return lambda: dst.copy_(src)
+
+
+def _time_kernel(kern, plain, library, bound, library_name: str = "index_add_", fill=None, flush=None) -> dict:
     """Device ms per call (_time_ms) of a kernel's wrapper and its plain
     version, in sets of runs p, k, k, p, of its one-call library yardstick
     where there is one (runs l, l), beside its bound (or None); and the
@@ -992,10 +1100,17 @@ def _time_kernel(kern, plain, library, bound, library_name: str = "index_add_", 
     if no set agrees. ``fill``: the caller's zero fill of the columns a
     scatter adds into, which kern, plain and library leave out (their adds
     pile up over the runs); it is timed alone and in front of the wrapper
-    (the combined figure)."""
+    (the combined figure). ``flush`` (_l2_flush): run in front of every
+    call of kern and plain and left out of their times, so that each call
+    starts with an L2 that holds none of its bytes."""
+    skip = None
+    if flush is not None:
+        kern_alone, plain_alone = kern, plain
+        kern, plain, skip = (lambda: (flush(), kern_alone())), (lambda: (flush(), plain_alone())), FLUSH_EVENT
     sets = []
     for _ in range(TIMING_SETS):
-        sets.append((_time_ms(plain), _time_ms(kern), _time_ms(kern), _time_ms(plain)))
+        sets.append((_time_ms(plain, skip=skip, rest=flush), _time_ms(kern, skip=skip, rest=flush),
+                     _time_ms(kern, skip=skip, rest=flush), _time_ms(plain, skip=skip, rest=flush)))
         if _agree(sets[-1][1], sets[-1][2]) and _agree(sets[-1][0], sets[-1][3]):
             break
     else:
@@ -1005,7 +1120,8 @@ def _time_kernel(kern, plain, library, bound, library_name: str = "index_add_", 
     t = {"ms": float(np.median([r[i] for r in sets for i in (1, 2)])),
          "plain_ms": float(np.median([r[i] for r in sets for i in (0, 3)])),
          "library_ms": sum(lib) / 2 if lib else None, "library_name": library_name, "bound": bound,
-         "sets": sets, "library_runs": lib, "wall_ms": _wall_ms(kern)}
+         "sets": sets, "library_runs": lib, "wall_ms": _wall_ms(kern if flush is None else kern_alone),
+         "flushed": flush is not None}
     if fill is not None:
         t["fill_ms"] = _time_ms(fill)
         t["with_fill_ms"] = _time_ms(lambda: (fill(), kern()))
@@ -1019,13 +1135,27 @@ def _timing_line(t: dict) -> str:
     lib = "" if t["library_ms"] is None else f", {t['library_name']} {t['library_ms'] * 1e3:.1f} us"
     order = ("p,k,k,p" + " | p,k,k,p" * (len(t["sets"]) - 1) + (" | l,l" if t["library_ms"] is not None else ""))
     bound = "" if t["bound"] is None else f", bound {t['bound'][0] * 1e3:.1f} us ({t['bound'][1]})"
-    if "bound_f32_out" in t:  # K1: the bound had it written a float32 output; its random reads
+    if "sectors" in t:  # K1: the bound had it written a float32 output; its random reads
         bound += (f" (with a float32 output {t['bound_f32_out'][0] * 1e3:.1f} us; {t['sectors']:,} random 4-byte "
                   f"reads, one 32-byte sector each: {t['sectors'] * 32 / t['ms'] / 1e9:.2f} TB/s of sectors)")
+    if "bound_f32_out" in t and "sectors" not in t:  # K4's k-corner modes
+        bound += f" (with a float32 output {t['bound_f32_out'][0] * 1e3:.1f} us)"
+    if "kernel_ms" in t:  # K4: its own kernel, net of the pack in front of it, against the same bound
+        bound += (f"; the kernel alone {t['kernel_ms'] * 1e3:.1f} us, the pack {(t['ms'] - t['kernel_ms']) * 1e3:.1f} us "
+                  f"of the call; the call at {t['bound'][0] / t['ms']:.0%} of the bound, the kernel alone at "
+                  f"{t['bound'][0] / t['kernel_ms']:.0%}")
+    if t["bound"] is not None and t["ms"] < t["bound"][0]:
+        flushed = t.get("flushed_timing")
+        if flushed is not None and flushed["ms"] >= t["bound"][0]:
+            bound += (f"; time below bound; with the L2 flushed in front of every call {flushed['ms'] * 1e3:.1f} us, "
+                      "at or above it, so the bytes it counts stayed in the L2 between calls")
+        else:
+            bound += "; time below bound"
     fill = "" if "fill_ms" not in t else (f"; net of the caller's zero fill, which takes {t['fill_ms'] * 1e3:.1f} us "
                                           f"alone; fill + kernel {t['with_fill_ms'] * 1e3:.1f} us")
+    flushed = "; the L2 flushed in front of every call (the flush left out)" if t.get("flushed") else ""
     return (f"device: kernel {t['ms'] * 1e3:.1f} us, plain {t['plain_ms'] * 1e3:.1f} us{lib} per call, medians "
-            f"(runs {order}: {r}){bound}; wall per kernel call {t['wall_ms'] * 1e3:.1f} us{fill}")
+            f"(runs {order}: {r}){bound}; wall per kernel call {t['wall_ms'] * 1e3:.1f} us{fill}{flushed}")
 
 
 STEP_KERNELS = ("hash_levels_fwd", "dense_levels_fwd", "dense_levels_bwd", "hash_levels_bwd", "table_grad_scatter")
@@ -1181,7 +1311,7 @@ def launch_floor() -> float:
     return sum(runs) / 2
 
 
-def step_kernels_vs_plain(cap: dict, label: str, stats: dict, timed=()) -> dict:
+def step_kernels_vs_plain(cap: dict, label: str, stats: dict, timed=(), flushed=()) -> dict:
     """The hash kernels on the arguments they got in one field pass of a
     warm train step (one entry of capture_step_inputs), each that was
     captured: K1 and K4 equal to their plain versions, K5 equal with every
@@ -1190,6 +1320,8 @@ def step_kernels_vs_plain(cap: dict, label: str, stats: dict, timed=()) -> dict:
     are timed beside their bounds (K3 also beside index_add_); a timed
     scatter zeroes the columns its levels own in a [2, total] buffer and
     adds into it, as the encode's backward does with its one gradient.
+    Those named in ``flushed`` are timed again with the L2 flushed in front
+    of every call (_l2_flush), filed under their timing's "flushed_timing".
     Returns {name: timing}."""
     import torch
 
@@ -1209,6 +1341,8 @@ def step_kernels_vs_plain(cap: dict, label: str, stats: dict, timed=()) -> dict:
     def timing(name, kern, plain, library, bound, fill=None, library_name="index_add_"):  # bound: called only when timed
         if name in timed:
             out[name] = _time_kernel(kern, plain, library, bound(), library_name, fill=fill)
+        if name in flushed:
+            out[name]["flushed_timing"] = _time_kernel(kern, plain, None, out[name]["bound"], flush=_l2_flush())
 
     if "hash_levels_fwd" in cap:
         _, planes, x, y, z = cap["hash_levels_fwd"][:5]
@@ -1223,18 +1357,12 @@ def step_kernels_vs_plain(cap: dict, label: str, stats: dict, timed=()) -> dict:
         _, planes, x, y, z, dtype = cap["dense_levels_fwd"]
         planes, N = planes.detach(), x.shape[0]
         mode, _ = he._dense_mode(spec, Ld)
-        got = he.dense_levels_fwd(spec, planes, x, y, z, dtype)
-        ref, _ = he.dense_levels_fwd_plain(spec, planes, x, y, z, dtype)
-        if got.dtype != ref.dtype or not torch.equal(got, ref):
-            raise AssertionError(f"dense_levels_fwd ({label}): kernel != plain")
+        t = _k4_at_call(spec, planes, x, y, z, dtype, kws["dense_levels_fwd"].get("out"), label,
+                        "dense_levels_fwd" in timed)
+        if t is not None:
+            out["dense_levels_fwd"] = t
         fold("dense_levels_fwd", 0.0)
-
-        timing("dense_levels_fwd", lambda: he.dense_levels_fwd(spec, planes, x, y, z, dtype),
-               lambda: he.dense_levels_fwd_plain(spec, planes, x, y, z, dtype), None,
-               lambda: _k4_bound(spec, x, y, z, dtype))
-        if "dense_levels_fwd" in out:
-            out["dense_levels_fwd"]["N"] = N
-        checked.append(f"K4 {f'k={spec.dense_corners}' if mode == 1 else 'exact'} {dtype} == plain")
+        checked.append(f"K4 {f'k={spec.dense_corners} (output and sel)' if mode == 1 else 'exact'} {dtype} == plain")
         T = he._dense_width(dense)
         cols, f32 = planes[:, :T], mode != 1 and dtype == torch.float32  # K4's table pass
         words = he.pack_pairs_plain(cols, f32).view(torch.int32).reshape(-1)
@@ -1349,6 +1477,8 @@ def step_kernels_vs_plain(cap: dict, label: str, stats: dict, timed=()) -> dict:
     phase(f"hash kernels at the {label} (N={N:,}, {Ld} dense + {Lh} hashed levels): " + "; ".join(checked))
     for name, t in out.items():
         phase(f"  {name}: " + _timing_line(t))
+        if "flushed_timing" in t:
+            phase(f"  {name}, the L2 flushed in front of every call: " + _timing_line(t["flushed_timing"]))
     return out
 
 
@@ -1553,9 +1683,9 @@ def train_full(tmp: Path) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     psnr = np.asarray(out["psnr"])
     first, last = float(psnr[:20].mean()), float(psnr[-20:].mean())
-    phase(f"train(): {out['steps']} steps in {wall:.2f} s wall (checkpoint writes included), "
-          f"PSNR first 20 steps {first:.2f} dB, last 20 {last:.2f} dB; peak device memory {peak:.2f} GiB; "
-          f"launches {launches}")
+    phase(f"train(): {out['steps']} steps in {wall:.2f} s wall (checkpoint writes included) = "
+          f"{wall / out['steps'] * 1e3:.2f} ms per step, PSNR first 20 steps {first:.2f} dB, last 20 {last:.2f} dB; "
+          f"peak device memory {peak:.2f} GiB; launches {launches}")
     if not np.isfinite(psnr).all() or not all(np.isfinite(v["w"]).all() for v in out["params"]["dmlp"]):
         raise AssertionError("NaN in training")
     if last < first + PSNR_RISE_DB:
@@ -1598,7 +1728,7 @@ def train_full(tmp: Path) -> dict:
     phase(f"one warm step (inputs captured): peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     grid_k1 = grid_update_k1(state)
     return {"cfg": cfg, "final": final, "launches": launches, "ms_per_step": med, "step_inputs": step_inputs,
-            "grid_update_k1": grid_k1}
+            "grid_update_k1": grid_k1, "train_wall_ms_per_step": wall / out["steps"] * 1e3}
 
 
 def train_dense_knob(tmp: Path, label: str, stats: dict) -> dict:
@@ -1639,8 +1769,10 @@ def train_dense_knob(tmp: Path, label: str, stats: dict) -> dict:
     if mode != {"dgl1": (2, 1), "dc1": (1, 0)}[label]:
         raise AssertionError(f"{label}: the field's dense mode is {mode}")
     (cap,) = capture_step_inputs(state, left[0]).values()
+    # K5 at dgl1 stages 18.9 MB that stay in the L2 between the timer's calls: timed again with it flushed
     timings = step_kernels_vs_plain(cap, f"{label} step", stats,
-                                    ("hash_levels_fwd", "dense_levels_fwd", "dense_levels_bwd"))
+                                    ("hash_levels_fwd", "dense_levels_fwd", "dense_levels_bwd"),
+                                    ("dense_levels_bwd",) if label == "dgl1" else ())
     return {"ms_per_step": med, "launches": launches, "timings": timings}
 
 
@@ -2025,7 +2157,7 @@ def lr_kernels_vs_plain(stats: dict) -> None:
     and K4 with torch.equal, output (float32 and bf16) and plan (sel); K2
     (b = k over all levels, and over 2 drawn levels from a k-corner
     forward) and K3 on K5's staging within the atomic-order bound; K5 with
-    torch.equal."""
+    torch.equal; K4 timed at each k into a bf16 output beside its bound."""
     import torch
 
     from nerfjax_torch.ops import hash_encode as he
@@ -2055,6 +2187,10 @@ def lr_kernels_vs_plain(stats: dict) -> None:
                 if not torch.equal(got, ref.to(dt)) or not torch.equal(sel.long(), plan):
                     raise AssertionError(f"{name} k={k} ({dt} out): kernel != plain (output or plan)")
             stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], 0.0)
+        t = _k4_at_call(spec, planes, x, y, z, torch.bfloat16, torch.empty(2, Ld, N, dtype=torch.bfloat16, device="cuda"),
+                        f"seeded k={k}", True)
+        stats["dense_levels_fwd"]["shapes"][f"seeded_k{k}"] = t
+        phase(f"  dense_levels_fwd k={k} at the fast spec (seeded, bf16 out, N={N:,}): " + _timing_line(t))
         for label, s in (("all levels", spec), ("gl=2", dataclasses.replace(spec, grad_levels=2)),
                          ("exact forward", dataclasses.replace(spec, fwd_corners=8))):
             err = _check_scatter(f"hash_levels_bwd k={k} {label}", he.hash_levels_bwd(s, g_h, x, y, z, _zeros2(total)),
@@ -2077,6 +2213,133 @@ def lr_kernels_vs_plain(stats: dict) -> None:
         phase(f"k={k} at the fast spec, N={N:,}: K1 and K4 == plain (f32 and bf16 out, sel [k, L, N]); K2 (b={k}, "
               f"all levels, gl=2, exact forward) within the atomic-order bound; K5 == plain ({idx.numel():,} "
               f"entries), K3 on them within the bound, max |err| {err:.3g}")
+
+
+# the precompute phase's scene: nerf_synthetic's train split (100 frames of
+# 800 x 800, camera_angle_x 0.6911112, cameras 4.03 from the origin)
+PRECOMPUTE_FRAMES = 100
+PRECOMPUTE_SIZE = 800
+PRECOMPUTE_ANGLE_X = 0.6911112
+PRECOMPUTE_RADIUS = 4.03
+PRECOMPUTE_CHECK_FRAMES = 4  # frames made on the card and on the CPU, held equal
+
+
+def _lookat(cam: np.ndarray) -> np.ndarray:
+    """[4, 4] float32 OpenGL camera-to-world pose at ``cam`` looking at the
+    origin, +Z up (the transforms JSON's convention)."""
+    fwd = -cam / np.linalg.norm(cam)
+    right = np.cross(fwd, [0.0, 0.0, 1.0])
+    right /= np.linalg.norm(right)
+    c2w = np.eye(4)
+    c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = right, np.cross(right, fwd), -fwd, cam
+    return c2w.astype(np.float32)
+
+
+def precompute_scene(root: Path, n: int = PRECOMPUTE_FRAMES) -> Path:
+    """nerf_synthetic's train split in shape: n frames of PRECOMPUTE_SIZE^2
+    at camera_angle_x PRECOMPUTE_ANGLE_X, on look-at poses PRECOMPUTE_RADIUS
+    from the origin over the upper hemisphere (elevation 0.2 to 1.2 rad,
+    azimuth by the golden angle), each _ball_image written as an 8-bit PNG
+    (8 threads); the transforms JSON (h, w, K, frames) -> its path."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    H = W = PRECOMPUTE_SIZE
+    f = 0.5 * W / np.tan(0.5 * PRECOMPUTE_ANGLE_X)
+    K = np.array([[f, 0.0, W / 2], [0.0, f, H / 2], [0.0, 0.0, 1.0]])
+    poses = []
+    for i in range(n):
+        el, az = 0.2 + i / max(n - 1, 1), i * 2.399963229728653
+        poses.append(_lookat(PRECOMPUTE_RADIUS * np.array([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az),
+                                                           np.sin(el)])))
+    root.mkdir(parents=True, exist_ok=True)
+
+    def write(i: int) -> dict:
+        path = root / f"r_{i}.png"
+        Image.fromarray(np.round(_ball_image(K, poses[i], H, W) * 255).astype(np.uint8)).save(path)
+        return {"file_path": str(path), "transform_matrix": poses[i].tolist()}
+
+    with ThreadPoolExecutor(8) as pool:
+        frames = list(pool.map(write, range(n)))
+    path = root / "transforms_train.json"
+    path.write_text(json.dumps({"camera_angle_x": PRECOMPUTE_ANGLE_X, "h": H, "w": W, "K": K.tolist(),
+                                "frames": frames}))
+    return path
+
+
+def precompute_phase(tmp: Path) -> dict:
+    """The chain's head on the card: precompute_scene's 100 frames through
+    ``python -m nerfjax_torch.cli.precompute_rays`` (a JSON cfg naming the
+    transforms JSON and the NPZ): the rays kept of those generated, each
+    stage's seconds as the CLI reports them (decode; rays + intersection,
+    CUDA events; compaction + fetch; the NPZ write), its wall and rays/s;
+    the NPZ read back (its rays count, finite, unit directions, t_far >=
+    t_near). Then the first PRECOMPUTE_CHECK_FRAMES frames made on the card
+    and on the CPU: the hit masks equal (else the count that differ and the
+    largest |t_far - t_near| among them, and a failure), the arrays within
+    1e-6."""
+    import torch
+
+    from nerfjax_torch import rays as R
+
+    t0 = time.perf_counter()
+    scene = precompute_scene(tmp / "scene")
+    phase(f"precompute scene: {PRECOMPUTE_FRAMES} PNG frames of {PRECOMPUTE_SIZE}^2 written in "
+          f"{time.perf_counter() - t0:.1f} s (set-up)")
+    npz = tmp / "scene" / "train_ray_data.npz"
+    cfg = tmp / "scene" / "precompute.json"
+    cfg.write_text(json.dumps({"scene_name": "train", "transforms_json": str(scene), "rays_file": str(npz)}))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "nerfjax_torch.cli.precompute_rays", "--cfg_path", str(cfg)],
+                         capture_output=True, text=True, cwd=HERE, timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"precompute_rays failed (exit {res.returncode}):\n{res.stdout}\n{res.stderr}")
+    last = res.stdout.strip().splitlines()[-1]
+    if not last.startswith("Stages: "):
+        raise AssertionError(f"precompute_rays printed no stages line:\n{res.stdout}")
+    st = json.loads(last[len("Stages: "):])
+    phase(f"precompute_rays (the CLI, on the card): {st['kept']:,} rays kept of {st['generated']:,} generated "
+          f"({st['kept'] / st['generated']:.2%}); seconds: decode {st['decode']:.3f}, rays + intersection "
+          f"{st['rays']:.4f} (CUDA events), compaction + fetch {st['compact_fetch']:.3f}, NPZ write {st['write']:.2f}, "
+          f"the CLI's own wall {st['wall']:.2f}, the process {wall:.2f} (python and CUDA start included); "
+          f"{st['generated'] / wall:,.0f} rays/s generated over the process's wall, "
+          f"{st['generated'] / (st['decode'] + st['rays'] + st['compact_fetch']):,.0f} rays/s over decode + rays + "
+          "fetch")
+    data = R.load_ray_data(npz)
+    n = len(data["rays_o"])
+    ok = n == st["kept"] and all(v.shape[0] == n and np.isfinite(v).all() for v in data.values())
+    if not ok or not np.allclose(np.linalg.norm(data["rays_d"], axis=1), 1.0, atol=1e-5) or \
+            (data["t_far"] < data["t_near"]).any():
+        raise AssertionError("the ray NPZ is not what the CLI reported: count, finiteness, unit directions or t order")
+    phase(f"ray NPZ: {npz.stat().st_size / 1e6:,.1f} MB, {n:,} rays read back (finite, unit directions, "
+          "t_far >= t_near)")
+    del data
+
+    meta = json.loads(scene.read_text())
+    few = tmp / "scene" / "transforms_check.json"
+    few.write_text(json.dumps({**meta, "frames": meta["frames"][:PRECOMPUTE_CHECK_FRAMES]}))
+    poses = np.array([f["transform_matrix"] for f in meta["frames"][:PRECOMPUTE_CHECK_FRAMES]], np.float32)
+    hits = []
+    for dev in ("cuda", "cpu"):
+        o, d = R.get_rays(meta["h"], meta["w"], meta["K"], torch.from_numpy(poses).to(dev))
+        hit, tn, tf = R.ray_cube_intersection(o.reshape(-1, 3), d.reshape(-1, 3))
+        hits.append((hit.cpu(), (tf - tn).abs().cpu()))
+    differ = hits[0][0] != hits[1][0]
+    if bool(differ.any()):
+        raise AssertionError(f"the hit masks of {PRECOMPUTE_CHECK_FRAMES} frames differ between the card and the CPU "
+                             f"at {int(differ.sum())} rays, |t_far - t_near| there up to "
+                             f"{float(torch.maximum(hits[0][1], hits[1][1])[differ].max()):.3g}")
+    card = R.precompute_rays_for_scene(few, device="cuda")
+    host = R.precompute_rays_for_scene(few, device="cpu")
+    err = max(float(np.abs(card[k] - host[k]).max()) for k in R.RAY_KEYS)
+    if err > 1e-6 or not np.array_equal(card["rgbs"], host["rgbs"]):
+        raise AssertionError(f"precompute on the card vs the CPU: max |err| {err:.3g} (bound 1e-6)")
+    equal = all(np.array_equal(card[k], host[k]) for k in R.RAY_KEYS)
+    phase(f"precompute, {PRECOMPUTE_CHECK_FRAMES} frames card vs CPU: hit masks equal ({int(hits[0][0].sum()):,} of "
+          f"{hits[0][0].numel():,} rays), arrays within 1e-6 (max |err| {err:.3g}; bit for bit: {equal})")
+    return {**st, "process_wall": wall}
 
 
 def tail_on_trained(cfg: dict, final: Path, tmp: Path) -> dict:
@@ -2302,6 +2565,65 @@ def train_dropin(tmp: Path) -> dict:
     if not final.exists():
         raise AssertionError("the drop-in run wrote no nerf_final.pth")
     return {"launches": launches, "ms_per_step": med, "step_inputs": cap, "final": final}
+
+
+def _feed_ms(state, data, feed, seed: int) -> float:
+    """Host ms per step of one epoch of train_step on the batches ``feed``
+    makes of data's epoch (no sync inside; one at each end)."""
+    import torch
+
+    from nerfjax_torch.train import train_step
+
+    torch.cuda.synchronize()
+    t0, n = time.perf_counter(), 0
+    for batch in feed(data.epoch_batches(8192, seed=seed)):
+        train_step(state, batch)
+        n += 1
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def steps_around_train(tmp: Path) -> None:
+    """The batch feed, then train(): (1) epochs of the tuned cfg's
+    train_step on a warm state, fed by batch_to_device (a copy from
+    pageable memory), prefetch_to_device (depth 2, as train() feeds them)
+    and prefetch_to_device at depth 1, in the order a, b, c, c, b, a, each
+    one line; (2) the warm train_step medians (_warm_steps: 16 warm, 32
+    timed, a fresh state) of the tuned, fast and drop-in cfgs, each taken
+    before and after a train() of that cfg (tuned 3 epochs, the others 1),
+    with train()'s wall per step: one line per cfg."""
+    import torch
+
+    from nerfjax_torch.data import RayDataset, batch_to_device, prefetch_to_device
+    from nerfjax_torch.train import TrainSettings, make_train_state, train
+
+    ray_npz(tmp / "rays.npz")
+    cfg = {**TUNED_TRAIN, "rays_file": str(tmp / "rays.npz")}
+    state = make_train_state(cfg, TrainSettings.from_cfg(cfg, 1024), seed=SEED, device="cuda")
+    data = RayDataset(tmp / "rays.npz", verbose=False)
+    feeds = {"batch_to_device": lambda it: (batch_to_device(b, "cuda") for b in it),
+             "prefetch_to_device": lambda it: prefetch_to_device(it, "cuda"),
+             "prefetch_to_device depth 1": lambda it: prefetch_to_device(it, "cuda", depth=1)}
+    _feed_ms(state, data, feeds["batch_to_device"], SEED)  # warm
+    runs = {name: [] for name in feeds}
+    for i, name in enumerate((*feeds, *reversed(feeds))):
+        runs[name].append(_feed_ms(state, data, feeds[name], SEED + 1 + i))
+    phase("feed, tuned train_step on a warm state, host ms per step over an epoch of 128 (runs a, b, c, c, b, a): "
+          + "; ".join(f"{name} {', '.join(f'{v:.2f}' for v in r)}" for name, r in runs.items()))
+    del state
+    for label, base, epochs in (("tuned", TUNED_TRAIN, TRAIN_EPOCHS), ("fast", FAST_TRAIN, 1),
+                                ("drop-in", DROP_IN_TRAIN, 1)):
+        out_dir = tmp / f"steps_{label}"
+        cfg = {**base, "num_epochs": epochs, "rays_file": str(tmp / "rays.npz"), "output_dir": str(out_dir),
+               "checkpoint_dir": str(out_dir / "checkpoints")}
+        before = _warm_steps(cfg, tmp / "rays.npz", 16, 32, f"{label}, before train()")[2]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train(cfg, seed=SEED, log_every=64, device="cuda")
+        wall = (time.perf_counter() - t0) / out["steps"] * 1e3
+        after = _warm_steps(cfg, tmp / "rays.npz", 16, 32, f"{label}, after train()")[2]
+        phase(f"steps {label}: warm median {before:.2f} ms/step before train(), {after:.2f} after; train() "
+              f"{wall:.2f} ms per step over {out['steps']} steps (checkpoint writes included)")
 
 
 def _ball_image(K: np.ndarray, c2w: np.ndarray, H: int, W: int) -> np.ndarray:
@@ -2566,7 +2888,7 @@ def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of nerfjax_torch on one CUDA card (every phase by default)")
-    ap.add_argument("--only", choices=["quality"], default=None,
+    ap.add_argument("--only", choices=["quality", "steps"], default=None,
                     help="run only the card, the build and this phase (no kernels line, no final line)")
     ap.add_argument("--seeds", default=None,
                     help="with --only quality: the seeds to train, e.g. 0-7 or 0,3,5 (default 0,1,2: nerfjax's)")
@@ -2589,6 +2911,11 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             quality_parity(Path(tmp), seeds)
         phase("--only quality: done")
+        return 0
+    if args.only == "steps":
+        with tempfile.TemporaryDirectory() as tmp:
+            steps_around_train(Path(tmp))
+        phase("--only steps: done")
         return 0
     stats = kernels_vs_plain()
     k4_shapes = {}  # K4 at each main-path call: the kernels line's extra keys
@@ -2639,12 +2966,16 @@ def main() -> int:
         shapes["fast_step"] = fast["timings"]["dense_levels_fwd"]
         extract_trained(trained["cfg"], trained["final"])
         tail = tail_on_trained(trained["cfg"], trained["final"], Path(tmp))
+        head = precompute_phase(Path(tmp))
         evals = {"tuned": eval_render(trained["final"], TUNED_CFG, "tuned", stats, hstats),
                  "drop-in": eval_render(dropin["final"], DROP_IN_TRAIN, "drop-in", stats, hstats)}
         for label in ("tuned", *DENSE_KNOBS, "fast", "fast bf16"):
             step_card_vs_cpu(Path(tmp), label)
         dropin_step_card_vs_cpu(Path(tmp))
         render_card_vs_cpu(trained["final"])
+    phase(f"train() wall per step, tuned run: {trained['train_wall_ms_per_step']:.2f} ms; precompute_rays: "
+          f"{head['kept']:,} of {head['generated']:,} rays, {head['process_wall']:.2f} s (NPZ write "
+          f"{head['write']:.2f} s)")
     phase("warm ms/step: tuned " + f"{trained['ms_per_step']:.2f}, "
           + ", ".join(f"{k} {v['ms_per_step']:.2f}" for k, v in knobs.items())
           + f", drop-in {dropin['ms_per_step']:.2f}, fast {fast['ms_per_step']:.2f}, k2 knob {k2['ms_per_step']:.2f}"
@@ -2677,6 +3008,9 @@ def main() -> int:
             "max_abs_err": stats[name]["max_abs_err"], "ms": stats[name]["ms"],
             "plain_ms": stats[name]["plain_ms"], "bound_ms": bound, "bound_by": by, "library_ms": None,
         })
+        t = stats[name]["f32"]  # the f32 kernel (ngp_head_kernel, ngp_density_kernel): on no main path
+        kernels[-1].update(f32_launches=0, f32_ms=t["ms"], f32_plain_ms=t["plain_ms"], f32_bound_ms=t["bound"][0],
+                           f32_bound_by=t["bound"][1])
         if name == "fused_ngp_head":  # the extra lines: E = 32, 40 and 64, and the eval renders' fine passes
             kernels[-1].update(bit_equal_share=stats[name]["bit_equal_share"], max_err_ulp=stats[name]["max_err_ulp"])
             for E, t in stats[name]["wide"].items():
@@ -2742,10 +3076,17 @@ def main() -> int:
                                     f"{label}_bound_ms": t["bound"][0]})
                 if "bound_f32_out" in t:
                     kernels[-1][f"{label}_bound_f32_out_ms"] = t["bound_f32_out"][0]
-        if name == "dense_levels_fwd":  # every main-path call's time: the extra keys
+        if name == "dense_levels_fwd":  # every main-path call's time (the pack included): the extra keys
+            kernels[-1]["kernel_ms"] = h["kernel_ms"]  # net of the pack
             for label, t in h["shapes"].items():
-                kernels[-1].update({f"{label}_N": t["N"], f"{label}_ms": t["ms"],
+                kernels[-1].update({f"{label}_N": t["N"], f"{label}_ms": t["ms"], f"{label}_kernel_ms": t["kernel_ms"],
                                     f"{label}_plain_ms": t["plain_ms"], f"{label}_bound_ms": t["bound"][0]})
+                if "bound_f32_out" in t:
+                    kernels[-1][f"{label}_bound_f32_out_ms"] = t["bound_f32_out"][0]
+        if name == "dense_levels_bwd":  # the dgl1 step's call, also with the L2 flushed in front of every call
+            t = knobs["dgl1"]["timings"][name]
+            kernels[-1].update(dgl1_step_ms=t["ms"], dgl1_step_bound_ms=t["bound"][0],
+                               dgl1_step_flushed_ms=t["flushed_timing"]["ms"])
     for name, line in PROBE_LINES.items():
         t = pstats[name]
         kernels.append({

@@ -156,9 +156,9 @@
 
 // The leader + residual modes (k = 2..7 corners; nerfjax's
 // _stochastic_corner_plan :244-290) stand beside the k = 1 and exact
-// kernels, which they leave as they are: K1 and K5 one thread per (level,
-// point), K2 and K4 one thread per point over its rows, as their k = 1
-// designs. Each forms the 8 f32 weights, the leader (the first largest: a
+// kernels, which they leave as they are: K1, K4 and K5 one thread per
+// (level, point), K2 one thread per point over its rows (the gl mode) or
+// per (level, point) (over all levels). Each forms the 8 f32 weights, the leader (the first largest: a
 // strict > over corners 0..7, as jnp.argmax), the residual CDF (w with w_m
 // zeroed, summed in order), and k - 1 draws from it (draw_u with draw index
 // j - 1; at j = 0 the k = 1 draw bit for bit), then reads or adds at the k
@@ -181,6 +181,22 @@
 // 7 with predication was 23 % slower at k = 7); the pack moves four entries
 // a thread with 16-byte loads and stores (13.5 us, one entry a thread
 // 16.5). Together ~37 us at k = 2, ~51 at k = 7 (first design ~144).
+//
+// K4 k >= 2 first ran one thread per point over its levels, a runtime k
+// and one dependent load per planned corner. It now takes K1 k >= 2's
+// design: one thread per (level, point) on a 2-D grid, k a template
+// parameter, the k planned words loaded together. On an H100 80GB HBM3
+// (700 W), at the k2 knob spec (5 dense levels, N = 196,608, ray samples;
+// the pack included) that gains nothing at k = 2 (12.77 us against 12.74)
+// and 13 % at k = 7 (20.22 against 23.12), because the kernel is bound by
+// its scattered table requests, not by the plan: with a fixed plan (no
+// leader, no draws) it takes as long (13.92 against 13.56 us on uniform
+// positions), without its loads 8.53, with neither 4.41. Reading the two
+// f32 planes in place and rounding them here (no pack) doubles those
+// requests and lost (16.36 us). Each level alone takes 2.9-3.9 us, so no
+// level is cheap enough to gain from shared memory. K is kept a template
+// parameter for k = 3..7, where the loads in flight do gain; PERF.md keeps
+// the arms' times.
 //
 // K2 b >= 2 at the fast step (12 hashed levels, N = 393,216, b = 2) first
 // ran one thread per point over its 12 levels, two float atomics per
@@ -994,49 +1010,57 @@ dense_levels_bwd_kernel(const void* __restrict__ g, int64_t gs, const float* __r
   }
 }
 
-// K4, k >= 2 (leader + residual). words: the dense columns packed into bf16
-// pairs (pack_pairs_bf16_kernel); out: [2, Ld, N] in f32 or bf16, plane
-// stride os; sel (optional): [k, Ld, N] int32, the plan's entries (leader
-// first). One thread per point walking the levels, as K4: per level the
-// clamped f32 weights (_corner_weights(clamp=True)), the leader + residual
-// plan with DENSE_SALT, the k planned entries' bf16 pairs, summed as K1 k >= 2
-// sums them in f32 and stored in out's type.
-template <typename OutT>
+// K4, k >= 2 (leader + residual), K = k corners. words: the dense columns
+// packed into bf16 pairs (pack_pairs_bf16_kernel, run in front); out:
+// [2, Ld, N] in f32 or bf16, plane stride os; sel (optional): [K, Ld, N]
+// int32, the plan's entries (leader first), written only when asked for.
+// One thread per (level, point) on a 2-D grid (blockIdx.y the level), as
+// K1 k >= 2: the clamped f32 weights (_corner_weights(clamp=True)), the
+// leader + residual plan with DENSE_SALT, then all K planned words loaded
+// together, summed e = f_0*w_m, e += f_j*coef_r in j order in f32 and
+// stored in out's type.
+template <int K, typename OutT>
 __global__ void __launch_bounds__(THREADS)
 dense_levels_fwd_lr_kernel(const uint32_t* __restrict__ words, const float* __restrict__ xs,
-                           const float* __restrict__ ys, const float* __restrict__ zs, int64_t N, int Ld,
-                           DenseLevels L, int k, float rinv, OutT* __restrict__ out, int64_t os,
-                           int32_t* __restrict__ sel) {
-  const int64_t n = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+                           const float* __restrict__ ys, const float* __restrict__ zs, int N, DenseLevels L,
+                           float rinv, OutT* __restrict__ out, int64_t os, int32_t* __restrict__ sel) {
+  const int n = blockIdx.x * THREADS + threadIdx.x;
   if (n >= N) return;
+  const int l = blockIdx.y;
   const float x = xs[n], y = ys[n], z = zs[n];
+  const int r = L.res[l];
+  int bx, by, bz;
+  float tx, ty, tz;
+  dense_axis(x, L.scale[l], r, bx, tx);
+  dense_axis(y, L.scale[l], r, by, ty);
+  dense_axis(z, L.scale[l], r, bz, tz);
+  const int i0 = static_cast<int>(L.offset[l]) + bx + by * r + bz * r * r;
+  LeaderPlan p;
+  leader_plan(tx, ty, tz, p);
   const uint32_t seed = position_seed(x, y, z, DENSE_SALT);
-  const int64_t LN = Ld * N;
-  for (int l = 0; l < Ld; ++l) {
-    const int64_t t = l * N + n;
-    const int r = L.res[l];
-    int bx, by, bz;
-    float tx, ty, tz;
-    dense_axis(x, L.scale[l], r, bx, tx);
-    dense_axis(y, L.scale[l], r, by, ty);
-    dense_axis(z, L.scale[l], r, bz, tz);
-    const int i0 = static_cast<int>(L.offset[l]) + bx + by * r + bz * r * r;
-    LeaderPlan p;
-    leader_plan(tx, ty, tz, p);
-    const float cr = __fmul_rn(p.cdfr[7], rinv);
-    float e0 = 0.0f, e1 = 0.0f;
-    for (int j = 0; j < k; ++j) {
-      const int c = plan_corner(p, seed, l, j);
-      const int i = i0 + ((c >> 2) & 1) + ((c >> 1) & 1) * r + (c & 1) * r * r;
-      const uint32_t w = words[i];
-      const float coef = j == 0 ? p.wm : cr;
-      const float a = __fmul_rn(__uint_as_float(w << 16), coef), b = __fmul_rn(__uint_as_float(w & 0xFFFF0000u), coef);
-      e0 = j == 0 ? a : __fadd_rn(e0, a);
-      e1 = j == 0 ? b : __fadd_rn(e1, b);
-      if (sel != nullptr) sel[j * LN + t] = i;
-    }
-    store_rn(out, t, e0);
-    store_rn(out, os + t, e1);
+  int i[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int c = plan_corner(p, seed, l, j);
+    i[j] = i0 + ((c >> 2) & 1) + ((c >> 1) & 1) * r + (c & 1) * r * r;
+  }
+  uint32_t w[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) w[j] = __ldg(words + i[j]);
+  const float cr = __fmul_rn(p.cdfr[7], rinv);
+  float e0 = __fmul_rn(__uint_as_float(w[0] << 16), p.wm), e1 = __fmul_rn(__uint_as_float(w[0] & 0xFFFF0000u), p.wm);
+#pragma unroll
+  for (int j = 1; j < K; ++j) {
+    e0 = __fadd_rn(e0, __fmul_rn(__uint_as_float(w[j] << 16), cr));
+    e1 = __fadd_rn(e1, __fmul_rn(__uint_as_float(w[j] & 0xFFFF0000u), cr));
+  }
+  const int64_t t = static_cast<int64_t>(l) * N + n;
+  store_rn(out, t, e0);
+  store_rn(out, os + t, e1);
+  if (sel != nullptr) {
+    const int64_t LN = static_cast<int64_t>(gridDim.y) * N;
+#pragma unroll
+    for (int j = 0; j < K; ++j) sel[j * LN + t] = i[j];
   }
 }
 
@@ -1264,14 +1288,14 @@ extern "C" int nerf_pack_pairs(const float* p0, const float* p1, int64_t T, int 
 // ([Ld, N], [k, Ld, N]); pairs: the dense columns packed by nerf_pack_pairs
 // (float2 in mode 0, bf16 pairs otherwise); out: [2, Ld, N] in bf16
 // (out_bf16: modes 1-3) or f32 (modes 0, 2 and 3), plane stride os, level
-// stride N
+// stride N; mode 3 needs N < 2^31
 extern "C" int nerf_dense_levels_fwd(const void* pairs, const float* x, const float* y, const float* z,
                                      int64_t N, int Ld, const float* scales, const int32_t* res,
                                      const int64_t* offsets, int mode, int k, float rinv, void* out, int64_t os,
                                      int out_bf16, int32_t* sel, void* stream) {
   DenseLevels L;
   if (!fill_dense_levels(L, Ld, scales, res, offsets) || mode < 0 || mode > 3 || (mode == 0 && out_bf16) ||
-      (mode == 1 && !out_bf16) || (mode == 3 && (k < 2 || k > 7))) {
+      (mode == 1 && !out_bf16) || (mode == 3 && (k < 2 || k > 7 || N >= (int64_t{1} << 31)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1287,12 +1311,26 @@ extern "C" int nerf_dense_levels_fwd(const void* pairs, const float* x, const fl
   } else if (mode == 2) {
     dense_levels_fwd_kernel<2><<<nb, THREADS, 0, s>>>(pairs, x, y, z, N, Ld, L, o32, os, sel);
   } else {
+    const dim3 grid(nb, Ld);
+    const int n = static_cast<int>(N);
     const uint32_t* words = static_cast<const uint32_t*>(pairs);
-    if (out_bf16) {
-      dense_levels_fwd_lr_kernel<<<nb, THREADS, 0, s>>>(words, x, y, z, N, Ld, L, k, rinv, o16, os, sel);
-    } else {
-      dense_levels_fwd_lr_kernel<<<nb, THREADS, 0, s>>>(words, x, y, z, N, Ld, L, k, rinv, o32, os, sel);
+#define NERF_K4_LR(K)                                                                                           \
+  case K:                                                                                                       \
+    if (out_bf16) {                                                                                             \
+      dense_levels_fwd_lr_kernel<K><<<grid, THREADS, 0, s>>>(words, x, y, z, n, L, rinv, o16, os, sel);         \
+    } else {                                                                                                    \
+      dense_levels_fwd_lr_kernel<K><<<grid, THREADS, 0, s>>>(words, x, y, z, n, L, rinv, o32, os, sel);         \
+    }                                                                                                           \
+    break
+    switch (k) {
+      NERF_K4_LR(2);
+      NERF_K4_LR(3);
+      NERF_K4_LR(4);
+      NERF_K4_LR(5);
+      NERF_K4_LR(6);
+      NERF_K4_LR(7);
     }
+#undef NERF_K4_LR
   }
   return static_cast<int>(cudaGetLastError());
 }

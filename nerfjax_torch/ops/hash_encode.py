@@ -888,7 +888,9 @@ def dense_levels_fwd(spec: HashGridSpec, planes: torch.Tensor, x, y, z, dtype=to
 
     On the card the dense columns are first packed into one entry per
     column (``pack_pairs``: bf16 pairs, float2 in exact float32), and the
-    kernel reads one entry per corner, one thread per point over the levels.
+    kernel reads one entry per corner: exact and k = 1 one thread per point
+    over the levels, k >= 2 one thread per (level, point) with its k loads
+    issued together.
 
     sel: optional int32 that receives the plan (entries of the planes):
     [Ld, N] at k = 1, [k, Ld, N] at k >= 2; the plain version fills it too.

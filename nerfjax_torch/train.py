@@ -405,7 +405,7 @@ def train(
     under ``output_dir/logs``, ``nerf_epoch_{E:06d}.pth`` every second
     epoch and ``nerf_final.pth`` under ``checkpoint_dir``."""
     from nerfjax_torch import checkpoint as ckpt
-    from nerfjax_torch.data import RayDataset, batch_to_device
+    from nerfjax_torch.data import RayDataset, prefetch_to_device
     from nerfjax_torch.extract import resolve_device
     from nerfjax_torch.logging_utils import Logger
 
@@ -445,8 +445,9 @@ def train(
     psnr_steps: list[torch.Tensor] = []
     with profiler:
         for epoch in range(start_epoch, num_epochs + 1):
-            for idx, batch in enumerate(dataset.epoch_batches(batch_size, seed=seed * 100003 + epoch)):
-                metrics = train_step(state, batch_to_device(batch, dev))
+            batches = dataset.epoch_batches(batch_size, seed=seed * 100003 + epoch)
+            for idx, batch in enumerate(prefetch_to_device(batches, dev)):
+                metrics = train_step(state, batch)
                 psnr_steps.append(metrics["psnr"])
                 rays_done += batch_size
                 if idx % log_every == 0:

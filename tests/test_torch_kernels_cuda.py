@@ -848,6 +848,57 @@ def test_lr_hash_levels_fwd_on_packed_words_at_ragged_n(cuda_device, k, N):
         assert _same_bits(got, ref.to(dtype)) and torch.equal(sel.long(), plan)
 
 
+@pytest.mark.parametrize("N", [1, 33, 257, 100_003])
+@pytest.mark.parametrize("k", range(2, 8))
+def test_lr_dense_levels_fwd_at_ragged_n(cuda_device, k, N):
+    """K4 k >= 2 (one thread per (level, point), k a template parameter, the
+    k planned words of the pack loaded together) equals its plain version
+    with torch.equal, output and plan, in f32 and bf16, at every k of 2..7,
+    at N that are not multiples of the block or the warp, into a view of
+    the encode's layout that starts one element off its buffer; one launch
+    and one pack a call."""
+    spec = HashGridSpec(**TUNED, dense_corners=k)
+    Ld = len(hash_encode._split_levels(spec)[0])
+    rng = np.random.default_rng(80 + k)
+    planes = torch.from_numpy(rng.uniform(-1, 1, (2, spec.total_table_size)).astype(np.float32)).to(cuda_device)
+    x, y, z = _lr_positions(spec, N, 81, cuda_device) if N > 64 else _positions(N, 82, cuda_device)
+    ref, plan = hash_encode.dense_levels_fwd_plain(spec, planes, x, y, z, torch.bfloat16)
+    for dtype in (torch.float32, torch.bfloat16):
+        flat = torch.full((2 * (Ld + 1) * N + 1,), -7.0, dtype=dtype, device=cuda_device)
+        view = flat[1:].view(2, Ld + 1, N)[:, :Ld]
+        sel = torch.full((k, Ld, N), -1, dtype=torch.int32, device=cuda_device)
+        before = dict(hash_encode.launch_counts)
+        got = hash_encode.dense_levels_fwd(spec, planes, x, y, z, torch.bfloat16, sel=sel, out=view)
+        torch.cuda.synchronize()
+        assert hash_encode.launch_counts["dense_levels_fwd"] == before["dense_levels_fwd"] + 1
+        assert hash_encode.launch_counts["pack_pairs"] == before["pack_pairs"] + 1
+        assert got.data_ptr() == view.data_ptr() and _same_bits(got, ref.to(dtype))
+        assert torch.equal(sel.long(), plan)
+        assert bool((flat[0] == -7.0).all()) and bool((flat[1:].view(2, Ld + 1, N)[:, Ld] == -7.0).all())
+
+
+@pytest.mark.parametrize("k", [2, 7])
+def test_lr_dense_levels_fwd_extreme_table_values(cuda_device, k):
+    """K4 k >= 2 on subnormal tables, +-3.4e38 (inf once rounded to bf16 by
+    the pack) and zeros of both signs: the outputs other than NaN equal
+    the plain version's bit for bit and the NaNs sit where its do."""
+    spec = HashGridSpec(**TUNED, dense_corners=k)
+    rng = np.random.default_rng(83)
+    planes = rng.uniform(-1, 1, (2, spec.total_table_size)).astype(np.float32)
+    which = rng.integers(0, 6, planes.shape)
+    extreme = np.array([0.0, -0.0, 1e-39, -3e-40, 3.4e38, -3.4e38], np.float32)
+    planes = np.where(rng.uniform(size=planes.shape) < 0.3, extreme[which], planes * 2.0 ** rng.integers(-140, -100,
+                                                                                                       planes.shape))
+    planes = torch.from_numpy(planes.astype(np.float32)).to(cuda_device)
+    x, y, z = _lr_positions(spec, 100_003, 84, cuda_device)
+    got = hash_encode.dense_levels_fwd(spec, planes, x, y, z, torch.bfloat16)
+    ref = hash_encode.dense_levels_fwd_plain(spec, planes, x, y, z, torch.bfloat16)[0]
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], ref[~nan]) and bool((ref.abs() > 1e38).any())
+    assert bool(((ref != 0) & (ref.abs() < 2.0**-126)).any())
+
+
 @pytest.mark.parametrize("T", [1, 3, 4, 5, 1027, 753_489])
 @pytest.mark.parametrize("shift", [0, 1], ids=["aligned", "misaligned"])
 def test_pack_pairs_bf16_four_a_thread_and_the_rest(cuda_device, T, shift):
@@ -993,6 +1044,62 @@ def test_lr_train_step_launches_the_kernels(cuda_device, knob):
     torch.cuda.synchronize()
     assert np.isfinite(float(m["loss_fine"]))
     assert all(n >= 1 for n in hash_encode.launch_counts.values()), hash_encode.launch_counts
+
+
+# -- the chain's head: ray precompute and the batch feed -------------------------------
+
+
+def test_precompute_on_the_card_equals_the_cpu(cuda_device, tmp_path):
+    """The ray precompute on the card (rays and intersection there, the
+    kept rays fetched once a chunk) gives the CPU path's arrays bit for
+    bit: get_rays forms its products and sums as an exact chain of fused
+    multiply-adds, the same on both."""
+    import json
+
+    from PIL import Image
+
+    from nerfjax_torch import rays as R
+    from nerfjax_torch.render_image import orbit_poses
+
+    rng = np.random.default_rng(91)
+    frames = []
+    for i, c2w in enumerate(orbit_poses(5, radius=2.4, height=0.9)):
+        path = tmp_path / f"f{i}.png"
+        Image.fromarray(rng.integers(0, 256, (96, 128, 3), dtype=np.uint8)).save(path)
+        frames.append({"file_path": str(path), "transform_matrix": c2w.tolist()})
+    scene = tmp_path / "transforms_c.json"
+    scene.write_text(json.dumps({"h": 96, "w": 128, "K": [[100.0, 0.0, 64.0], [0.0, 100.0, 48.0], [0.0, 0.0, 1.0]],
+                                 "frames": frames}))
+    stats = {}
+    got = R.precompute_rays_for_scene(scene, batch_frames=2, device=cuda_device, stats=stats)
+    want = R.precompute_rays_for_scene(scene, device="cpu")
+    assert 0 < stats["kept"] < stats["generated"] == 5 * 96 * 128
+    for k in R.RAY_KEYS:
+        assert np.array_equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_prefetch_on_the_card_yields_the_host_batches(cuda_device, depth):
+    """prefetch_to_device on the card: each batch, read on the current
+    stream after work queued in front of it, equals the host's bit for bit,
+    and stays so while later batches refill the pinned buffers (every
+    batch is held until the end)."""
+    from nerfjax_torch.data import prefetch_to_device
+
+    rng = np.random.default_rng(90 + depth)
+    host = [{k: rng.normal(size=shape).astype(np.float32) for k, shape in
+             (("rays_o", (8192, 3)), ("rgb", (8192, 3)), ("t_far", (8192,)))} for _ in range(9)]
+    held, work = [], torch.ones(2048, 2048, device=cuda_device)
+    for b in prefetch_to_device(iter(host), cuda_device, depth=depth):
+        work = work @ work / 2048.0  # the step's stream is busy when the batch arrives
+        held.append({k: v * 1.0 for k, v in b.items()})
+        held.append(b)
+    torch.cuda.synchronize()
+    assert len(held) == 2 * len(host)
+    for i, h in enumerate(host):
+        for b in held[2 * i : 2 * i + 2]:
+            for k, v in h.items():
+                assert b[k].device.type == "cuda" and torch.equal(b[k].cpu(), torch.from_numpy(v)), (i, k)
 
 
 # -- the probe kernels ---------------------------------------------------------------
