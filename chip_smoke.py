@@ -233,13 +233,33 @@ the prefetch):
      kept, each stage's seconds, the wall and rays/s, the NPZ read back;
      4 frames on the card and on the CPU, masks equal, arrays within 1e-6.
 
+Added for the front end (images -> COLMAP text model -> transforms JSON)
+and its kernel, K6 (the statistical outlier filter's kNN, csrc/knn.cu):
+
+  C. (after H, front_end_phase) C1 python -m nerfjax_torch.cli.resize_images
+     on H's 100 frames (800^2 -> 400^2, LANCZOS; two files byte-equal to
+     PIL); C2 a COLMAP text model of the scene (PINHOLE 400^2 at f/2, H's
+     poses as OpenCV world-to-camera quaternions, 300,000 points on the
+     ball's surface and 3,000 planted 5-50 radii out); C3
+     python -m nerfjax_torch.cli.colmap2nerf (mode auto) on the card, its
+     Stages line, K6 launched once, every planted outlier removed, the
+     orientation check reported; C4 K6 against its plain version at that
+     cloud (the k and ratio of C3's cfg, torch.equal), timed beside its
+     bound (8 FP32 operations a pair) and the plain version's one call; C5
+     the CLI on a 20,000-point subsample with --device cuda and cpu, the
+     JSONs byte-equal, with the default cfg and again with radius_filter:
+     true (the radius filter's float64 products on the card); C6 C3's JSON through precompute_rays, one epoch of tuned
+     train(), 256^3 extraction: IoU with the ball fitted to the normalized
+     inliers >= 0.5, the PSNR of the last 20 steps. The CLIs run in this
+     process (runpy), so K6's launches are counted around C3's run.
+
 The last two lines are a JSON object with each kernel's launches (summed
 over the main paths: the 512^3 extraction, the tuned, drop-in and fast
 train() runs, the k2 knob steps, the eval renders, the probe entry point),
 error, times and bound (extra keys: the k >= 2 modes at the fast and k2
 knob steps' calls; K1, K2 and K3 also their times, bounds and atomics at
 the drop-in passes; the head at E = 40 and 64 and at the eval renders'
-fine passes), then
+fine passes; K6 launched by C3's colmap2nerf, timed at C4), then
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -247,6 +267,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import subprocess
@@ -304,7 +325,7 @@ def card() -> str:
 
 def build() -> None:
     from nerfjax_torch import _build
-    from nerfjax_torch.ops import fused_mlp, hash_encode
+    from nerfjax_torch.ops import fused_mlp, hash_encode, knn
 
     t0 = time.perf_counter()
     for name, info in _build.build_all().items():
@@ -315,6 +336,7 @@ def build() -> None:
     phase(f"all kernels built in {time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
     fused_mlp._lib()
     hash_encode._lib()
+    knn._lib()
 
 
 def _weights(E: int, rng) -> dict:
@@ -1776,9 +1798,11 @@ def train_dense_knob(tmp: Path, label: str, stats: dict) -> dict:
     return {"ms_per_step": med, "launches": launches, "timings": timings}
 
 
-def extract_trained(cfg: dict, final: Path) -> None:
+def extract_trained(cfg: dict, final: Path, center=BALL_CENTER, radius: float = BALL_RADIUS,
+                    label: str = "trained field") -> float:
     """The trained checkpoint extracted at 256^3 with the port; the occupied
-    voxels against the analytic ball."""
+    voxels against the ball (by default the analytic one); its IoU, which
+    must be >= 0.5."""
     from nerfjax_torch.extract import extract_volume
 
     res = 256
@@ -1786,12 +1810,13 @@ def extract_trained(cfg: dict, final: Path) -> None:
     occ = vol["occupancy_volume"].astype(bool)
     c = -1.0 + np.arange(res) * (2.0 / (res - 1))
     X, Y, Z = np.meshgrid(c, c, c, indexing="ij")
-    ball = (X - BALL_CENTER[0]) ** 2 + (Y - BALL_CENTER[1]) ** 2 + (Z - BALL_CENTER[2]) ** 2 <= BALL_RADIUS**2
+    ball = (X - center[0]) ** 2 + (Y - center[1]) ** 2 + (Z - center[2]) ** 2 <= radius**2
     iou = float((occ & ball).sum() / max((occ | ball).sum(), 1))
-    phase(f"trained field at {res}^3: occupied {occ.mean():.2%} of voxels, ball {ball.mean():.2%}, IoU {iou:.3f}; "
+    phase(f"{label} at {res}^3: occupied {occ.mean():.2%} of voxels, ball {ball.mean():.2%}, IoU {iou:.3f}; "
           f"threshold {vol['metadata']['threshold']:.4f}; " + _phases(vol["metadata"]))
     if iou < 0.5:
-        raise AssertionError(f"IoU with the analytic ball {iou:.3f} < 0.5")
+        raise AssertionError(f"{label}: IoU with the ball {iou:.3f} < 0.5")
+    return iou
 
 
 def step_card_vs_cpu(tmp: Path, label: str) -> None:
@@ -2340,6 +2365,262 @@ def precompute_phase(tmp: Path) -> dict:
     phase(f"precompute, {PRECOMPUTE_CHECK_FRAMES} frames card vs CPU: hit masks equal ({int(hits[0][0].sum()):,} of "
           f"{hits[0][0].numel():,} rays), arrays within 1e-6 (max |err| {err:.3g}; bit for bit: {equal})")
     return {**st, "process_wall": wall}
+
+
+# -- the front end (phase C) ---------------------------------------------------
+
+FRONT_SIZE = 400  # phase H's frames resized to FRONT_SIZE^2 (C1)
+FRONT_POINTS = 300_000  # SfM points on the ball's surface (C2)
+FRONT_OUTLIERS = 3_000  # planted points 5 to 50 ball radii from its center
+FRONT_SUBSAMPLE = 20_000  # C5's cloud, converted on the card and on the CPU
+FRONT_RADIUS_FILTER = {"radius_filter": True, "radius_radius": 0.03, "radius_nb_points": 16}  # ~18 neighbours a point
+FRONT_CHECK_FILES = ("r_0.png", "r_57.png")  # C1's files held to an in-process PIL resize
+
+
+def _run_cli(module: str, args: list[str], cwd: Path) -> str:
+    """``python -m module args`` in this process (so that the kernels'
+    launch counts are read here), in cwd; its standard output. Fails if it
+    exits non-zero."""
+    import runpy
+
+    argv, out = sys.argv, io.StringIO()
+    try:
+        sys.argv = [module, *args]
+        with contextlib.chdir(cwd), contextlib.redirect_stdout(out):
+            runpy.run_module(module, run_name="__main__", alter_sys=False)
+    except SystemExit as e:
+        if e.code not in (None, 0):
+            raise AssertionError(f"{module} exited with {e.code}:\n{out.getvalue()}") from e
+    finally:
+        sys.argv = argv
+    return out.getvalue()
+
+
+def _stages(stdout: str, module: str) -> dict:
+    last = stdout.strip().splitlines()[-1]
+    if not last.startswith("Stages: "):
+        raise AssertionError(f"{module} printed no stages line:\n{stdout}")
+    return json.loads(last[len("Stages: "):])
+
+
+def colmap_model(root: Path, frames: list, focal: float, seed: int = SEED) -> np.ndarray:
+    """A COLMAP text model of the ball scene under root/colmap_text:
+    cameras.txt (PINHOLE FRONT_SIZE^2, focal, centred), images.txt (each
+    frame's OpenGL camera-to-world pose turned into COLMAP's OpenCV
+    world-to-camera, c2w @ diag(1, -1, -1, 1) inverted, quaternion wxyz;
+    empty points2D lines) and points3D.txt (FRONT_POINTS seeded points on
+    the ball's surface in the ball's colour, and FRONT_OUTLIERS planted
+    5 to 50 radii from its center, uniform in radius, shuffled in). Returns
+    the mask of planted outliers in the file's order."""
+    from nerfjax_torch.colmap.quaternion import matrix_to_quat
+
+    work = root / "colmap_text"
+    work.mkdir(parents=True, exist_ok=True)
+    c = FRONT_SIZE / 2
+    (work / "cameras.txt").write_text(f"# cameras\n1 PINHOLE {FRONT_SIZE} {FRONT_SIZE} {focal} {focal} {c} {c}\n")
+    lines = ["# images"]
+    for i, f in enumerate(frames):
+        w2c = np.linalg.inv(np.asarray(f["transform_matrix"], np.float64) @ np.diag([1.0, -1.0, -1.0, 1.0]))
+        q, t = matrix_to_quat(w2c[:3, :3]).tolist(), w2c[:3, 3].tolist()  # Python floats: repr round-trips
+        lines += [f"{i + 1} {q[0]} {q[1]} {q[2]} {q[3]} {t[0]} {t[1]} {t[2]} 1 {Path(f['file_path']).name}", ""]
+    (work / "images.txt").write_text("\n".join(lines) + "\n")
+    rng = np.random.default_rng(seed + 11)
+    d = rng.normal(size=(FRONT_POINTS + FRONT_OUTLIERS, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    r = np.concatenate([np.full(FRONT_POINTS, BALL_RADIUS),
+                        BALL_RADIUS * rng.uniform(5.0, 50.0, FRONT_OUTLIERS)])
+    pts = BALL_CENTER + d * r[:, None]
+    planted = np.arange(len(pts)) >= FRONT_POINTS
+    order = rng.permutation(len(pts))
+    pts, planted = pts[order], planted[order]
+    rgb = np.round(BALL_RGB * 255).astype(int).tolist()
+    body = "\n".join(f"{i} {p[0]} {p[1]} {p[2]} {rgb[0]} {rgb[1]} {rgb[2]} 0.5 1 {i}"
+                     for i, p in enumerate(pts.tolist()))
+    (work / "points3D.txt").write_text("# 3D point list\n" + body + "\n")
+    return planted
+
+
+def front_end_phase(tmp: Path) -> dict:
+    """The front end on the card, from phase H's frames to a trained field:
+    C1 nerfjax_torch.cli.resize_images on them (800^2 -> FRONT_SIZE^2,
+    LANCZOS; two files held byte-equal to PIL in this process); C2 a COLMAP
+    text model of the scene (colmap_model); C3 nerfjax_torch.cli.colmap2nerf
+    (mode auto) on the card: its Stages line, the kept share, every planted
+    outlier removed (else a failure), the orientation check's verdict
+    (reported, not failed: a hemisphere of cameras fails nerfjax's check
+    too); C4 K6 against its plain version at that cloud (torch.equal),
+    timed beside its bound; C5 the CLI on a FRONT_SUBSAMPLE-point cloud
+    with --device cuda and --device cpu, the JSONs byte-equal, with the
+    default cfg and with FRONT_RADIUS_FILTER; C6 C3's JSON
+    and the resized frames through nerfjax_torch.cli.precompute_rays, one
+    epoch of train() with the tuned cfg, extraction at 256^3 and the IoU
+    with the ball fitted to colmap_to_nerf's normalized inlier points
+    (>= 0.5). The CLIs run in this process (runpy), K6's launches are
+    counted from 0 around C3's."""
+    import torch
+    from PIL import Image
+
+    from nerfjax_torch.colmap import colmap_to_nerf, read_points3d_txt
+    from nerfjax_torch.config import ConfigNode, with_defaults
+    from nerfjax_torch.ops import knn
+    from nerfjax_torch.train import train
+
+    scene = tmp / "scene"
+    root = tmp / "front"
+    colmap_dir = root / "colmap"
+    root.mkdir()
+    out: dict = {}
+
+    # C1: resize
+    (root / "resize.json").write_text(json.dumps({
+        "scene_name": "ball", "image_dir": str(scene), "tmp_image_dir": str(colmap_dir / "images"),
+        "resize_images": True, "newSize": [FRONT_SIZE, FRONT_SIZE]}))
+    t0 = time.perf_counter()
+    _run_cli("nerfjax_torch.cli.resize_images", ["--cfg_path", str(root / "resize.json")], root)
+    out["resize_s"] = time.perf_counter() - t0
+    resized = sorted((colmap_dir / "images").iterdir())
+    for name in FRONT_CHECK_FILES:
+        Image.open(scene / name).resize((FRONT_SIZE, FRONT_SIZE), Image.LANCZOS).save(root / name)
+        if (root / name).read_bytes() != (colmap_dir / "images" / name).read_bytes():
+            raise AssertionError(f"resize_images wrote {name} other than PIL's LANCZOS resize")
+    if len(resized) != PRECOMPUTE_FRAMES or Image.open(resized[0]).size != (FRONT_SIZE, FRONT_SIZE):
+        raise AssertionError(f"resize_images wrote {len(resized)} files of {Image.open(resized[0]).size}")
+    phase(f"front end C1: resize_images (the CLI, host code) resized {len(resized)} frames from {PRECOMPUTE_SIZE}^2 "
+          f"to {FRONT_SIZE}^2 in {out['resize_s']:.2f} s; {', '.join(FRONT_CHECK_FILES)} byte-equal to PIL's LANCZOS")
+
+    # C2: the COLMAP text model
+    meta = json.loads((scene / "transforms_train.json").read_text())
+    focal = float(0.5 * PRECOMPUTE_SIZE / np.tan(0.5 * PRECOMPUTE_ANGLE_X) * FRONT_SIZE / PRECOMPUTE_SIZE)
+    t0 = time.perf_counter()
+    planted = colmap_model(colmap_dir, meta["frames"], focal)
+    phase(f"front end C2: COLMAP text model of {len(meta['frames'])} images (PINHOLE {FRONT_SIZE}^2, f {focal:.3f}) "
+          f"and {len(planted):,} points ({FRONT_POINTS:,} on the ball, {int(planted.sum()):,} planted 5-50 radii out), "
+          f"{(colmap_dir / 'colmap_text' / 'points3D.txt').stat().st_size / 1e6:.1f} MB, in "
+          f"{time.perf_counter() - t0:.2f} s (set-up)")
+
+    # C3: colmap2nerf on the card
+    cfg_keys = {"scene_name": "ball", "colmap_dir": str(colmap_dir)}
+    (root / "colmap2nerf.json").write_text(json.dumps(cfg_keys))
+    knn.reset_launch_counts()
+    t0 = time.perf_counter()
+    stdout = _run_cli("nerfjax_torch.cli.colmap2nerf", ["--cfg_path", str(root / "colmap2nerf.json")], root)
+    wall = time.perf_counter() - t0
+    out["launches"] = knn.launch_counts["knn_mean_dist"]
+    st = _stages(stdout, "colmap2nerf")
+    verdict = [line.strip() for line in stdout.splitlines()
+               if line.startswith(("Cameras oriented", "Dot product", "Validation", "All validations", "Some validations"))]
+    phase(f"front end C3: colmap2nerf (the CLI, mode auto, on the card) in {wall:.2f} s; {st['points_kept']:,} of "
+          f"{st['points_read']:,} points kept ({st['points_kept'] / st['points_read']:.2%}); seconds: read "
+          f"{st['read']:.3f}, outlier filter {st['outlier_filter']:.4f} (its kNN {st['knn'] * 1e3:.2f} ms, CUDA events), "
+          f"normalize + convert {st['normalize_convert']:.4f}, AABB {st['aabb']:.4f}, write {st['write']:.4f}, "
+          f"the CLI's wall {st['wall']:.3f}; K6 launches {out['launches']}; orientation check (reported, not "
+          f"failed): {'; '.join(verdict)}")
+    if out["launches"] != 1:
+        raise AssertionError(f"colmap2nerf launched K6 {out['launches']} times, expected 1")
+    out["stages"] = st
+
+    # C4: K6 against its plain version at that cloud; the keep set with the filter's k and ratio as C3 took them
+    used = with_defaults(ConfigNode(cfg_keys))
+    k, std_ratio = int(used.outlier_nb_neighbors), float(used.outlier_std_ratio)
+    points, _ = read_points3d_txt(colmap_dir / "colmap_text" / "points3D.txt")
+    pts = torch.from_numpy(np.ascontiguousarray(points, np.float32)).cuda()
+    n = pts.shape[0]
+    got = knn.knn_mean_distances(pts, k)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = knn.knn_mean_distances_plain(pts, k)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"K6 at n = {n:,}, k = {k}: kernel != plain, max |err| {err:.3g} at "
+                             f"{int((got != want).sum()):,} points")
+    d = got.cpu().numpy()
+    keep = np.where(d <= d.mean() + std_ratio * d.std())[0]  # the filter's threshold, as colmap2nerf formed it
+    survivors = int(planted[keep].sum())
+    if len(keep) != st["points_kept"] or survivors:
+        raise AssertionError(f"{survivors} planted outliers survived the filter; {len(keep):,} kept here, "
+                             f"{st['points_kept']:,} by colmap2nerf")
+    kern = lambda: knn.knn_mean_distances(pts, k)  # noqa: E731
+    runs = []
+    for _ in range(TIMING_SETS):
+        runs += [_time_ms(kern), _time_ms(kern)]
+        if _agree(runs[-2], runs[-1]):
+            break
+    else:
+        raise AssertionError("K6's timing runs disagree: " + ", ".join(f"{v:.3f}" for v in runs))
+    bound = _bound(16.0 * n, 8.0 * n * (n - 1))
+    out["knn"] = {"ms": float(np.median(runs)), "plain_ms": plain_ms, "bound": bound, "max_abs_err": err,
+                  "runs": runs, "n": n, "k": k, "wall_ms": _wall_ms(kern, iters=5)}
+    t = out["knn"]
+    phase(f"front end C3: every one of the {int(planted.sum()):,} planted outliers removed (the keep set from K6's "
+          f"distances and the filter's threshold: {len(keep):,} points, as colmap2nerf kept)")
+    phase(f"front end C4: K6 knn_mean_dist at n = {n:,}, k = {k}: kernel == plain (torch.equal); device: kernel "
+          f"{t['ms']:.3f} ms (runs {', '.join(f'{v:.3f}' for v in runs)}; a profiler trace of 20 calls), plain "
+          f"{plain_ms:.1f} ms (one call, CUDA events), bound {bound[0]:.3f} ms ({bound[1]}: 8 FP32 operations a "
+          f"pair at 67 TFLOP/s), the kernel at {bound[0] / t['ms']:.1%} of it; wall per call {t['wall_ms']:.3f} ms")
+
+    # C5: a subsample, card against CPU
+    sub = np.sort(np.random.default_rng(SEED + 12).choice(n, FRONT_SUBSAMPLE, replace=False))
+    sub_dir = root / "sub"
+    (sub_dir / "colmap_text").mkdir(parents=True)
+    for name in ("cameras.txt", "images.txt"):
+        (sub_dir / "colmap_text" / name).write_bytes((colmap_dir / "colmap_text" / name).read_bytes())
+    rows = (colmap_dir / "colmap_text" / "points3D.txt").read_text().splitlines()[1:]
+    (sub_dir / "colmap_text" / "points3D.txt").write_text("# 3D point list\n" + "\n".join(rows[i] for i in sub) + "\n")
+    for label, extra in (("default cfg", {}), ("radius_filter", FRONT_RADIUS_FILTER)):
+        sub_cfg = root / f"sub_{len(extra)}.json"
+        sub_cfg.write_text(json.dumps({"scene_name": "sub", "colmap_dir": str(sub_dir), **extra}))
+        seconds, jsons, said = {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            cwd = root / f"{dev}_{len(extra)}"
+            cwd.mkdir()
+            t0 = time.perf_counter()
+            stdout = _run_cli("nerfjax_torch.cli.colmap2nerf", ["--cfg_path", str(sub_cfg), "--device", dev], cwd)
+            seconds[dev] = time.perf_counter() - t0
+            jsons[dev] = (cwd / "transforms_sub.json").read_bytes()
+            said[dev] = [line for line in stdout.splitlines() if line.startswith("Radius filter kept")]
+        if jsons["cuda"] != jsons["cpu"] or said["cuda"] != said["cpu"]:
+            raise AssertionError(f"colmap2nerf ({label}) on {FRONT_SUBSAMPLE:,} points: the card's JSON differs from "
+                                 f"the CPU's; {said}")
+        if extra and not said["cpu"]:
+            raise AssertionError("colmap2nerf with radius_filter: true printed no radius filter line")
+        phase(f"front end C5: colmap2nerf ({label}{': ' + said['cpu'][0] if extra else ''}) on {FRONT_SUBSAMPLE:,} "
+              f"of the points with --device cuda ({seconds['cuda']:.2f} s) and --device cpu ({seconds['cpu']:.2f} s): "
+              f"the two transforms JSONs byte-equal ({len(jsons['cpu']):,} B)")
+
+    # C6: the chain from C3's JSON to a trained field
+    npz = root / "ball_ray_data.npz"
+    (root / "precompute.json").write_text(json.dumps({"scene_name": "ball", "transforms_json": str(
+        root / "transforms_ball.json"), "rays_file": str(npz)}))
+    t0 = time.perf_counter()
+    ps = _stages(_run_cli("nerfjax_torch.cli.precompute_rays", ["--cfg_path", str(root / "precompute.json")], root),
+                 "precompute_rays")
+    out["precompute_s"] = time.perf_counter() - t0
+    cfg = {**TUNED_TRAIN, "num_epochs": 1, "rays_file": str(npz), "output_dir": str(root / "out"),
+           "checkpoint_dir": str(root / "out" / "checkpoints")}
+    t0 = time.perf_counter()
+    res = train(cfg, seed=SEED, log_every=128, device="cuda")
+    out["train_s"] = time.perf_counter() - t0
+    psnr = np.asarray(res["psnr"])
+    out["psnr_last20"] = float(psnr[-20:].mean())
+    phase(f"front end C6: precompute_rays on C3's JSON: {ps['kept']:,} of {ps['generated']:,} rays kept in "
+          f"{out['precompute_s']:.2f} s (NPZ write {ps['write']:.2f}); train() one epoch, {res['steps']} tuned steps in "
+          f"{out['train_s']:.2f} s, PSNR first 20 steps {float(psnr[:20].mean()):.2f} dB, last 20 "
+          f"{out['psnr_last20']:.2f} dB")
+    if not np.isfinite(psnr).all() or out["psnr_last20"] < float(psnr[:20].mean()) + PSNR_RISE_DB:
+        raise AssertionError(f"training on the front end's rays: PSNR {float(psnr[:20].mean()):.2f} -> "
+                             f"{out['psnr_last20']:.2f} dB")
+    with contextlib.redirect_stdout(io.StringIO()):  # the normalizer prints whatever verbose says
+        norm = colmap_to_nerf(with_defaults(ConfigNode(cfg_keys)), device="cuda", verbose=False)["points"][keep]
+    inl = norm[~planted[keep]]
+    center = inl.mean(axis=0)
+    radius = float(np.linalg.norm(inl - center, axis=1).mean())
+    out["iou"] = extract_trained(cfg, Path(cfg["checkpoint_dir"]) / "nerf_final.pth", center, radius,
+                                 label=f"front end C6: the field trained on C3's scene (ball fitted to the normalized "
+                                       f"inliers: center {np.round(center, 4).tolist()}, radius {radius:.4f})")
+    return out
 
 
 def tail_on_trained(cfg: dict, final: Path, tmp: Path) -> dict:
@@ -2967,6 +3248,7 @@ def main() -> int:
         extract_trained(trained["cfg"], trained["final"])
         tail = tail_on_trained(trained["cfg"], trained["final"], Path(tmp))
         head = precompute_phase(Path(tmp))
+        front = front_end_phase(Path(tmp))
         evals = {"tuned": eval_render(trained["final"], TUNED_CFG, "tuned", stats, hstats),
                  "drop-in": eval_render(dropin["final"], DROP_IN_TRAIN, "drop-in", stats, hstats)}
         for label in ("tuned", *DENSE_KNOBS, "fast", "fast bf16"):
@@ -2976,6 +3258,12 @@ def main() -> int:
     phase(f"train() wall per step, tuned run: {trained['train_wall_ms_per_step']:.2f} ms; precompute_rays: "
           f"{head['kept']:,} of {head['generated']:,} rays, {head['process_wall']:.2f} s (NPZ write "
           f"{head['write']:.2f} s)")
+    fs = front["stages"]
+    phase(f"front end: resize_images {front['resize_s']:.2f} s; colmap2nerf on {fs['points_read']:,} points "
+          f"{fs['wall']:.2f} s (read {fs['read']:.2f}, kNN {fs['knn'] * 1e3:.2f} ms), {fs['points_kept']:,} kept; K6 "
+          f"{front['knn']['ms']:.3f} ms against a bound of {front['knn']['bound'][0]:.3f} (plain "
+          f"{front['knn']['plain_ms']:.1f}); precompute {front['precompute_s']:.2f} s, train {front['train_s']:.2f} s, "
+          f"PSNR last 20 steps {front['psnr_last20']:.2f} dB, IoU {front['iou']:.3f}")
     phase("warm ms/step: tuned " + f"{trained['ms_per_step']:.2f}, "
           + ", ".join(f"{k} {v['ms_per_step']:.2f}" for k, v in knobs.items())
           + f", drop-in {dropin['ms_per_step']:.2f}, fast {fast['ms_per_step']:.2f}, k2 knob {k2['ms_per_step']:.2f}"
@@ -3087,6 +3375,13 @@ def main() -> int:
             t = knobs["dgl1"]["timings"][name]
             kernels[-1].update(dgl1_step_ms=t["ms"], dgl1_step_bound_ms=t["bound"][0],
                                dgl1_step_flushed_ms=t["flushed_timing"]["ms"])
+    t = front["knn"]  # K6 at C3's cloud; launches: C3's colmap2nerf
+    kernels.append({
+        "name": "knn_mean_dist", "route": "cuda", "source": "nerfjax_torch/csrc/knn.cu",
+        "replaces": "nerfjax/native/knn.cpp:22", "launches": front["launches"], "max_abs_err": t["max_abs_err"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+        "library_ms": None, "n": t["n"], "k": t["k"],
+    })
     for name, line in PROBE_LINES.items():
         t = pstats[name]
         kernels.append({

@@ -7,9 +7,9 @@ interface::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v [extra] -o <build dir>/lib<name>.<hash>.so <name>.cu
 
-``EXTRA_FLAGS`` adds flags for one source (``hash_encode.cu`` is built with
-``-fmad=false``: its draws must round as the plain version's separate
-multiplies and adds). ``build_all`` starts one nvcc per source at once.
+``EXTRA_FLAGS`` adds flags for one source (``hash_encode.cu`` and ``knn.cu``
+are built with ``-fmad=false``: their draws and distances must round as the
+plain versions' separate multiplies and adds). ``build_all`` starts one nvcc per source at once.
 
 The file name carries a hash of the source and the flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is. The build
@@ -36,8 +36,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-EXTRA_FLAGS = {"hash_encode": ("-fmad=false",)}
-SOURCES = ("fused_mlp", "hash_encode", "micro_probe")
+EXTRA_FLAGS = {"hash_encode": ("-fmad=false",), "knn": ("-fmad=false",)}
+SOURCES = ("fused_mlp", "hash_encode", "micro_probe", "knn")
 
 
 def find_nvcc() -> str:

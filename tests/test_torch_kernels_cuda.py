@@ -1138,3 +1138,86 @@ def test_dot_ragged_shapes_within_bound(cuda_device, K, M, N, bf16):
 def test_probes_main_on_the_card(cuda_device, capsys):
     assert probes.main(device="cuda") == 0
     assert sum(line.endswith(" OK") for line in capsys.readouterr().out.splitlines()) == 6
+
+
+# -- K6: the statistical outlier filter's kNN ---------------------------------------
+
+from nerfjax_torch.colmap import outliers  # noqa: E402
+from nerfjax_torch.ops import knn  # noqa: E402
+
+
+def _knn_cloud(n: int, kind: str, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(size=(n, 3)).astype(np.float32)
+    if kind == "duplicates" and n > 4:
+        pts[1::4] = pts[0::4][: len(pts[1::4])]
+        pts[3] = pts[0]
+    elif kind == "equal":
+        pts[:] = np.float32([0.25, -1.5, 3.0])
+    return pts
+
+
+@pytest.mark.parametrize("kind", ["normal", "duplicates", "equal"])
+@pytest.mark.parametrize("k", [1, 20, 64, 256])
+@pytest.mark.parametrize("n", [2, 21, 1_000, 100_003])
+def test_knn_kernel_equals_plain(cuda_device, n, k, kind):
+    """K6 against its plain version on the card, bit for bit (torch.equal):
+    k >= n is clamped to n - 1; duplicates count at distance 0."""
+    pts = torch.from_numpy(_knn_cloud(n, kind, seed=n + k)).to(cuda_device)
+    before = knn.launch_counts["knn_mean_dist"]
+    got = knn.knn_mean_distances(pts, k)
+    torch.cuda.synchronize()
+    assert knn.launch_counts["knn_mean_dist"] == before + 1
+    assert torch.equal(got, knn.knn_mean_distances_plain(pts, k))
+    if kind == "equal":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("k", [3, 20])
+def test_knn_kernel_on_a_strided_view(cuda_device, k):
+    """A non-contiguous [n, 3] view (every other row of a [2n, 4] tensor)."""
+    base = torch.from_numpy(np.random.default_rng(k).normal(size=(2 * 1_037, 4)).astype(np.float32)).to(cuda_device)
+    view = base[::2, 1:]
+    assert not view.is_contiguous()
+    assert torch.equal(knn.knn_mean_distances(view, k), knn.knn_mean_distances_plain(view.contiguous(), k))
+
+
+def test_knn_kernel_limit(cuda_device):
+    pts = torch.from_numpy(_knn_cloud(600, "normal", 1)).to(cuda_device)
+    with pytest.raises(ValueError, match="K_MAX = 256"):
+        knn.knn_mean_distances(pts, 257)
+    small = pts[:200]  # k = 257 clamps to 199, within the limit
+    assert torch.equal(knn.knn_mean_distances(small, 257), knn.knn_mean_distances_plain(small, 199))
+    assert torch.equal(knn.knn_mean_distances(pts[:1], 20), torch.zeros(1, device=cuda_device))
+
+
+@pytest.mark.parametrize("nb, std_ratio", [(20, 2.0), (50, 1.0)])
+def test_statistical_filter_card_keeps_the_cpu_indices(cuda_device, nb, std_ratio):
+    rng = np.random.default_rng(nb)
+    pts = rng.normal(size=(20_000, 3))
+    pts[:300] += rng.normal(size=(300, 3)) * 25.0
+    outliers.reset_filter_stats()
+    kept_card, keep_card = outliers.remove_statistical_outliers(pts, nb, std_ratio, device="cuda")
+    stats = dict(outliers.filter_stats)
+    kept_cpu, keep_cpu = outliers.remove_statistical_outliers(pts, nb, std_ratio, device="cpu")
+    assert np.array_equal(keep_card, keep_cpu) and np.array_equal(kept_card, kept_cpu)
+    assert 0.0 < stats["knn"] <= stats["outlier_filter"] and stats["points_kept"] == len(keep_card)
+
+
+@pytest.mark.parametrize("cloud", ["lattice", "shell"])
+def test_radius_filter_card_keeps_the_cpu_indices(cuda_device, cloud):
+    """filter_radius_outliers on the card keeps the CPU's indices. The
+    lattice's spacing is the radius, so every neighbour pair sits on r^2;
+    the shell's 30,000 points have ~16 neighbours each within r."""
+    if cloud == "lattice":
+        g = np.arange(-12, 13) * 0.1
+        pts = np.stack(np.meshgrid(g, g, g, indexing="ij"), axis=-1).reshape(-1, 3) + np.array([0.3, -1.1, 2.7])
+        radius, nb = 0.1, 6
+    else:
+        d = np.random.default_rng(5).normal(size=(30_000, 3))
+        pts = 0.5 * d / np.linalg.norm(d, axis=1, keepdims=True)
+        radius, nb = 0.023, 16
+    kept_card, keep_card = outliers.filter_radius_outliers(pts, radius, nb, device="cuda")
+    kept_cpu, keep_cpu = outliers.filter_radius_outliers(pts, radius, nb, device="cpu")
+    assert np.array_equal(keep_card, keep_cpu) and np.array_equal(kept_card, kept_cpu)
+    assert 0 < len(keep_cpu) < len(pts)

@@ -16,7 +16,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 ARMS = ("spass2", "spass8")
 # keys whose values are paths or names of the run, not of the protocol
-PATH_KEYS = {"scene_name", "rays_file", "output_dir", "checkpoint_dir", "checkpoint", "transforms_json"}
+PATH_KEYS = {"scene_name", "rays_file", "output_dir", "checkpoint_dir", "checkpoint", "transforms_json", "colmap_dir",
+             "tmp_image_dir"}
 
 
 def _load(name: str, path: Path):
