@@ -227,17 +227,41 @@ the prefetch):
      before and after a train() of the same cfg, and train()'s wall per
      step, so that a host-side change to train() (the prefetch) is read
      on the steps after it and beside the parent's in one call;
-  H. (after 8c) the chain's head: 100 PNG frames of 800 x 800 in
+  H. (after 8c) the chain's head: 60 PNG frames of 800 x 800 in
      nerf_synthetic's train split's shape (precompute_scene) through
      python -m nerfjax_torch.cli.precompute_rays on the card: the rays
      kept, each stage's seconds, the wall and rays/s, the NPZ read back;
      4 frames on the card and on the CPU, masks equal, arrays within 1e-6.
 
+Added for K6's exact cell-grid search and vanilla NeRF:
+
+  C3/C4 K6 now takes its grid route at C3's cloud: every grid kernel
+     launched by colmap2nerf (knn_bin, knn_scatter, knn_mark, knn_grid a
+     level, knn_tail once), == plain, timed with its split (plan, sort,
+     search, tail), the pairs its kernels tested and the bound of the
+     function (n k pairs at 8 FP32 instructions a pair, 33.5 T/s with no
+     FMA, or 16 n bytes; the bound of the tested pairs beside it); the
+     brute kernel (knn_mean_dist, the first design) == plain and timed at
+     the same cloud.
+  K. (after C, knn_phase) K6 at 1,200,000 points of clustered_cloud
+     (Gaussian blobs on a surface, 1 % planted outliers), == plain on 4,096
+     seeded queries, timed with its split; the statistical filter on the
+     all-coincident cloud of 303,000 points (the brute route: its
+     launches counted from 0 around the call, every point kept), timed.
+  V. (after the drop-in run, train_vanilla) vanilla NeRF at full width
+     (pos_L 10, dir_L 4, hidden 256, 64 + 128 samples, batch 4096, bf16)
+     through python -m nerfjax_torch.cli.train: 256 steps, PSNR first and
+     last 20 steps (must rise), a warm median, the split by stage, the idle
+     share, peak memory; the trained field extracted at 256^3 (IoU), then by
+     the extract_vol CLI at 512^3 when that is predicted under 30 s; the
+     render and eval_psnr CLIs on it; the checkpoint reloaded and written
+     again.
+
 Added for the front end (images -> COLMAP text model -> transforms JSON)
 and its kernel, K6 (the statistical outlier filter's kNN, csrc/knn.cu):
 
   C. (after H, front_end_phase) C1 python -m nerfjax_torch.cli.resize_images
-     on H's 100 frames (800^2 -> 400^2, LANCZOS; two files byte-equal to
+     on H's 60 frames (800^2 -> 400^2, LANCZOS; two files byte-equal to
      PIL); C2 a COLMAP text model of the scene (PINHOLE 400^2 at f/2, H's
      poses as OpenCV world-to-camera quaternions, 300,000 points on the
      ball's surface and 3,000 planted 5-50 radii out); C3
@@ -1628,14 +1652,15 @@ def _stage_split(state, batches) -> dict:
     field pass, each field pass's forward (apply_planar), between two
     passes the coarse composite, sample_pdf and the sort, then the
     composites and losses with their backward up to the first gradient
-    that reaches a field pass's outputs, the field's backward (MLP and
-    encode, all passes), AdamW with its schedule."""
+    that reaches a field pass's outputs, the fields' backward (MLP and
+    encode, all passes), AdamW with its schedule. Vanilla's two MLPs are
+    wrapped alike."""
     import torch
 
     from nerfjax_torch import train
 
-    field, opt, s = state.field, state.optimizer, state.settings
-    apply, update, adamw = field.apply_planar, train.update_occupancy, opt.step
+    fields, opt, s = state.fields(), state.optimizer, state.settings
+    applies, update, adamw = [f.apply_planar for f in fields], train.update_occupancy, opt.step
     marks, total = [], {}
 
     def mark(label):
@@ -1647,15 +1672,18 @@ def _stage_split(state, batches) -> dict:
         if marks[-1][0].startswith("field forward"):  # the step's first gradient at a field pass's outputs
             mark("composite + loss, forward and backward")
 
-    def timed_apply(*args, **kw):
-        i = sum(label.startswith("field forward") for label, _ in marks)
-        mark(("occupancy sample" if s.use_occupancy else "stratified sample") if i == 0
-             else "coarse composite + pdf sample + sort")
-        rgb, sigma = apply(*args, **kw)
-        mark("field forward" + ("" if s.single_pass else " (coarse)" if i == 0 else " (fine)"))
-        rgb.register_hook(backward_reached)
-        sigma.register_hook(backward_reached)
-        return rgb, sigma
+    def timed(apply):
+        def timed_apply(*args, **kw):
+            i = sum(label.startswith("field forward") for label, _ in marks)
+            mark(("occupancy sample" if s.use_occupancy else "stratified sample") if i == 0
+                 else "coarse composite + pdf sample + sort")
+            rgb, sigma = apply(*args, **kw)
+            mark("field forward" + ("" if s.single_pass else " (coarse)" if i == 0 else " (fine)"))
+            rgb.register_hook(backward_reached)
+            sigma.register_hook(backward_reached)
+            return rgb, sigma
+
+        return timed_apply
 
     def timed_update(*args, **kw):
         update(*args, **kw)
@@ -1665,7 +1693,9 @@ def _stage_split(state, batches) -> dict:
         mark("field backward")
         return adamw(*args, **kw)
 
-    field.apply_planar, opt.step = timed_apply, timed_adamw
+    for f, apply in zip(fields, applies):
+        f.apply_planar = timed(apply)
+    opt.step = timed_adamw
     if s.use_occupancy:
         train.update_occupancy = timed_update
     try:
@@ -1678,7 +1708,8 @@ def _stage_split(state, batches) -> dict:
             for (_, start), (label, end) in zip(marks, marks[1:]):
                 total[label] = total.get(label, 0.0) + start.elapsed_time(end)
     finally:
-        del field.apply_planar
+        for f in fields:
+            del f.apply_planar
         opt.step, train.update_occupancy = adamw, update
     return {k: v / len(batches) for k, v in total.items()}
 
@@ -1909,7 +1940,7 @@ FAST_SMALL = {**FAST_TRAIN, "nerf_type": "small", "hash_n_levels": 8, "batch_siz
 LR_KS = (2, 3, 7)
 
 
-def _warm_steps(cfg: dict, data_path: Path, n_warm: int, n_timed: int, label: str):
+def _warm_steps(cfg: dict, data_path: Path, n_warm: int, n_timed: int, label: str, batch_size: int = 8192):
     """A fresh state for ``cfg`` trained n_warm steps, then n_timed steps
     each timed with a sync (the median printed): (state, batches left
     over, median ms/step). The batches are the NPZ's first, in order."""
@@ -1920,7 +1951,7 @@ def _warm_steps(cfg: dict, data_path: Path, n_warm: int, n_timed: int, label: st
 
     data = RayDataset(data_path, verbose=False)
     total = n_warm + n_timed + 12
-    batches = [batch_to_device(b, "cuda") for _, b in zip(range(total), data.epoch_batches(8192, seed=SEED))]
+    batches = [batch_to_device(b, "cuda") for _, b in zip(range(total), data.epoch_batches(batch_size, seed=SEED))]
     state = make_train_state(cfg, TrainSettings.from_cfg(cfg, 128), seed=SEED, device="cuda")
     for b in batches[:n_warm]:
         train_step(state, b)
@@ -1933,7 +1964,7 @@ def _warm_steps(cfg: dict, data_path: Path, n_warm: int, n_timed: int, label: st
         times.append((time.perf_counter() - t1) * 1e3)
     med = float(np.median(times))
     phase(f"warm train_step {label}: median {med:.2f} ms/step over {len(times)} steps (min {min(times):.2f}, "
-          f"max {max(times):.2f}) = {8192 / med * 1e3:,.0f} rays/s")
+          f"max {max(times):.2f}) = {batch_size / med * 1e3:,.0f} rays/s")
     return state, batches[n_warm + n_timed:], med
 
 
@@ -2240,9 +2271,10 @@ def lr_kernels_vs_plain(stats: dict) -> None:
               f"entries), K3 on them within the bound, max |err| {err:.3g}")
 
 
-# the precompute phase's scene: nerf_synthetic's train split (100 frames of
-# 800 x 800, camera_angle_x 0.6911112, cameras 4.03 from the origin)
-PRECOMPUTE_FRAMES = 100
+# the precompute phase's scene: nerf_synthetic's train split in shape (800 x 800, camera_angle_x
+# 0.6911112, cameras 4.03 from the origin), 60 of its 100 frames, for the script's time limit (at 100
+# frames the NPZ's zlib write took ~70 s of the script)
+PRECOMPUTE_FRAMES = 60
 PRECOMPUTE_SIZE = 800
 PRECOMPUTE_ANGLE_X = 0.6911112
 PRECOMPUTE_RADIUS = 4.03
@@ -2294,7 +2326,7 @@ def precompute_scene(root: Path, n: int = PRECOMPUTE_FRAMES) -> Path:
 
 
 def precompute_phase(tmp: Path) -> dict:
-    """The chain's head on the card: precompute_scene's 100 frames through
+    """The chain's head on the card: precompute_scene's frames through
     ``python -m nerfjax_torch.cli.precompute_rays`` (a JSON cfg naming the
     transforms JSON and the NPZ): the rays kept of those generated, each
     stage's seconds as the CLI reports them (decode; rays + intersection,
@@ -2440,6 +2472,137 @@ def colmap_model(root: Path, frames: list, focal: float, seed: int = SEED) -> np
     return planted
 
 
+KNN_GRID_KERNELS = ("knn_bin", "knn_scatter", "knn_mark", "knn_grid", "knn_tail")
+KNN_FIRST_DESIGN_MS = 46.22  # K6's first design (brute force) at C3's cloud, n 303,000, k 20; H100 80GB HBM3, 700 W
+KNN_CLUSTERED = 1_200_000  # the K6 phase's clustered cloud: a real forest plot's sparse cloud is 1-3M points
+KNN_SUBSET = 4_096  # queries the plain version checks at KNN_CLUSTERED points
+H100_INSTR_PER_S = 132 * 128 * 1.98e9  # FP32 lanes x boost clock: one instruction a lane a cycle, no FMA
+
+
+def _knn_bound(n: int, pairs: int) -> tuple[float, str]:
+    """The least time for n points and ``pairs`` distances: 8 FP32
+    instructions a pair (3 FADD, 3 FMUL, 2 FADD; -fmad=false, so no FMA) at
+    H100_INSTR_PER_S, or the bytes (each point read once, each distance
+    written once: 16 n) at the memory rate. The function's bound is at
+    pairs = n k (each point's k neighbours' distances); at the pairs a
+    design tests it is that design's work, not the function's bound."""
+    tb, to = 16.0 * n / H100_BYTES_PER_S * 1e3, 8.0 * pairs / H100_INSTR_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def _knn_timed(pts, k: int, plain_ms: float | None, err: float, label: str, plan=None) -> dict:
+    """K6 (the wrapper: the plan, the sorts and every kernel of its route;
+    ``plan`` forces one, as knn_plan gives it) at one cloud: device ms from
+    a profiler trace (sets p, k, k, p as _time_ms takes them), the
+    function's bound, the pairs its kernels tested and their bound, its
+    split by stage (CUDA events); printed."""
+    from nerfjax_torch.ops import knn
+
+    n = pts.shape[0]
+    kern = lambda: knn.knn_mean_distances(pts, k, plan=plan)  # noqa: E731
+    runs = []
+    for _ in range(TIMING_SETS):
+        runs += [_time_ms(kern), _time_ms(kern)]
+        if _agree(runs[-2], runs[-1]):
+            break
+    else:
+        raise AssertionError(f"{label}: K6's timing runs disagree: " + ", ".join(f"{v:.3f}" for v in runs))
+    split: dict = {}
+    knn.knn_mean_distances(pts, k, plan=plan, split=split)
+    run = dict(knn.last_run)
+    pairs = int(run["pairs"])
+    k = min(k, n - 1)
+    bound = _knn_bound(n, n * k)
+    out = {"ms": float(np.median(runs)), "plain_ms": plain_ms, "bound": bound, "max_abs_err": err, "runs": runs,
+           "n": n, "k": k, "wall_ms": _wall_ms(kern, iters=5), "pairs": pairs, "route": run["route"],
+           "levels": run["levels"], "tail": run["tail"], "split": split, "plan": dataclasses.asdict(run["plan"]),
+           "tested_bound": _knn_bound(n, pairs), "brute_pairs_bound": _knn_bound(n, n * (n - 1))}
+    plan = run["plan"]
+    phase(f"{label}: K6 at n = {n:,}, k = {k}, {run['route']} route: == plain (torch.equal); device: "
+          f"{out['ms']:.3f} ms (runs {', '.join(f'{v:.3f}' for v in runs)}; profiler traces of 20 calls; the first "
+          f"design's recorded time at C3's cloud: {KNN_FIRST_DESIGN_MS} ms); plain "
+          f"{'not run' if plain_ms is None else f'{plain_ms:.1f} ms'}; wall per call {out['wall_ms']:.3f} ms; "
+          f"split (CUDA events, one call): " + ", ".join(f"{a} {b:.3f}" for a, b in split.items())
+          + f"; the function's bound {bound[0] * 1e3:.2f} us ({bound[1]}: n k = {n * k:,} pairs at 8 FP32 "
+          f"instructions a pair, {H100_INSTR_PER_S / 1e12:.1f} T/s, or 16 n bytes), the call at "
+          f"{bound[0] / out['ms']:.2%} of it; pairs tested {pairs:,} ({pairs / max(n * (n - 1), 1):.2e} of "
+          f"n(n - 1)), their bound {out['tested_bound'][0]:.3f} ms; {run['levels']} grid level(s), {run['tail']:,} "
+          f"queries to the brute tail; brute force's bound at this n {out['brute_pairs_bound'][0]:.2f} ms"
+          + ("" if run["route"] != "grid" else f"; cell side {plan.h:.6g}, {plan.dims} cells, load "
+             f"{plan.cell_load:.1f}, {plan.iterations} counts"))
+    return out
+
+
+def knn_phase() -> dict:
+    """K6 beyond C3's cloud: KNN_CLUSTERED points of clustered_cloud (blobs
+    on a surface with 1 % planted outliers), k 20, against the plain version
+    on KNN_SUBSET seeded queries (torch.equal), timed with its split; the
+    statistical filter on the all-coincident cloud at C3's size (the brute
+    route, its launches counted from 0 around the call), and the brute
+    kernel timed there."""
+    import torch
+
+    from nerfjax_torch.colmap.outliers import remove_statistical_outliers
+    from nerfjax_torch.ops import knn
+
+    out = {}
+    pts = torch.from_numpy(clustered_cloud(KNN_CLUSTERED, SEED + 13)[0]).cuda()
+    got = knn.knn_mean_distances(pts, 20)
+    q = torch.from_numpy(np.random.default_rng(SEED + 14).choice(KNN_CLUSTERED, KNN_SUBSET, replace=False)).cuda()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = knn.knn_mean_distances_plain(pts, 20, queries=q)
+    end.record()
+    torch.cuda.synchronize()
+    if not torch.equal(got[q], want) or not torch.isfinite(got).all():
+        raise AssertionError(f"K6 at the clustered cloud: kernel != plain at {int((got[q] != want).sum())} of "
+                             f"{KNN_SUBSET} queries")
+    plain_ms = start.elapsed_time(end) * KNN_CLUSTERED / KNN_SUBSET
+    out["clustered"] = _knn_timed(pts, 20, plain_ms, float((got[q] - want).abs().max()),
+                                  f"K6 phase, clustered cloud (plain on {KNN_SUBSET:,} queries, its ms scaled to n)")
+    del pts, got
+    n = FRONT_POINTS + FRONT_OUTLIERS
+    knn.reset_launch_counts()
+    _, keep = remove_statistical_outliers(np.full((n, 3), 0.25, np.float32), 20, 2.0, device="cuda")
+    out["coincident_launches"] = dict(knn.launch_counts)
+    route = knn.last_run["route"]
+    if route != "brute" or out["coincident_launches"]["knn_mean_dist"] != 1 or len(keep) != n:
+        raise AssertionError(f"the statistical filter on {n:,} coincident points: route {route}, launches "
+                             f"{out['coincident_launches']}, {len(keep):,} kept; expected the brute kernel once, "
+                             "every point kept")
+    phase(f"K6 phase: the statistical filter on {n:,} coincident points took the brute route (launches "
+          f"{out['coincident_launches']}) and kept every point")
+    same = torch.full((n, 3), 0.25, device="cuda")
+    if knn.knn_mean_distances(same, 20).any():
+        raise AssertionError("K6 at the all-coincident cloud: expected zeros")
+    out["coincident"] = _knn_timed(same, 20, None, 0.0, "K6 phase, all points coincident (plain not run)")
+    return out
+
+
+def clustered_cloud(n: int, seed: int, outlier_share: float = FRONT_OUTLIERS / (FRONT_POINTS + FRONT_OUTLIERS)):
+    """(float32 [n, 3] points, planted-outlier mask): a clustered SfM-like
+    cloud, not a sphere. 64 Gaussian blobs (sd 0.02 to 0.25, log-uniform;
+    Dirichlet weights) in the plane over [-2, 2]^2, lifted onto the surface
+    z = 0.3 sin(2x) cos(3y) with 0.002 of normal noise, and the share of
+    planted outliers of phase C's cloud, 5 to 50 half-widths (2) from the
+    origin in random directions; shuffled."""
+    rng = np.random.default_rng(seed)
+    n_out = round(n * outlier_share)
+    m = n - n_out
+    centers = rng.uniform(-2.0, 2.0, (64, 2))
+    sd = np.exp(rng.uniform(np.log(0.02), np.log(0.25), 64))
+    comp = rng.choice(64, m, p=rng.dirichlet(np.ones(64)))
+    xy = centers[comp] + rng.normal(size=(m, 2)) * sd[comp, None]
+    z = 0.3 * np.sin(2.0 * xy[:, 0]) * np.cos(3.0 * xy[:, 1]) + rng.normal(0.0, 0.002, m)
+    d = rng.normal(size=(n_out, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    far = d * (2.0 * rng.uniform(5.0, 50.0, n_out))[:, None]
+    pts = np.concatenate([np.column_stack([xy, z]), far]).astype(np.float32)
+    planted = np.arange(n) >= m
+    order = rng.permutation(n)
+    return pts[order], planted[order]
+
+
 def front_end_phase(tmp: Path) -> dict:
     """The front end on the card, from phase H's frames to a trained field:
     C1 nerfjax_torch.cli.resize_images on them (800^2 -> FRONT_SIZE^2,
@@ -2505,7 +2668,8 @@ def front_end_phase(tmp: Path) -> dict:
     t0 = time.perf_counter()
     stdout = _run_cli("nerfjax_torch.cli.colmap2nerf", ["--cfg_path", str(root / "colmap2nerf.json")], root)
     wall = time.perf_counter() - t0
-    out["launches"] = knn.launch_counts["knn_mean_dist"]
+    out["launches"] = dict(knn.launch_counts)
+    out["route"] = knn.last_run["route"]
     st = _stages(stdout, "colmap2nerf")
     verdict = [line.strip() for line in stdout.splitlines()
                if line.startswith(("Cameras oriented", "Dot product", "Validation", "All validations", "Some validations"))]
@@ -2513,10 +2677,12 @@ def front_end_phase(tmp: Path) -> dict:
           f"{st['points_read']:,} points kept ({st['points_kept'] / st['points_read']:.2%}); seconds: read "
           f"{st['read']:.3f}, outlier filter {st['outlier_filter']:.4f} (its kNN {st['knn'] * 1e3:.2f} ms, CUDA events), "
           f"normalize + convert {st['normalize_convert']:.4f}, AABB {st['aabb']:.4f}, write {st['write']:.4f}, "
-          f"the CLI's wall {st['wall']:.3f}; K6 launches {out['launches']}; orientation check (reported, not "
-          f"failed): {'; '.join(verdict)}")
-    if out["launches"] != 1:
-        raise AssertionError(f"colmap2nerf launched K6 {out['launches']} times, expected 1")
+          f"the CLI's wall {st['wall']:.3f}; K6 ({out['route']} route) launches {out['launches']}; orientation check "
+          f"(reported, not failed): {'; '.join(verdict)}")
+    unlaunched = [name for name in KNN_GRID_KERNELS if not out["launches"][name]]
+    if out["route"] != "grid" or unlaunched or out["launches"]["knn_tail"] != 1:
+        raise AssertionError(f"colmap2nerf's K6 took the {out['route']} route with launches {out['launches']}: "
+                             f"expected the grid, every grid kernel launched, knn_tail once")
     out["stages"] = st
 
     # C4: K6 against its plain version at that cloud; the keep set with the filter's k and ratio as C3 took them
@@ -2536,30 +2702,21 @@ def front_end_phase(tmp: Path) -> dict:
     if not torch.equal(got, want):
         raise AssertionError(f"K6 at n = {n:,}, k = {k}: kernel != plain, max |err| {err:.3g} at "
                              f"{int((got != want).sum()):,} points")
+    brute_plan = knn.knn_plan(pts, k, route="brute")
+    brute = knn.knn_mean_distances(pts, k, plan=brute_plan)
+    if not torch.equal(brute, want):
+        raise AssertionError(f"K6's brute kernel at n = {n:,}, k = {k}: != plain")
     d = got.cpu().numpy()
     keep = np.where(d <= d.mean() + std_ratio * d.std())[0]  # the filter's threshold, as colmap2nerf formed it
     survivors = int(planted[keep].sum())
     if len(keep) != st["points_kept"] or survivors:
         raise AssertionError(f"{survivors} planted outliers survived the filter; {len(keep):,} kept here, "
                              f"{st['points_kept']:,} by colmap2nerf")
-    kern = lambda: knn.knn_mean_distances(pts, k)  # noqa: E731
-    runs = []
-    for _ in range(TIMING_SETS):
-        runs += [_time_ms(kern), _time_ms(kern)]
-        if _agree(runs[-2], runs[-1]):
-            break
-    else:
-        raise AssertionError("K6's timing runs disagree: " + ", ".join(f"{v:.3f}" for v in runs))
-    bound = _bound(16.0 * n, 8.0 * n * (n - 1))
-    out["knn"] = {"ms": float(np.median(runs)), "plain_ms": plain_ms, "bound": bound, "max_abs_err": err,
-                  "runs": runs, "n": n, "k": k, "wall_ms": _wall_ms(kern, iters=5)}
-    t = out["knn"]
+    out["knn"] = _knn_timed(pts, k, plain_ms, err, "front end C4")
+    out["knn_brute"] = _knn_timed(pts, k, plain_ms, float((brute - want).abs().max()), "front end C4, brute kernel",
+                                  plan=brute_plan)
     phase(f"front end C3: every one of the {int(planted.sum()):,} planted outliers removed (the keep set from K6's "
           f"distances and the filter's threshold: {len(keep):,} points, as colmap2nerf kept)")
-    phase(f"front end C4: K6 knn_mean_dist at n = {n:,}, k = {k}: kernel == plain (torch.equal); device: kernel "
-          f"{t['ms']:.3f} ms (runs {', '.join(f'{v:.3f}' for v in runs)}; a profiler trace of 20 calls), plain "
-          f"{plain_ms:.1f} ms (one call, CUDA events), bound {bound[0]:.3f} ms ({bound[1]}: 8 FP32 operations a "
-          f"pair at 67 TFLOP/s), the kernel at {bound[0] / t['ms']:.1%} of it; wall per call {t['wall_ms']:.3f} ms")
 
     # C5: a subsample, card against CPU
     sub = np.sort(np.random.default_rng(SEED + 12).choice(n, FRONT_SUBSAMPLE, replace=False))
@@ -2846,6 +3003,136 @@ def train_dropin(tmp: Path) -> dict:
     if not final.exists():
         raise AssertionError("the drop-in run wrote no nerf_final.pth")
     return {"launches": launches, "ms_per_step": med, "step_inputs": cap, "final": final}
+
+
+# cfg/base_cfg.yml's model and training keys with ngp: false (its defaults: pos_L 10, dir_L 4, hidden 256,
+# batch 4096, 64 + 128 samples, bf16, no occupancy grid): vanilla NeRF at full width
+VANILLA_TRAIN = {"ngp": False, "pos_L": 10, "dir_L": 4, "hidden_dim": 256, "batch_size": 4096, "lr": 0.0005,
+                 "N_samples": 64, "N_importance": 128, "precision": "bf16", "occupancy_grid": False,
+                 "single_pass": False}
+VANILLA_EXTRACT_LIMIT_S = 30.0  # the 512^3 extraction runs when the 256^3 one predicts it within this
+
+
+def train_vanilla(tmp: Path) -> dict:
+    """Vanilla NeRF (VANILLA_TRAIN) through the CLI, ``python -m
+    nerfjax_torch.cli.train`` in this process on a JSON cfg (train()'s
+    result read by wrapping it), one epoch of 256 steps on phase 7's NPZ:
+    PSNR of the first and last 20 steps (must rise by PSNR_RISE_DB, every
+    value finite), peak memory; a warm median ms/step, the split by stage
+    (coarse and fine field, the composites, AdamW), the idle share; the
+    trained checkpoint extracted at 256^3 (IoU with the ball), then through
+    the extract_vol CLI at 512^3 when 8x the 256^3 wall stays under
+    VANILLA_EXTRACT_LIMIT_S (else 256^3), the render and eval_psnr CLIs on
+    it (two 64^2 frames of tests/synthetic.make_image_scene, the frames of
+    another scene: they show the CLIs run, not quality); the checkpoint
+    reloaded (both MLPs equal to train()'s) and a resumed state written and
+    read back."""
+    import torch
+
+    from nerfjax_torch import checkpoint as ckpt
+    from nerfjax_torch import train as train_module
+    from nerfjax_torch.extract import load_volume
+    from nerfjax_torch.train import TrainSettings, make_train_state
+
+    root = tmp / "out_vanilla"
+    scene = _synthetic_module().make_image_scene(root / "scene", "vanilla", n_frames=2, H=64, W=64)
+    cfg = {**VANILLA_TRAIN, "num_epochs": 1, "rays_file": str(tmp / "rays.npz"), "output_dir": str(root),
+           "checkpoint_dir": str(root / "checkpoints"), "checkpoint": str(root / "checkpoints" / "nerf_final.pth"),
+           "volume_output_path": str(root / "volume.pth"), "transforms_json": str(scene)}
+    (root / "vanilla.json").write_text(json.dumps(cfg))
+    cli_cfg = ["--cfg_path", str(root / "vanilla.json")]
+    real_train, result = train_module.train, {}
+
+    def recorded_train(*args, **kw):
+        result["out"] = real_train(*args, **kw)
+        return result["out"]
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train_module.train = recorded_train
+    try:
+        _run_cli("nerfjax_torch.cli.train", cli_cfg, root)
+    finally:
+        train_module.train = real_train
+    wall = time.perf_counter() - t0
+    out = result["out"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    psnr = np.asarray(out["psnr"])
+    first, last = float(psnr[:20].mean()), float(psnr[-20:].mean())
+    finite = all(np.isfinite(v).all() for mlp in out["params"].values() for v in _param_leaves(mlp))
+    phase(f"python -m nerfjax_torch.cli.train, vanilla NeRF (ngp: false, pos_L 10, dir_L 4, hidden 256, 64 + 128 "
+          f"samples, batch 4096, bf16): {out['steps']} steps in {wall:.2f} s wall ({wall / out['steps'] * 1e3:.2f} "
+          f"ms/step with the feed and the checkpoint), PSNR first 20 steps {first:.2f} dB, last 20 {last:.2f} dB; "
+          f"last logged coarse loss {out['metrics']['loss_coarse']:.5f}; peak device memory {peak:.2f} GiB")
+    if not np.isfinite(psnr).all() or not finite:
+        raise AssertionError("vanilla training: a PSNR or a parameter is not finite")
+    if last < first + PSNR_RISE_DB:
+        raise AssertionError(f"vanilla PSNR rose {last - first:.2f} dB, expected >= {PSNR_RISE_DB}")
+    state, rest, med = _warm_steps(cfg, tmp / "rays.npz", 8, 24, "vanilla", batch_size=4096)
+    split = _stage_split(state, rest[:8])
+    phase("vanilla split, ms per step (CUDA events around train_step's calls, 8 steps): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + f"; sum {sum(split.values()):.3f}")
+    busy, traced, idle = _idle_share(state, rest[8:12])
+    phase(f"profiler, 4 warm vanilla steps: device busy {busy:.2f} ms of {traced:.2f} ms traced wall: "
+          f"idle share {idle:.1%}")
+    del state, rest
+
+    final = Path(cfg["checkpoint"])
+    t0 = time.perf_counter()
+    iou = extract_trained(cfg, final, label="vanilla field")
+    t256 = time.perf_counter() - t0
+    res = 512 if 8 * t256 <= VANILLA_EXTRACT_LIMIT_S else 256
+    t0 = time.perf_counter()
+    _run_cli("nerfjax_torch.cli.extract_vol", [*cli_cfg, "--resolution", str(res)], root)
+    t_cli = time.perf_counter() - t0
+    occ = load_volume(cfg["volume_output_path"])["occupancy_volume"]
+    if occ.shape != (res,) * 3 or not 0 < occ.mean() < 1:
+        raise AssertionError(f"vanilla {res}^3 extraction: occupancy {occ.shape}, share {occ.mean():.3f}")
+    phase(f"python -m nerfjax_torch.cli.extract_vol on the vanilla checkpoint at {res}^3 "
+          f"({'512^3: 8x' if res == 512 else '256^3: 512^3 not run, 8x'} the 256^3 wall of {t256:.2f} s against "
+          f"{VANILLA_EXTRACT_LIMIT_S:.0f} s): {t_cli:.2f} s wall, volume.pth read back, occupied {occ.mean():.2%}")
+    said = _run_cli("nerfjax_torch.cli.render", [*cli_cfg, "--frame", "0", "--orbit", "1"], root)
+    pngs = sorted((root / "renders").glob("*.png"))
+    evals = _run_cli("nerfjax_torch.cli.eval_psnr", cli_cfg, root)
+    m = [line for line in evals.splitlines() if line.startswith("mean PSNR")]
+    if len(pngs) != 2 or said.count("wrote") != 2 or not m:
+        raise AssertionError(f"the vanilla render / eval_psnr CLIs: {len(pngs)} PNGs, {m}")
+    phase(f"python -m nerfjax_torch.cli.render and eval_psnr on the vanilla checkpoint: {len(pngs)} PNGs of 64^2; "
+          f"{m[0]} (another scene's frames: the CLIs run, no quality is claimed)")
+
+    # the checkpoint: both MLPs reload equal to train()'s, and a state written again reads back
+    for which in ("coarse", "fine"):
+        got = ckpt.params_to_numpy(ckpt.load_field(final, cfg, "cuda", which).params())
+        for a, b in zip(_param_leaves(got), _param_leaves(out["params"][which])):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"vanilla nerf_final.pth: the {which} MLP reloads other than train() left it")
+    fresh = make_train_state(cfg, TrainSettings.from_cfg(cfg, out["steps"]), seed=SEED + 1, device="cuda")
+    epoch = ckpt.restore_train_state(final, fresh.field, fresh.optimizer, field_coarse=fresh.field_coarse)
+    again = root / "again.pth"
+    ckpt.save_train_state(again, cfg, fresh.field, fresh.optimizer, epoch, field_coarse=fresh.field_coarse)
+    a, b = ckpt.load_pth(final), ckpt.load_pth(again)
+    same = all(np.array_equal(a[k][n], b[k][n]) for k in ("nerf_coarse_state_dict", "nerf_fine_state_dict")
+               for n in a[k])
+    same &= all(np.array_equal(a["optimizer_state_dict"]["state"][i]["exp_avg"],
+                               b["optimizer_state_dict"]["state"][i]["exp_avg"])
+                for i in a["optimizer_state_dict"]["state"])
+    if not same or epoch != 1:
+        raise AssertionError("the vanilla checkpoint, restored into a fresh state and written again, differs")
+    phase(f"vanilla checkpoint: {final.stat().st_size / 2**20:.2f} MiB; both MLPs reload equal to train()'s; "
+          f"restored into a fresh state (epoch {epoch}, {len(a['optimizer_state_dict']['state'])} AdamW leaves) and "
+          f"written again: every state dict and moment equal")
+    return {"ms_per_step": med, "psnr": (first, last), "steps": out["steps"], "wall_s": wall, "peak_gib": peak,
+            "split": split, "idle": idle, "iou": iou, "extract_256_s": t256, "extract_res": res,
+            "extract_cli_s": t_cli}
+
+
+def _param_leaves(tree) -> list:
+    """The arrays of a nested dict/list of params, in order."""
+    if isinstance(tree, dict):
+        return [a for k in tree for a in _param_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [a for v in tree for a in _param_leaves(v)]
+    return [np.asarray(tree)]
 
 
 def _feed_ms(state, data, feed, seed: int) -> float:
@@ -3225,6 +3512,7 @@ def main() -> int:
         k1_shapes["k2_knob_step"] = k2["timings"]["hash_levels_fwd"]
         k1_shapes["fast_step"] = fast["timings"]["hash_levels_fwd"]
         dropin = train_dropin(Path(tmp))
+        vanilla = train_vanilla(Path(tmp))
         passes = dropin.pop("step_inputs")
         # K1, K3 and K2 exact at the drop-in passes; the kernels line carries them beside the tuned step's times
         dropin_timed = {}
@@ -3249,6 +3537,7 @@ def main() -> int:
         tail = tail_on_trained(trained["cfg"], trained["final"], Path(tmp))
         head = precompute_phase(Path(tmp))
         front = front_end_phase(Path(tmp))
+        knn_more = knn_phase()
         evals = {"tuned": eval_render(trained["final"], TUNED_CFG, "tuned", stats, hstats),
                  "drop-in": eval_render(dropin["final"], DROP_IN_TRAIN, "drop-in", stats, hstats)}
         for label in ("tuned", *DENSE_KNOBS, "fast", "fast bf16"):
@@ -3261,9 +3550,17 @@ def main() -> int:
     fs = front["stages"]
     phase(f"front end: resize_images {front['resize_s']:.2f} s; colmap2nerf on {fs['points_read']:,} points "
           f"{fs['wall']:.2f} s (read {fs['read']:.2f}, kNN {fs['knn'] * 1e3:.2f} ms), {fs['points_kept']:,} kept; K6 "
-          f"{front['knn']['ms']:.3f} ms against a bound of {front['knn']['bound'][0]:.3f} (plain "
-          f"{front['knn']['plain_ms']:.1f}); precompute {front['precompute_s']:.2f} s, train {front['train_s']:.2f} s, "
-          f"PSNR last 20 steps {front['psnr_last20']:.2f} dB, IoU {front['iou']:.3f}")
+          f"{front['knn']['ms']:.3f} ms, the brute kernel {front['knn_brute']['ms']:.3f} ms (its recorded time: "
+          f"{KNN_FIRST_DESIGN_MS}), the function's bound {front['knn']['bound'][0] * 1e3:.2f} us, the grid's "
+          f"{front['knn']['pairs']:,} tested pairs' {front['knn']['tested_bound'][0]:.3f} ms (plain "
+          f"{front['knn']['plain_ms']:.1f}); at {KNN_CLUSTERED:,} "
+          f"clustered points {knn_more['clustered']['ms']:.3f} ms, all {FRONT_POINTS + FRONT_OUTLIERS:,} points "
+          f"coincident {knn_more['coincident']['ms']:.3f} ms; precompute {front['precompute_s']:.2f} s, train "
+          f"{front['train_s']:.2f} s, PSNR last 20 steps {front['psnr_last20']:.2f} dB, IoU {front['iou']:.3f}")
+    phase(f"vanilla NeRF: {vanilla['steps']} train() steps, median warm {vanilla['ms_per_step']:.2f} ms/step, PSNR "
+          f"{vanilla['psnr'][0]:.2f} -> {vanilla['psnr'][1]:.2f} dB, peak {vanilla['peak_gib']:.2f} GiB, idle "
+          f"{vanilla['idle']:.1%}; extraction 256^3 {vanilla['extract_256_s']:.2f} s (IoU {vanilla['iou']:.3f}), "
+          f"the extract_vol CLI at {vanilla['extract_res']}^3 {vanilla['extract_cli_s']:.2f} s")
     phase("warm ms/step: tuned " + f"{trained['ms_per_step']:.2f}, "
           + ", ".join(f"{k} {v['ms_per_step']:.2f}" for k, v in knobs.items())
           + f", drop-in {dropin['ms_per_step']:.2f}, fast {fast['ms_per_step']:.2f}, k2 knob {k2['ms_per_step']:.2f}"
@@ -3375,13 +3672,32 @@ def main() -> int:
             t = knobs["dgl1"]["timings"][name]
             kernels[-1].update(dgl1_step_ms=t["ms"], dgl1_step_bound_ms=t["bound"][0],
                                dgl1_step_flushed_ms=t["flushed_timing"]["ms"])
-    t = front["knn"]  # K6 at C3's cloud; launches: C3's colmap2nerf
+    # K6's grid route at C3's cloud, launched by C3's colmap2nerf (every grid kernel's launches beside)
+    t = front["knn"]
+    kernels.append({
+        "name": "knn_grid", "route": "cuda", "source": "nerfjax_torch/csrc/knn.cu",
+        "replaces": "nerfjax/native/knn.cpp:22", "launches": front["launches"]["knn_grid"],
+        "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+        "bound_by": t["bound"][1], "library_ms": None, "n": t["n"], "k": t["k"],
+        "launches_by_kernel": {name: front["launches"][name] for name in KNN_GRID_KERNELS},
+        "pairs": t["pairs"], "pairs_bound_ms": t["tested_bound"][0], "levels": t["levels"], "tail": t["tail"],
+        "split_ms": t["split"],
+    })
+    t = knn_more["clustered"]
+    kernels[-1].update(clustered_n=t["n"], clustered_ms=t["ms"], clustered_plain_ms=t["plain_ms"],
+                       clustered_bound_ms=t["bound"][0], clustered_pairs=t["pairs"],
+                       clustered_pairs_bound_ms=t["tested_bound"][0], clustered_split_ms=t["split"])
+    # the brute kernel (the first design) at C3's cloud; launches: the statistical filter on the coincident cloud
+    t = front["knn_brute"]
     kernels.append({
         "name": "knn_mean_dist", "route": "cuda", "source": "nerfjax_torch/csrc/knn.cu",
-        "replaces": "nerfjax/native/knn.cpp:22", "launches": front["launches"], "max_abs_err": t["max_abs_err"],
-        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
-        "library_ms": None, "n": t["n"], "k": t["k"],
+        "replaces": "nerfjax/native/knn.cpp:22", "launches": knn_more["coincident_launches"]["knn_mean_dist"],
+        "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+        "bound_by": t["bound"][1], "library_ms": None, "n": t["n"], "k": t["k"], "pairs": t["pairs"],
+        "pairs_bound_ms": t["tested_bound"][0],
     })
+    t = knn_more["coincident"]
+    kernels[-1].update(coincident_n=t["n"], coincident_ms=t["ms"], coincident_bound_ms=t["bound"][0])
     for name, line in PROBE_LINES.items():
         t = pstats[name]
         kernels.append({

@@ -1,13 +1,19 @@
-"""NGP checkpoints (counterpart of ``nerfjax/checkpoint.py``: ``_enc_col_perm``
-:114-127, ``ngp_to_state_dict`` :130-148, ``ngp_from_state_dict`` :151-182,
-``params_to_state_dicts`` :190-198, the torch-AdamW-shaped
+"""Checkpoints (counterpart of ``nerfjax/checkpoint.py``:
+``vanilla_to_state_dict`` :55-79, ``vanilla_from_state_dict`` :82-98,
+``_enc_col_perm`` :114-127, ``ngp_to_state_dict`` :130-148,
+``ngp_from_state_dict`` :151-182, ``params_to_state_dicts`` :190-198,
+``params_from_state_dicts`` :201-207, the torch-AdamW-shaped
 ``_optimizer_state_dict`` :211-245, ``save_train_state`` :248-277,
 ``load_occ_grid`` :307-315, ``load_field_params`` :318-329,
 ``latest_checkpoint`` :335-344; its ``_mlp_dims`` :102-111 is
 ``InstantNGP.mlp_dims`` here).
 
-The file format is nerfjax's tcnn-shaped state dict, written with
-``torch.save`` and read with ``torch.load(weights_only=True)``:
+The file format is nerfjax's, written with ``torch.save`` and read with
+``torch.load(weights_only=True)``. Vanilla (two MLPs, coarse and fine):
+the reference's ``nn.Linear`` names, ``pos_layers.{0,2,4,6}``,
+``skip_layers.{0,2,4,6}``, ``density_layer``, ``feature_layer``,
+``color_layer.{0,2}`` (``.weight`` [out, in], ``.bias``), and the
+``pos_encoding``/``dir_encoding`` ``freq_bands``. NGP: the tcnn-shaped state dict:
 ``pos_encoding.params`` is the [total, F] table flattened entry-major,
 ``dmlp.params``/``cmlp.params`` the row-major [out, in] weight matrices
 concatenated, the fan-in of the first density layer in tcnn's level-major
@@ -17,14 +23,14 @@ zip, where nerfjax puts them; ``torch.load`` ignores them.
 
 The optimizer state is written as nerfjax writes its summary: a
 torch-AdamW-shaped dict whose entries follow nerfjax's parameter-leaf order
-(cmlp, dmlp, table) in nerfjax's layouts. The port resumes from it exactly:
+(NGP: cmlp, dmlp, table; vanilla: the coarse MLP's leaves, then the fine
+one's, each in sorted-key order) in nerfjax's layouts. The port resumes from it exactly:
 its AdamW moments are those arrays. nerfjax's own exact resume reads an
 optax side-band record the port does not write; nerfjax resumes a port
 checkpoint's parameters and starts its optimizer afresh.
 
-``params_from_jax`` carries nerfjax's numpy param dict over as tensors,
-``params_to_numpy`` the other way. Vanilla-NeRF checkpoints are not ported
-(ROADMAP Queue 1 item 'vanilla').
+``params_from_jax`` carries nerfjax's numpy param dict of one field over as
+tensors, ``params_to_numpy`` the other way (NGP's or vanilla's layout).
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import numpy as np
 import torch
 
 from nerfjax_torch.fields.ngp import HashGridSpec, InstantNGP
+from nerfjax_torch.fields.vanilla import VanillaNeRF
 from nerfjax_torch.train import build_fields
 
 # -- .pth files ---------------------------------------------------------------
@@ -110,12 +117,29 @@ def _enc_col_perm(spec: HashGridSpec) -> np.ndarray:
     return np.tile(np.arange(F), L) * L + np.repeat(np.arange(L), F)
 
 
+def _is_vanilla(params: Mapping) -> bool:
+    return "pos_layers" in params
+
+
+def _map_vanilla(params: Mapping, fn) -> dict:
+    def lin(layer):
+        return {"w": fn(layer["w"]), "b": fn(layer["b"])}
+
+    return {"pos_layers": [lin(layer) for layer in params["pos_layers"]],
+            "skip_layers": [lin(layer) for layer in params["skip_layers"]],
+            "density": lin(params["density"]), "feature": lin(params["feature"]),
+            "color_layers": [lin(layer) for layer in params["color_layers"]]}
+
+
 def params_from_jax(params: Mapping) -> dict:
-    """nerfjax's {"table", "dmlp": [{"w"}], "cmlp": [...]} (numpy or jax
+    """nerfjax's param dict of one field (NGP: {"table", "dmlp": [{"w"}],
+    "cmlp": [...]}; vanilla: {"pos_layers": [{"w", "b"}], ...}; numpy or jax
     arrays) -> the same dict of float32 CPU tensors."""
     def t(a):
         return torch.from_numpy(np.array(a, dtype=np.float32))
 
+    if _is_vanilla(params):
+        return _map_vanilla(params, t)
     return {
         "table": t(params["table"]),
         "dmlp": [{"w": t(layer["w"])} for layer in params["dmlp"]],
@@ -124,16 +148,65 @@ def params_from_jax(params: Mapping) -> dict:
 
 
 def params_to_numpy(params: Mapping) -> dict:
-    """The port's param dict (``InstantNGP.params()``) -> nerfjax's
-    {"table", "dmlp": [{"w"}], "cmlp": [...]} of float32 numpy arrays."""
+    """The port's param dict of one field (``InstantNGP.params()``,
+    ``VanillaNeRF.params()``) -> nerfjax's layout of float32 numpy arrays."""
     def a(t):
         return np.array(t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t, dtype=np.float32)
 
+    if _is_vanilla(params):
+        return _map_vanilla(params, a)
     return {
         "table": a(params["table"]),
         "dmlp": [{"w": a(layer["w"])} for layer in params["dmlp"]],
         "cmlp": [{"w": a(layer["w"])} for layer in params["cmlp"]],
     }
+
+
+# -- vanilla <-> the reference's nn.Linear names ----------------------------------------
+
+_VANILLA_SEQ = {"pos_layers": (0, 2, 4, 6), "skip_layers": (0, 2, 4, 6)}
+
+
+def vanilla_to_state_dict(model: VanillaNeRF, params: Mapping) -> dict[str, np.ndarray]:
+    params = params_to_numpy(params)
+    sd: dict[str, np.ndarray] = {
+        "pos_encoding.freq_bands": (2.0 ** np.arange(model.pos_L, dtype=np.float32) * np.pi).astype(np.float32),
+        "dir_encoding.freq_bands": (2.0 ** np.arange(model.dir_L, dtype=np.float32) * np.pi).astype(np.float32),
+    }
+    for group, idxs in _VANILLA_SEQ.items():
+        for layer, torch_i in zip(params[group], idxs):
+            sd[f"{group}.{torch_i}.weight"] = layer["w"].T.copy()
+            sd[f"{group}.{torch_i}.bias"] = layer["b"].copy()
+    for name, group in (("density_layer", "density"), ("feature_layer", "feature")):
+        sd[f"{name}.weight"] = params[group]["w"].T.copy()
+        sd[f"{name}.bias"] = params[group]["b"].copy()
+    for layer, torch_i in zip(params["color_layers"], (0, 2)):
+        sd[f"color_layer.{torch_i}.weight"] = layer["w"].T.copy()
+        sd[f"color_layer.{torch_i}.bias"] = layer["b"].copy()
+    return sd
+
+
+def vanilla_from_state_dict(model: VanillaNeRF, sd: Mapping) -> dict:
+    """The reference-named state dict -> the param dict of float32 CPU
+    tensors."""
+    def lin(prefix: str) -> dict:
+        return {"w": torch.from_numpy(np.ascontiguousarray(np.asarray(sd[f"{prefix}.weight"], np.float32).T)),
+                "b": torch.from_numpy(np.array(sd[f"{prefix}.bias"], np.float32))}
+
+    return {
+        "pos_layers": [lin(f"pos_layers.{i}") for i in _VANILLA_SEQ["pos_layers"]],
+        "skip_layers": [lin(f"skip_layers.{i}") for i in _VANILLA_SEQ["skip_layers"]],
+        "density": lin("density_layer"),
+        "feature": lin("feature_layer"),
+        "color_layers": [lin(f"color_layer.{i}") for i in (0, 2)],
+    }
+
+
+def _from_state_dict(field, sd: Mapping) -> dict:
+    return (vanilla_from_state_dict if isinstance(field, VanillaNeRF) else ngp_from_state_dict)(field, sd)
+
+
+# -- NGP <-> tcnn ------------------------------------------------------------------------
 
 
 def ngp_to_state_dict(model: InstantNGP, params: Mapping) -> dict[str, np.ndarray]:
@@ -184,54 +257,74 @@ def ngp_from_state_dict(model: InstantNGP, sd: Mapping) -> dict:
 
 
 def params_to_state_dicts(cfg: Mapping, params: Mapping) -> tuple[dict, dict]:
-    """(coarse, fine) state dicts of {"model": params}: one shared NGP field."""
-    sd = ngp_to_state_dict(build_fields(cfg)[1], params["model"])
-    return sd, sd
+    """(coarse, fine) state dicts of {"model": params} (one shared NGP
+    field) or {"coarse", "fine"} (vanilla's two MLPs)."""
+    fc, ff, shared = build_fields(cfg)
+    if shared:
+        sd = ngp_to_state_dict(ff, params["model"])
+        return sd, sd
+    return vanilla_to_state_dict(fc, params["coarse"]), vanilla_to_state_dict(ff, params["fine"])
 
 
 def save_field_params(path: str | Path, cfg: Mapping, params: Mapping, iteration: int = 0) -> None:
-    """Write an NGP field's param dict as a checkpoint both packages'
+    """Write a field's params as a checkpoint both packages'
     ``load_field_params`` read: the coarse and fine state dicts of
-    ``save_train_state`` (one shared field), without the optimizer state."""
-    coarse, fine = params_to_state_dicts(cfg, {"model": params})
+    ``save_train_state``, without the optimizer state. ``params``: the NGP
+    field's param dict, or vanilla's {"coarse", "fine"}."""
+    shared = build_fields(cfg)[2]
+    coarse, fine = params_to_state_dicts(cfg, {"model": params} if shared else params)
     save_pth({"iteration": int(iteration), "nerf_coarse_state_dict": coarse, "nerf_fine_state_dict": fine}, path)
 
 
 def load_field_params(path: str | Path, cfg: Mapping, which: str = "fine") -> dict:
-    """{"model": params} of the NGP field in a checkpoint (the fine state
-    dict by default, as the extraction reads it)."""
+    """The params of one field in a checkpoint (the fine state dict by
+    default, as the extraction reads it): {"model": params} for NGP,
+    {which: params} for vanilla, as nerfjax returns them."""
     obj = load_pth(path)
     key = f"nerf_{which}_state_dict"
     if key not in obj:
         raise KeyError(f"{key} not found in checkpoint {path}")
-    _, field, _ = build_fields(cfg)
-    return {"model": ngp_from_state_dict(field, obj[key])}
+    fc, ff, shared = build_fields(cfg)
+    if shared:
+        return {"model": ngp_from_state_dict(ff, obj[key])}
+    return {which: vanilla_from_state_dict(ff if which == "fine" else fc, obj[key])}
 
 
-def load_field(path: str | Path, cfg: Mapping, device, which: str = "fine") -> InstantNGP:
-    """The NGP field of a checkpoint on ``device`` (no default: the field's
+def load_field(path: str | Path, cfg: Mapping, device, which: str = "fine"):
+    """One field of a checkpoint on ``device`` (no default: the field's
     device decides where render_image runs), built by ``build_fields(cfg)``
-    (the exact forward) and loaded with its weights."""
-    _, field, _ = build_fields(cfg, device=device)
-    return field.load_params(load_field_params(path, cfg, which)["model"])
+    (the exact forward) and loaded with its weights: the NGP field, or
+    vanilla's ``which`` MLP."""
+    fc, ff, shared = build_fields(cfg, device=device)
+    params = load_field_params(path, cfg, which)
+    if shared:
+        return ff.load_params(params["model"])
+    return (ff if which == "fine" else fc).load_params(params[which])
 
 
 # -- train state ----------------------------------------------------------------
 
 
-def _leaves(field: InstantNGP) -> list[torch.nn.Parameter]:
-    """The field's parameters in nerfjax's pytree-leaf order (sorted keys:
-    cmlp layers, dmlp layers, table) - the order of nerfjax's optimizer
-    summary."""
-    return list(field.cmlp) + list(field.dmlp) + [field.table]
+def _leaves(field, field_coarse=None) -> list[torch.nn.Parameter]:
+    """The trained parameters in nerfjax's pytree-leaf order (sorted keys),
+    the order of nerfjax's optimizer summary. NGP: cmlp layers, dmlp
+    layers, table. Vanilla {"coarse", "fine"}: per MLP, color_layers,
+    density, feature, pos_layers, skip_layers, each layer's b before its w."""
+    if field_coarse is None:
+        return list(field.cmlp) + list(field.dmlp) + [field.table]
+    out = []
+    for f in (field_coarse, field):
+        for layer in (*f.color_layers, f.density, f.feature, *f.pos_layers, *f.skip_layers):
+            out += [layer.b, layer.w]
+    return out
 
 
-def optimizer_state_dict(field: InstantNGP, optimizer: torch.optim.Optimizer, lr: float) -> dict:
+def optimizer_state_dict(field, optimizer: torch.optim.Optimizer, lr: float, field_coarse=None) -> dict:
     """torch-AdamW-shaped summary of the optimizer, laid out as nerfjax's
     ``_optimizer_state_dict`` lays out optax's: state[i] for nerfjax's leaf
     i, with {"step", "exp_avg", "exp_avg_sq"}."""
     state: dict[int, dict] = {}
-    for i, p in enumerate(_leaves(field)):
+    for i, p in enumerate(_leaves(field, field_coarse)):
         s = optimizer.state.get(p)
         if s:
             state[i] = {
@@ -248,16 +341,19 @@ def optimizer_state_dict(field: InstantNGP, optimizer: torch.optim.Optimizer, lr
     }
 
 
-def save_train_state(path: str | Path, cfg: Mapping, field: InstantNGP, optimizer, epoch: int,
-                     occ_grid: torch.Tensor | None = None) -> None:
-    """Epoch checkpoint: the shared field's state dicts, the optimizer
-    summary, and the occupancy grid as the ``occ_grid.npy`` record."""
-    coarse, fine = params_to_state_dicts(cfg, {"model": field.params()})
+def save_train_state(path: str | Path, cfg: Mapping, field, optimizer, epoch: int,
+                     occ_grid: torch.Tensor | None = None, field_coarse=None) -> None:
+    """Epoch checkpoint: the state dicts (the shared NGP field twice, or
+    vanilla's ``field_coarse`` and fine ``field``), the optimizer summary,
+    and the occupancy grid as the ``occ_grid.npy`` record."""
+    params = {"model": field.params()} if field_coarse is None else {"coarse": field_coarse.params(),
+                                                                      "fine": field.params()}
+    coarse, fine = params_to_state_dicts(cfg, params)
     obj = {
         "iteration": int(epoch),
         "nerf_coarse_state_dict": coarse,
         "nerf_fine_state_dict": fine,
-        "optimizer_state_dict": optimizer_state_dict(field, optimizer, float(cfg.get("lr", 5e-4))),
+        "optimizer_state_dict": optimizer_state_dict(field, optimizer, float(cfg.get("lr", 5e-4)), field_coarse),
     }
     extra = {}
     if occ_grid is not None:
@@ -269,17 +365,20 @@ def save_train_state(path: str | Path, cfg: Mapping, field: InstantNGP, optimize
     os.replace(tmp, path)
 
 
-def restore_train_state(path: str | Path, field: InstantNGP, optimizer) -> int:
-    """Load a port checkpoint into ``field`` and ``optimizer`` (AdamW):
-    parameters, moments and step count. Returns the checkpoint's epoch."""
+def restore_train_state(path: str | Path, field, optimizer, field_coarse=None) -> int:
+    """Load a port checkpoint into ``field`` (and vanilla's
+    ``field_coarse``) and ``optimizer`` (AdamW): parameters, moments and
+    step count. Returns the checkpoint's epoch."""
     obj = load_pth(path)
-    field.load_params(ngp_from_state_dict(field, obj["nerf_fine_state_dict"]))
+    field.load_params(_from_state_dict(field, obj["nerf_fine_state_dict"]))
+    if field_coarse is not None:
+        field_coarse.load_params(_from_state_dict(field_coarse, obj["nerf_coarse_state_dict"]))
     saved = obj.get("optimizer_state_dict", {}).get("state", {})
     if saved:
         sd = optimizer.state_dict()
-        index = {id(p): i for i, p in enumerate(field.parameters())}
+        index = {id(p): i for i, p in enumerate(p for group in optimizer.param_groups for p in group["params"])}
         sd["state"] = {}
-        for leaf, p in enumerate(_leaves(field)):
+        for leaf, p in enumerate(_leaves(field, field_coarse)):
             s = saved[leaf]
             sd["state"][index[id(p)]] = {
                 "step": torch.tensor(float(s["step"])),

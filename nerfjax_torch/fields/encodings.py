@@ -1,12 +1,46 @@
-"""Direction encoding (counterpart of ``nerfjax/fields/encodings.py``).
-
-Only the feature-major SH-4 encoding is needed by the extraction path; the
-Fourier encodings belong to the vanilla field, which is not ported yet.
+"""Input encodings (counterpart of ``nerfjax/fields/encodings.py``): the
+Fourier encodings of the vanilla field (:13-50) and the feature-major SH-4
+direction encoding of the NGP field. Elementwise torch; the float32
+frequencies are nerfjax's (2^k * f32(pi), exact scalings of one rounded pi).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+
+def fourier_output_dim(L: int, include_input: bool = True) -> int:
+    return (3 if include_input else 0) + 3 * 2 * L
+
+
+def fourier_encode(x: torch.Tensor, L: int, include_input: bool = True) -> torch.Tensor:
+    """[..., 3] -> [..., fourier_output_dim(L)]: ``[x, sin(x 2^k pi),
+    cos(x 2^k pi)]`` for k < L, each of the sin and cos blocks the flattened
+    [..., 3, L] tensor (nerfjax ``fourier_encode``)."""
+    freq = (2.0 ** torch.arange(L, dtype=x.dtype, device=x.device)) * math.pi
+    xf = x[..., None] * freq
+    parts = [x] if include_input else []
+    parts.append(torch.sin(xf).reshape(*x.shape[:-1], -1))
+    parts.append(torch.cos(xf).reshape(*x.shape[:-1], -1))
+    return torch.cat(parts, dim=-1)
+
+
+def fourier_encode_planar(px: torch.Tensor, py: torch.Tensor, pz: torch.Tensor, L: int,
+                          include_input: bool = True) -> torch.Tensor:
+    """Feature-major Fourier encoding: three [N] components -> [3 + 6L, N],
+    rows in ``fourier_encode``'s column order (x, y, z, then the sin block
+    x f_0..x f_L-1, y f_0.., z f_0.., then the cos block), so both share a
+    first layer's weights (nerfjax ``fourier_encode_planar``)."""
+    comps = [px, py, pz]
+    rows = list(comps) if include_input else []
+    freqs = [float(2.0**k * math.pi) for k in range(L)]
+    for fn in (torch.sin, torch.cos):
+        for c in comps:
+            for f in freqs:
+                rows.append(fn(c * f))
+    return torch.stack(rows, dim=0)
 
 
 def sh4_encode_planar(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:

@@ -113,6 +113,8 @@ def render_rays_planar(
     u_strat: torch.Tensor | None = None,
     u_pdf: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
+    noise_coarse: torch.Tensor | None = None,
+    noise_fine: torch.Tensor | None = None,
 ) -> dict[str, torch.Tensor]:
     """Feature-major render of a ray batch.
 
@@ -127,7 +129,10 @@ def render_rays_planar(
     ``k_pdf`` draw) from its weights without gradient, and the fine field
     runs at all n_samples + n_importance depths sorted. With ``train`` the
     fields run ``apply_planar`` (differentiable), without it
-    ``apply_planar_fused`` (the fused head kernel on a card).
+    ``apply_planar_fused`` (the fused head kernel on a card). A field with
+    train-time sigma noise (vanilla's) gets ``noise_coarse``/``noise_fine``
+    [B * S] on its pass (nerfjax's ``k_noise_c``/``k_noise_f`` draws), or
+    draws from ``generator`` when None.
     """
     B = rays_o.shape[0]
     n_first = n_samples + n_importance if single_pass else n_samples
@@ -138,23 +143,28 @@ def render_rays_planar(
     else:
         z = stratified_z(t_near, t_far, n_first, u_strat)
 
-    def eval_field(field, z):
+    def eval_field(field, z, noise=None):
         S = z.shape[-1]
         pos3 = tuple((rays_o[:, i, None] + rays_d[:, i, None] * z).reshape(-1) for i in range(3))
         view3 = tuple(rays_d[:, i, None].expand(B, S).reshape(-1) for i in range(3))
-        apply = field.apply_planar if train else field.apply_planar_fused
-        rgb, sigma = apply(pos3, view3, dtype=dtype)
+        if not train:
+            rgb, sigma = field.apply_planar_fused(pos3, view3, dtype=dtype)
+        elif getattr(field, "sigma_noise", False):
+            rgb, sigma = field.apply_planar(pos3, view3, dtype=dtype, train=True, noise=noise, generator=generator)
+        else:
+            rgb, sigma = field.apply_planar(pos3, view3, dtype=dtype)
         return rgb.reshape(3, B, S), sigma.reshape(B, S)
 
     if single_pass:
-        rgb_map, weights = raw2outputs_planar(*eval_field(field_fine, z), z, white_bg, dist_last)
+        rgb_map, weights = raw2outputs_planar(*eval_field(field_fine, z, noise_fine), z, white_bg, dist_last)
         return {"rgb_coarse": rgb_map.detach(), "rgb_fine": rgb_map, "weights_coarse": weights.detach(),
                 "weights_fine": weights, "z_vals": z}
 
-    rgb_map_c, weights_c = raw2outputs_planar(*eval_field(field_coarse, z), z, white_bg, dist_last)
+    rgb_map_c, weights_c = raw2outputs_planar(*eval_field(field_coarse, z, noise_coarse), z, white_bg, dist_last)
     z_mid = 0.5 * (z[..., :-1] + z[..., 1:])
     z_imp = sample_pdf(z_mid, weights_c[..., 1:-1].detach(), n_importance, u=u_pdf, generator=generator)
     z_comb = torch.sort(torch.cat([z, z_imp], dim=-1), dim=-1).values
-    rgb_map_f, weights_f = raw2outputs_planar(*eval_field(field_fine, z_comb), z_comb, white_bg, dist_last)
+    rgb_map_f, weights_f = raw2outputs_planar(*eval_field(field_fine, z_comb, noise_fine), z_comb, white_bg,
+                                              dist_last)
     return {"rgb_coarse": rgb_map_c, "rgb_fine": rgb_map_f, "weights_coarse": weights_c,
             "weights_fine": weights_f, "z_vals": z_comb}

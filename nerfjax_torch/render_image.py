@@ -43,7 +43,7 @@ def render_image(
     """Render one [H, W, 3] float32 frame of ``field`` (on its own device)
     from a camera pose; pixels whose rays miss the [-1, 1]^3 cube get the
     background color."""
-    dev = field.table.device
+    dev = next(field.parameters()).device
     rays_o, rays_d = get_rays(H, W, K, torch.as_tensor(np.asarray(c2w, np.float32), device=dev)[None])
     ro, rd = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
     hit, tn, tf = ray_cube_intersection(ro, rd)

@@ -18,11 +18,13 @@ Ported: the single-pass NGP paths (``cfg/blender_scene_tuned.yml``,
 ``cfg/blender_scene_fast.yml``) with every train-only estimator
 (``hash_fwd_corners``, ``hash_grad_corners`` and ``hash_dense_corners`` of
 1..8: k = 1 or leader + residual; ``hash_grad_levels``,
-``hash_dense_grad_levels``), and the coarse->pdf->fine path of the
+``hash_dense_grad_levels``), the coarse->pdf->fine path of the
 reference's configs (``cfg/blender_scene.yml``: ``single_pass: false``,
-with or without the grid, either CDF sampler). Not ported, each raising
-``NotImplementedError``: vanilla NeRF (``ngp: false``) and more than one
-card (``mesh_shape``, ``shard_hash_table``).
+with or without the grid, either CDF sampler), and vanilla NeRF
+(``ngp: false``: two independent MLPs, coarse and fine, with train-time
+sigma noise, on the coarse->pdf->fine path). Not ported, raising
+``NotImplementedError``: more than one card (``mesh_shape``,
+``shard_hash_table``).
 
 Randomness: nerfjax folds the step into its key (``fold_in(key, step)``),
 so a resumed run draws what an uninterrupted one would. The port reseeds
@@ -42,6 +44,7 @@ from typing import Mapping
 import torch
 
 from nerfjax_torch.fields.ngp import NERF_TYPE_LOG2, HashGridSpec, InstantNGP
+from nerfjax_torch.fields.vanilla import VanillaNeRF
 from nerfjax_torch.ops.occupancy import OccupancyGridSpec
 
 
@@ -51,8 +54,9 @@ from nerfjax_torch.ops.occupancy import OccupancyGridSpec
 def build_fields(cfg: Mapping, train: bool = False, device="cpu"):
     """(field_coarse, field_fine, shared) for a config mapping with ``.get``
     (a dict or ``nerfjax_torch.config.ConfigNode``). ``ngp: true`` shares one
-    InstantNGP for both passes. The table is allocated, not initialised:
-    load a checkpoint or call ``init``.
+    InstantNGP for both passes; ``ngp: false`` builds two independent
+    VanillaNeRF MLPs (``pos_L``, ``dir_L``, ``hidden_dim``). The parameters
+    are allocated, not initialised: load a checkpoint or call ``init``.
 
     ``train=True`` applies the train-only estimators of the config
     (``hash_fwd_corners``, ``hash_grad_corners``, ``hash_grad_levels``,
@@ -61,9 +65,12 @@ def build_fields(cfg: Mapping, train: bool = False, device="cpu"):
     exact forward.
     """
     if not cfg.get("ngp", True):
-        raise NotImplementedError(
-            "the vanilla NeRF field (ngp: false) is not ported yet (ROADMAP Queue 1 item 'vanilla')"
-        )
+        dims = {key: int(cfg.get(key, default)) for key, default in (("pos_L", 10), ("dir_L", 4), ("hidden_dim", 256))}
+        coarse, fine = VanillaNeRF(**dims, device=device), VanillaNeRF(**dims, device=device)
+        if train:
+            coarse.requires_grad_(True)
+            fine.requires_grad_(True)
+        return coarse, fine, False
     fwd_corners = int(cfg.get("hash_fwd_corners", 8)) if train else 8
     if not 1 <= fwd_corners <= 8:
         raise ValueError(f"hash_fwd_corners must be in 1..8, got {fwd_corners}")
@@ -249,12 +256,14 @@ def onecycle_lr_host(s: TrainSettings, count: int) -> float:
     return interp(peak, final, (count - b1) / (b2 - b1))
 
 
-def make_optimizer(field: InstantNGP, s: TrainSettings):
-    """(AdamW, LambdaLR): AdamW(betas 0.9/0.999, eps 1e-8, weight decay on
-    every parameter, as optax's adamw) with its learning rate set each step
-    from ``onecycle_lr_host``. Not ``OneCycleLR``: that one cycles beta1,
-    which nerfjax does not."""
-    opt = torch.optim.AdamW(field.parameters(), lr=s.lr, betas=(0.9, 0.999), eps=1e-8,
+def make_optimizer(fields, s: TrainSettings):
+    """(AdamW, LambdaLR) over the parameters of ``fields`` (a field, or a
+    sequence of them: vanilla's coarse and fine MLPs): AdamW(betas
+    0.9/0.999, eps 1e-8, weight decay on every parameter, as optax's adamw)
+    with its learning rate set each step from ``onecycle_lr_host``. Not
+    ``OneCycleLR``: that one cycles beta1, which nerfjax does not."""
+    fields = [fields] if isinstance(fields, torch.nn.Module) else list(fields)
+    opt = torch.optim.AdamW([p for f in fields for p in f.parameters()], lr=s.lr, betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=s.weight_decay)
     sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda count: onecycle_lr_host(s, count) / s.lr)
     return opt, sched
@@ -274,21 +283,25 @@ def clip_by_global_norm_(params, max_norm: float) -> None:
 
 
 def loss_fn(field, batch: Mapping[str, torch.Tensor], settings: TrainSettings, occ_grid, *,
-            u_strat=None, u_pdf=None, generator=None):
+            field_coarse=None, u_strat=None, u_pdf=None, generator=None, noise_coarse=None, noise_fine=None):
     """(total, {loss_coarse, loss_fine, psnr}): MSE of the fine render
     against the batch colors plus, when not single pass, MSE of the coarse
     render, in float32; single pass reports a coarse loss of 0 (nerfjax
-    ``loss_fn``). The one field serves both passes (``ngp: true``)."""
+    ``loss_fn``). ``field`` is the fine field; the coarse pass runs
+    ``field_coarse`` (vanilla's coarse MLP), or ``field`` when None (the
+    shared NGP field). ``noise_*``: vanilla's sigma noise of each pass."""
     from nerfjax_torch.render import render_rays_planar
 
     _check_ported(settings)
     occ = settings.use_occupancy
     out = render_rays_planar(
-        field, field, batch["rays_o"], batch["rays_d"], batch["t_near"], batch["t_far"],
+        field if field_coarse is None else field_coarse, field, batch["rays_o"], batch["rays_d"], batch["t_near"],
+        batch["t_far"],
         settings.n_samples, settings.n_importance, white_bg=settings.white_bg, train=True,
         dist_last=settings.dist_last, dtype=settings.dtype,
         occ_spec=settings.occ_spec() if occ else None, occ_grid=occ_grid if occ else None,
         single_pass=settings.single_pass, u_strat=u_strat, u_pdf=u_pdf, generator=generator,
+        noise_coarse=noise_coarse, noise_fine=noise_fine,
     )
     loss_f = torch.mean((out["rgb_fine"].to(torch.float32) - batch["rgb"]) ** 2)
     if settings.single_pass:
@@ -303,32 +316,53 @@ def loss_fn(field, batch: Mapping[str, torch.Tensor], settings: TrainSettings, o
 
 @dataclasses.dataclass
 class TrainState:
-    """Everything a step changes: the field, AdamW and its schedule, the
-    occupancy grid (None with ``occupancy_grid: false``), the step count,
-    and the generator of the step's draws."""
+    """Everything a step changes: the field (the fine one: the NGP field
+    both passes share, or vanilla's fine MLP), vanilla's coarse MLP
+    (``field_coarse``, None for NGP), AdamW and its schedule, the occupancy
+    grid (None with ``occupancy_grid: false``), the step count, and the
+    generator of the step's draws."""
 
     settings: TrainSettings
-    field: InstantNGP
+    field: InstantNGP | VanillaNeRF
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LRScheduler
     occ_grid: torch.Tensor | None
     generator: torch.Generator
     seed: int = 0
     step: int = 0
+    field_coarse: VanillaNeRF | None = None
+
+    def fields(self) -> list:
+        """The trained fields: [field], or vanilla's [coarse, fine]."""
+        return [self.field] if self.field_coarse is None else [self.field_coarse, self.field]
+
+    def params(self) -> dict:
+        """nerfjax's layout as numpy: the NGP field's param dict, or
+        vanilla's {"coarse", "fine"}."""
+        from nerfjax_torch.checkpoint import params_to_numpy
+
+        if self.field_coarse is None:
+            return params_to_numpy(self.field.params())
+        return {"coarse": params_to_numpy(self.field_coarse.params()), "fine": params_to_numpy(self.field.params())}
 
 
 def make_train_state(cfg: Mapping, settings: TrainSettings, *, seed: int = 0, device="cuda") -> TrainState:
-    """A fresh state: field with tcnn's init from ``seed``, AdamW at step 0,
-    the all-ones occupancy grid (none with the grid off)."""
+    """A fresh state: the fields initialised from ``seed`` (NGP: tcnn's
+    init; vanilla: the coarse MLP, then the fine one, from one generator),
+    AdamW at step 0, the all-ones occupancy grid (none with the grid off)."""
     from nerfjax_torch.ops.occupancy import init_grid
 
     _check_ported(settings)
     dev = torch.device(device)
-    _, field, _ = build_fields(cfg, train=True, device=dev)
-    field.init(torch.Generator().manual_seed(seed))
-    opt, sched = make_optimizer(field, settings)
+    coarse, field, shared = build_fields(cfg, train=True, device=dev)
+    gen = torch.Generator().manual_seed(seed)
+    fields = [field] if shared else [coarse, field]
+    for f in fields:
+        f.init(gen)
+    opt, sched = make_optimizer(fields, settings)
     grid = init_grid(settings.occ_spec(), dev) if settings.use_occupancy else None
-    return TrainState(settings, field, opt, sched, grid, torch.Generator(device=dev), seed=seed)
+    return TrainState(settings, field, opt, sched, grid, torch.Generator(device=dev), seed=seed,
+                      field_coarse=None if shared else coarse)
 
 
 def update_occupancy(state: TrainState, *, jitter=None) -> None:
@@ -347,21 +381,22 @@ def update_occupancy(state: TrainState, *, jitter=None) -> None:
 
 
 def train_step(state: TrainState, batch: Mapping[str, torch.Tensor], *, u_strat=None, u_pdf=None,
-               occ_jitter=None) -> dict:
+               occ_jitter=None, noise_coarse=None, noise_fine=None) -> dict:
     """One step on a batch of tensors on the field's device: occupancy
     update (every update_every steps, with the grid on), render, loss,
-    backward, AdamW. ``u_strat``/``u_pdf`` (the render's) and
-    ``occ_jitter`` override the generator's draws (the parity tests pass
-    nerfjax's). Returns the step's metrics as 0-d tensors (no host sync)."""
+    backward, AdamW. ``u_strat``/``u_pdf`` (the render's), ``occ_jitter``
+    and vanilla's sigma noise ``noise_coarse``/``noise_fine`` override the
+    generator's draws (the parity tests pass nerfjax's). Returns the step's
+    metrics as 0-d tensors (no host sync)."""
     s = state.settings
     state.generator.manual_seed(state.seed * 1_000_003 + state.step)
     update_occupancy(state, jitter=occ_jitter)
-    total, aux = loss_fn(state.field, batch, s, state.occ_grid, u_strat=u_strat, u_pdf=u_pdf,
-                         generator=state.generator)
+    total, aux = loss_fn(state.field, batch, s, state.occ_grid, field_coarse=state.field_coarse, u_strat=u_strat,
+                         u_pdf=u_pdf, generator=state.generator, noise_coarse=noise_coarse, noise_fine=noise_fine)
     state.optimizer.zero_grad(set_to_none=True)
     total.backward()
     if s.grad_clip is not None:
-        clip_by_global_norm_(state.field.parameters(), float(s.grad_clip))
+        clip_by_global_norm_([p for f in state.fields() for p in f.parameters()], float(s.grad_clip))
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1
@@ -375,7 +410,7 @@ def restore(state: TrainState, path, steps_per_epoch: int) -> int:
     epoch."""
     from nerfjax_torch import checkpoint as ckpt
 
-    epoch = ckpt.restore_train_state(path, state.field, state.optimizer)
+    epoch = ckpt.restore_train_state(path, state.field, state.optimizer, field_coarse=state.field_coarse)
     state.step = epoch * steps_per_epoch
     state.scheduler.last_epoch = state.step
     for group in state.optimizer.param_groups:
@@ -400,7 +435,8 @@ def train(
     device="cuda",
 ) -> dict:
     """Full training run (nerfjax ``train``): returns {"params" (nerfjax
-    layout, numpy), "metrics" (the last logged), "psnr" (every step's),
+    layout, numpy: ``TrainState.params``), "metrics" (the last logged),
+    "psnr" (every step's),
     "total_time", "rays_per_sec", "steps"}. Writes TensorBoard scalars
     under ``output_dir/logs``, ``nerf_epoch_{E:06d}.pth`` every second
     epoch and ``nerf_final.pth`` under ``checkpoint_dir``."""
@@ -428,7 +464,7 @@ def train(
         if latest is not None:
             start_epoch = restore(state, latest, steps_per_epoch) + 1
             print(f"Resumed from {latest} at epoch {start_epoch - 1}")
-    n_params = sum(p.numel() for p in state.field.parameters())
+    n_params = sum(p.numel() for f in state.fields() for p in f.parameters())
     print(f"NERF: {n_params * 1e-6:.3f}M")
     print(f"Device: {dev}" + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else ""))
     print(f"White background: {settings.white_bg}")
@@ -472,21 +508,23 @@ def train(
                     })
             if epoch % 2 == 0:
                 path = checkpoint_dir / f"nerf_epoch_{epoch:06d}.pth"
-                ckpt.save_train_state(path, cfg, state.field, state.optimizer, epoch, occ_grid=state.occ_grid)
+                ckpt.save_train_state(path, cfg, state.field, state.optimizer, epoch, occ_grid=state.occ_grid,
+                                      field_coarse=state.field_coarse)
                 print(f"Saved checkpoint to {path}")
     if profile_dir:
         Path(profile_dir).mkdir(parents=True, exist_ok=True)
         profiler.export_chrome_trace(str(Path(profile_dir) / "trace.json"))
 
     final_path = checkpoint_dir / "nerf_final.pth"
-    ckpt.save_train_state(final_path, cfg, state.field, state.optimizer, num_epochs, occ_grid=state.occ_grid)
+    ckpt.save_train_state(final_path, cfg, state.field, state.optimizer, num_epochs, occ_grid=state.occ_grid,
+                          field_coarse=state.field_coarse)
     total_time = time.time() - start_time
     print(f"Saved final models to {final_path}")
     print(f"Training completed in {total_time:.2f}s")
     print("Training completed.")
     logger.close()
     return {
-        "params": ckpt.params_to_numpy(state.field.params()),
+        "params": state.params(),
         "metrics": metrics_host,
         "psnr": torch.stack(psnr_steps).tolist() if psnr_steps else [],
         "total_time": total_time,

@@ -37,6 +37,7 @@ from nerfjax_torch.gui import viewers
 from nerfjax_torch.utils import images
 from tests.test_colmap import _make_colmap_scene
 from tests.test_colmap_adversarial import _make_adversarial_scene
+from tests.test_torch_native_ref import nerfjax_native
 
 SCENES = {"ring": _make_colmap_scene, "adversarial": lambda tmp: _make_adversarial_scene(tmp)[:2]}
 METHODS = [None, "adaptive", "percentile", "statistical", "hybrid"]
@@ -55,6 +56,12 @@ CAMERA_LINES = [
 
 def _port_cfg(jcfg) -> ConfigNode:
     return with_defaults(ConfigNode(jcfg.to_dict()))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _nerfjax_native_loaded():
+    """nerfjax's statistical filter below takes its native kNN."""
+    nerfjax_native()
 
 
 def _scene(name: str, tmp_path: Path):
@@ -76,7 +83,7 @@ def _dicts_equal(a, b) -> bool:
 def test_nerfjax_kNN_is_native():
     """Every comparison of the statistical filter below is with nerfjax's
     native C++ path (the one it runs wherever g++ exists)."""
-    assert native.load() is not None
+    assert nerfjax_native() is not None and native.load() is not None
 
 
 # -- quaternion -----------------------------------------------------------------

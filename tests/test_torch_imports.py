@@ -66,8 +66,9 @@ def test_every_port_module_imports_without_nerfjax_and_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     mods = out.stdout.split()
-    assert len(mods) >= 39
+    assert len(mods) >= 40
     for name in ("render", "render_image", "rays", "probes", "cli.render", "cli.eval_psnr", "postprocess",
+                 "fields.encodings", "fields.vanilla",
                  "formats.tiff", "formats.vti", "cli.post_process_vol", "cli.write_format", "utils", "utils.images",
                  "cli.resize_images", "colmap", "colmap.quaternion", "colmap.model_io", "ops.knn", "colmap.outliers",
                  "colmap.normalize", "colmap.convert", "colmap.transform", "colmap.driver", "cli.colmap2nerf",

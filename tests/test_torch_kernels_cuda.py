@@ -1146,6 +1146,11 @@ from nerfjax_torch.colmap import outliers  # noqa: E402
 from nerfjax_torch.ops import knn  # noqa: E402
 
 
+GRID_KERNELS = {"knn_bin", "knn_scatter", "knn_mark", "knn_grid", "knn_tail"}
+KNN_SUBSET_ABOVE = 200_000  # above this many points the plain version runs on KNN_SUBSET seeded queries
+KNN_SUBSET = 4_096
+
+
 def _knn_cloud(n: int, kind: str, seed: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     pts = rng.normal(size=(n, 3)).astype(np.float32)
@@ -1154,23 +1159,129 @@ def _knn_cloud(n: int, kind: str, seed: int) -> np.ndarray:
         pts[3] = pts[0]
     elif kind == "equal":
         pts[:] = np.float32([0.25, -1.5, 3.0])
+    elif kind == "one_cell":  # three quarters of the points in one place: no cell size splits them
+        pts[: 3 * n // 4] = pts[0]
+    elif kind == "clustered":
+        from chip_smoke import clustered_cloud
+
+        pts = clustered_cloud(n, seed)[0]
     return pts
 
 
-@pytest.mark.parametrize("kind", ["normal", "duplicates", "equal"])
+def _knn_checked(pts: torch.Tensor, k: int, **kw) -> torch.Tensor:
+    """K6 once, with the launches of its route checked, held
+    against the plain version with torch.equal (above KNN_SUBSET_ABOVE
+    points on KNN_SUBSET seeded queries)."""
+    n = pts.shape[0]
+    before = dict(knn.launch_counts)
+    got = knn.knn_mean_distances(pts, k, **kw)
+    torch.cuda.synchronize()
+    launched = {name: v - before[name] for name, v in knn.launch_counts.items() if v != before[name]}
+    route = knn.last_run["route"]
+    # knn_bin also counts the plan's bins (one a cell side it tries, whichever route it then takes) and
+    # one a grid level; knn_scatter, knn_mark and knn_grid one a level
+    bins = launched.pop("knn_bin", 0)
+    if route == "grid":
+        levels = knn.last_run["levels"]
+        assert 1 <= levels <= knn.LEVELS and bins >= levels
+        assert launched == {"knn_scatter": levels, "knn_mark": levels, "knn_grid": levels, "knn_tail": 1}, launched
+    else:
+        assert launched == {"knn_mean_dist": 1}, launched
+    if n > KNN_SUBSET_ABOVE:
+        q = torch.from_numpy(np.random.default_rng(n + k).choice(n, KNN_SUBSET, replace=False)).to(pts.device)
+        assert torch.equal(got[q], knn.knn_mean_distances_plain(pts, k, queries=q))
+    else:
+        assert torch.equal(got, knn.knn_mean_distances_plain(pts, k))
+    return got
+
+
+@pytest.mark.parametrize("kind", ["normal", "duplicates", "equal", "one_cell", "clustered"])
 @pytest.mark.parametrize("k", [1, 20, 64, 256])
-@pytest.mark.parametrize("n", [2, 21, 1_000, 100_003])
+@pytest.mark.parametrize("n", [2, 21, 1_000, 100_003, 1_200_000])
 def test_knn_kernel_equals_plain(cuda_device, n, k, kind):
     """K6 against its plain version on the card, bit for bit (torch.equal):
-    k >= n is clamped to n - 1; duplicates count at distance 0."""
+    k >= n is clamped to n - 1; duplicates count at distance 0. Clouds of
+    4,096 points or more take the grid unless no cell size splits them
+    (all points equal, or three quarters in one place: the brute kernel);
+    the clustered cloud is chip_smoke.py's, with its planted outliers."""
     pts = torch.from_numpy(_knn_cloud(n, kind, seed=n + k)).to(cuda_device)
-    before = knn.launch_counts["knn_mean_dist"]
-    got = knn.knn_mean_distances(pts, k)
-    torch.cuda.synchronize()
-    assert knn.launch_counts["knn_mean_dist"] == before + 1
-    assert torch.equal(got, knn.knn_mean_distances_plain(pts, k))
+    got = _knn_checked(pts, k)
+    grid = n >= knn.GRID_MIN_POINTS and kind not in ("equal", "one_cell")
+    assert knn.last_run["route"] == ("grid" if grid else "brute")
     if kind == "equal":
         assert not got.any()
+
+
+def _sphere(n: int, n_out: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n + n_out, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (d * np.concatenate([np.full(n, 0.5), rng.uniform(2.5, 25.0, n_out)])[:, None]).astype(np.float32)
+
+
+@pytest.mark.parametrize("tail_pairs", ["default", 0])
+@pytest.mark.parametrize("k", [1, 20])
+@pytest.mark.parametrize("cloud", ["normal", "sphere", "clustered"])
+def test_knn_grid_counts_the_plain_grids_pairs(cuda_device, cloud, k, tail_pairs, monkeypatch):
+    """The grid kernels test exactly the pairs of knn_grid_plain (the plan
+    in torch, run on the CPU at the same plan) and send the same queries
+    to the tail; both equal the brute-force plain version. TAIL_PAIRS at 0
+    sends every open query on through the coarser levels."""
+    if tail_pairs != "default":
+        monkeypatch.setattr(knn, "TAIL_PAIRS", tail_pairs)
+    n = 3_000
+    pts = {"normal": lambda: _knn_cloud(n, "normal", 7), "sphere": lambda: _sphere(n - 30, 30, 7),
+           "clustered": lambda: _knn_cloud(n, "clustered", 7)}[cloud]()
+    pts = torch.from_numpy(pts).to(cuda_device)
+    plan = knn.knn_plan(pts, k, route="grid")
+    got = _knn_checked(pts, k, plan=plan)
+    want, pairs, tails = knn.knn_grid_plain(pts.cpu(), k, plan)
+    assert torch.equal(got.cpu(), want)
+    assert int(knn.last_run["pairs"]) == pairs and int(knn.last_run["tail"]) == tails
+    if cloud == "sphere" and tail_pairs == "default":
+        assert tails >= 30  # the isolated points finish in the tail
+
+
+@pytest.mark.parametrize("k", [1, 20, 64])
+@pytest.mark.parametrize("cloud", ["lattice", "faces"])
+def test_knn_grid_on_cell_boundaries(cuda_device, cloud, k):
+    """Points exactly on cell faces: a lattice whose spacing is the cell
+    side (every point on three faces, up to the float64 binning), and
+    points snapped to the faces' coordinates and moved by one float32 ulp
+    either way."""
+    h = 0.125
+    if cloud == "lattice":
+        g = np.arange(20, dtype=np.float32) * np.float32(h) + np.float32(-1.0)
+        pts = np.stack(np.meshgrid(g, g, g, indexing="ij"), axis=-1).reshape(-1, 3)
+    else:
+        rng = np.random.default_rng(k)
+        pts = (np.round(rng.uniform(-1.0, 1.0, (12_000, 3)) / h) * h).astype(np.float32)
+        pts = np.nextafter(pts, pts + rng.choice([-1.0, 0.0, 1.0], pts.shape).astype(np.float32))
+        pts[0] = -1.0  # the origin on a face
+    pts = torch.from_numpy(pts).to(cuda_device)
+    plan = knn.knn_plan(pts, k, route="grid", h=h)
+    assert plan.h == h
+    _knn_checked(pts, k, plan=plan)
+
+
+@pytest.mark.parametrize("k", [1, 20, 256])
+def test_knn_tail_takes_every_open_query(cuda_device, k, monkeypatch):
+    """One level at r_max = 0: every query whose own cell does not settle
+    it goes to the tail kernel, one warp each."""
+    pts = torch.from_numpy(_knn_cloud(20_000, "clustered", 3)).to(cuda_device)
+    plan = knn.knn_plan(pts, k, route="grid")
+    monkeypatch.setattr(knn, "R_MAX", 0)
+    monkeypatch.setattr(knn, "LEVELS", 1)
+    _knn_checked(pts, k, plan=plan)
+    assert int(knn.last_run["tail"]) > 1_000
+
+
+def test_knn_grid_forced_on_one_cell(cuda_device):
+    """The grid on a cloud it cannot split (three quarters in one cell)
+    is slow but exact."""
+    pts = torch.from_numpy(_knn_cloud(20_000, "one_cell", 5)).to(cuda_device)
+    assert knn.knn_plan(pts, 20).route == "brute"
+    _knn_checked(pts, 20, plan=knn.knn_plan(pts, 20, route="grid"))
 
 
 @pytest.mark.parametrize("k", [3, 20])

@@ -28,14 +28,21 @@ from nerfjax_torch import postprocess as pp
 from nerfjax_torch.config import ConfigNode
 from nerfjax_torch.extract import save_volume
 from nerfjax_torch.formats import tiff, vti
+from tests.test_torch_native_ref import nerfjax_native
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = ["napari/volume_sliced_binary.tif", "napari/volume_sliced_rgb.tif", "paraview/volume_sliced_binary.tiff",
          "paraview/volume_sliced_rgb.tiff", "vti/volume_sliced_binary.vti", "vti/volume_sliced_rgb.vti"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _nerfjax_native_loaded():
+    """nerfjax's voxelizer below takes its native path."""
+    nerfjax_native()
+
+
 def _nerfjax_voxelizes_natively() -> bool:
-    return native.load() is not None
+    return nerfjax_native() is not None and native.load() is not None
 
 
 def _scene(tmp_path: Path, res: int = 32, seed: int = 0) -> dict:

@@ -98,8 +98,11 @@ def test_default_device_needs_a_card(tmp_path, monkeypatch):
         train(_cfg(tmp_path))
 
 
-@pytest.mark.parametrize("over", [{"shard_hash_table": True},
-                                  {"ngp": False, "single_pass": False}, {"mesh_shape": [1, 1]}])
-def test_unported_options_raise(tmp_path, over):
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("over, error", [({"shard_hash_table": True}, NotImplementedError),
+                                         ({"ngp": False, "single_pass": True}, ValueError),
+                                         ({"mesh_shape": [1, 1]}, NotImplementedError)])
+def test_unported_options_raise(tmp_path, over, error):
+    """More than one card is not ported; vanilla NeRF is, and like nerfjax
+    it refuses single_pass: true."""
+    with pytest.raises(error):
         train(_cfg(tmp_path, **over), device="cpu")
