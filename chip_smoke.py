@@ -277,6 +277,36 @@ and its kernel, K6 (the statistical outlier filter's kNN, csrc/knn.cu):
      inliers >= 0.5, the PSNR of the last 20 steps. The CLIs run in this
      process (runpy), so K6's launches are counted around C3's run.
 
+Added for the GUI's launcher and several processes (both after every
+timed phase: once other processes have used the card, this process's
+profiler traces dropped or gained device events for a while):
+
+  L (the launcher, launcher_phase): a scene config from
+     nerfjax_torch.gui.logic.generate_config_dict (20 of H's frames, C's
+     COLMAP text model with those images, 256^3) plus TUNED_TRAIN and one
+     epoch, as JSON; build_pipeline_commands with every step but "Run
+     COLMAP" (no binary here) through the launcher's own loop
+     (logic.run_commands): eight CLIs as subprocesses on the card, their
+     output streamed, each must exit 0; both volumes through
+     load_volume_any, the AABB band, the IoU with the ball fitted to the
+     recentered model's inliers (>= 0.5); each step's seconds. Alone:
+     python3 chip_smoke.py --only launcher;
+  D (after L, multi_phase; children are this script with --child, started
+     after the build) D1: one child, TUNED_TRAIN at full width for 16
+     steps twice without a process group (the card's run-to-run
+     difference: float atomics), then under NCCL at a world of one
+     (NERFJAX_DISTRIBUTED=1, WORLD_SIZE=1) with shard_hash_table off and
+     on, each step's PSNR within the bf16 step bound of the first run's
+     (its parameters torch.equal where two runs alone are); the 256^3
+     extraction with and without the group, torch.equal; the table modes
+     on equal gradients (_lockstep), torch.equal. D2: two ranks over gloo
+     on the card (global batch 8192, 16 steps): the lockstep check,
+     train() with shard_hash_table off and on, K1-K5 launched on each rank,
+     peak memory and the table's AdamW bytes per rank (the sharded half
+     the replicated). D3: D2's checkpoint extracted at 256^3 over the two
+     ranks, torch.equal to one rank. Alone: python3 chip_smoke.py --only
+     multi.
+
 The last two lines are a JSON object with each kernel's launches (summed
 over the main paths: the 512^3 extraction, the tuned, drop-in and fast
 train() runs, the k2 knob steps, the eval renders, the probe entry point),
@@ -2777,6 +2807,7 @@ def front_end_phase(tmp: Path) -> dict:
     out["iou"] = extract_trained(cfg, Path(cfg["checkpoint_dir"]) / "nerf_final.pth", center, radius,
                                  label=f"front end C6: the field trained on C3's scene (ball fitted to the normalized "
                                        f"inliers: center {np.round(center, 4).tolist()}, radius {radius:.4f})")
+    out["colmap_text"], out["planted"] = colmap_dir / "colmap_text", planted  # phase L starts from them
     return out
 
 
@@ -3452,12 +3483,453 @@ def render_card_vs_cpu(final: Path) -> None:
           f"{_psnr(imgs[0], _ball_image(K, c2w, H, W)):.2f} dB")
 
 
+# -- phase L: the launcher -------------------------------------------------------------------------
+
+
+def _ball_iou(occ: np.ndarray, center, radius: float) -> float:
+    res = occ.shape[0]
+    c = -1.0 + np.arange(res) * (2.0 / (res - 1))
+    X, Y, Z = np.meshgrid(c, c, c, indexing="ij")
+    ball = (X - center[0]) ** 2 + (Y - center[1]) ** 2 + (Z - center[2]) ** 2 <= radius**2
+    occ = occ.astype(bool)
+    return float((occ & ball).sum() / max((occ | ball).sum(), 1))
+
+
+def _launcher_outputs(out_dir: Path, transforms: Path):
+    """Both volumes of the launcher's run through load_volume_any, checked:
+    volume.pth's points finite with colours in [0, 1]; volume_sliced.pth
+    exactly its points inside the scene AABB of the transforms JSON
+    (aabb_band_from_transforms), with that AABB as its aabb_meta; the
+    viewer's band (clip_aabb_band, slice_z) leaves some. Returns (points,
+    colours, band, sliced points, sliced colours, sliced points in the
+    band)."""
+    from nerfjax_torch.gui.logic import aabb_band_from_transforms, clip_aabb_band, load_volume_any, slice_z
+
+    pts, rgbs, meta = load_volume_any(out_dir / "volume.pth")
+    spts, srgbs, aabb = load_volume_any(out_dir / "volume_sliced.pth")
+    band = aabb_band_from_transforms(transforms)
+    lo, hi = np.asarray(band["aabb_min"], np.float32), np.asarray(band["aabb_max"], np.float32)
+    inside = np.all((pts >= lo) & (pts <= hi), axis=1)
+    clipped, _ = clip_aabb_band(pts, rgbs, band)
+    zs, _ = slice_z(spts, srgbs, band["aabb_remove_below"], band["aabb_remove_above"])
+    if meta is not None or not len(pts) or not np.isfinite(pts).all() or not np.isfinite(rgbs).all() \
+            or rgbs.min() < 0.0 or rgbs.max() > 1.0 or srgbs.max() > 1.0:
+        raise AssertionError(f"volume.pth: {len(pts):,} points, meta {meta}")
+    if aabb is None or not (np.allclose(aabb["aabb_min"], lo) and np.allclose(aabb["aabb_max"], hi)):
+        raise AssertionError(f"volume_sliced.pth's aabb_meta {aabb} is not the transforms JSON's {band}")
+    if not np.array_equal(spts, pts[inside]) or not len(spts) or not len(clipped) or not len(zs):
+        raise AssertionError(f"volume_sliced.pth holds {len(spts):,} points; volume.pth {int(inside.sum()):,} in "
+                             f"the scene AABB {band}, {len(clipped):,} in its band")
+    return pts, rgbs, band, spts, srgbs, zs
+
+
+LAUNCHER_FRAMES = range(0, PRECOMPUTE_FRAMES, 3)  # phase L's cut: 20 of H's 60 frames (all 60: 146 s on a slow host)
+
+
+def launcher_phase(tmp: Path, colmap_text: Path, planted: np.ndarray) -> dict:
+    """Phase L: the GUI's launcher on the card. A scene config from
+    nerfjax_torch.gui.logic.generate_config_dict (LAUNCHER_FRAMES of phase
+    H's 800^2 frames resized to FRONT_SIZE^2, a copy of phase C's COLMAP
+    text model with those images, 256^3 volume) plus TUNED_TRAIN and one
+    epoch, written as JSON; every pipeline
+    step but "Run COLMAP" (no COLMAP binary here) through
+    build_pipeline_commands and the launcher's own loop (logic.run_commands:
+    each CLI a subprocess, on the card by default, its output streamed);
+    every step must exit 0. Then both volume files through load_volume_any,
+    the AABB band from the transforms JSON (aabb_band_from_transforms,
+    clip_aabb_band, slice_z), and the volume's IoU with the ball fitted to
+    the normalized inliers of the recentered model (>= 0.5). Returns each
+    step's seconds and the IoU."""
+    import os
+
+    from nerfjax_torch.colmap import colmap_to_nerf
+    from nerfjax_torch.config import ConfigNode, with_defaults
+    from nerfjax_torch.gui.logic import PIPELINE_STEPS, build_pipeline_commands, generate_config_dict, run_commands
+
+    work = tmp / "launcher"
+    (work / "colmap" / "colmap_text").mkdir(parents=True)
+    (work / "photos").mkdir()
+    names = {f"r_{i}.png" for i in LAUNCHER_FRAMES}
+    for name in names:
+        (work / "photos" / name).symlink_to(tmp / "scene" / name)
+    for name in ("cameras.txt", "points3D.txt"):
+        (work / "colmap" / "colmap_text" / name).write_bytes((colmap_text / name).read_bytes())
+    lines = (colmap_text / "images.txt").read_text().splitlines()  # a comment, then two lines an image
+    kept = [line for pair in zip(lines[1::2], lines[2::2]) if pair[0].split()[-1] in names for line in pair]
+    (work / "colmap" / "colmap_text" / "images.txt").write_text("\n".join(lines[:1] + kept) + "\n")
+    values = {"scene_name": "ball", "image_dir": str(work / "photos"), "tmp_image_dir": str(work / "colmap" / "images"),
+              "resize_images": True, "newSize": [FRONT_SIZE, FRONT_SIZE], "colmap_dir": str(work / "colmap"),
+              "volume_resolution": 256}
+    cfg = {**generate_config_dict(values), **TUNED_TRAIN, "num_epochs": 1}
+    cfg_path = work / "ball.json"
+    cfg_path.write_text(json.dumps(cfg, indent=1))
+    selected = [label != "Run COLMAP" for label, _ in PIPELINE_STEPS]
+    cmds = build_pipeline_commands(str(cfg_path), selected)
+    labels = [label for label, _ in PIPELINE_STEPS if label != "Run COLMAP"]
+    starts: list[float] = []
+
+    def log(line: str) -> None:
+        if line.startswith("$ "):
+            starts.append(time.perf_counter())
+        print(f"  [launcher] {line}", flush=True)
+
+    env_path = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = str(HERE) + (os.pathsep + env_path if env_path else "")
+    try:
+        with contextlib.chdir(work):  # the CLIs' relative paths (transforms JSON, NPZ, outputs) land here
+            ok = run_commands(cmds, log)
+    finally:
+        if env_path is None:
+            del os.environ["PYTHONPATH"]
+        else:
+            os.environ["PYTHONPATH"] = env_path
+    end = time.perf_counter()
+    if not ok:
+        raise AssertionError(f"the launcher stopped at step {len(starts)} ({labels[len(starts) - 1]}): see its log")
+    seconds = {label: b - a for label, a, b in zip(labels, starts, starts[1:] + [end])}
+    out_dir = work / "outputs" / "ball"
+    pts, rgbs, band, spts, srgbs, zs = _launcher_outputs(out_dir, work / "transforms_ball.json")
+    from nerfjax_torch.extract import load_volume
+
+    occ = load_volume(out_dir / "volume.pth")["occupancy_volume"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        norm = colmap_to_nerf(with_defaults(ConfigNode(cfg)), device="cuda", verbose=False)["points"]
+    inl = norm[~planted]
+    center = inl.mean(axis=0)
+    radius = float(np.linalg.norm(inl - center, axis=1).mean())
+    iou = _ball_iou(occ, center, radius)
+    phase(f"launcher L: {len(cmds)} steps through logic.run_commands, each exit 0; seconds: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()) + f"; volume.pth {len(pts):,} points, "
+          f"volume_sliced.pth {len(spts):,} (the scene AABB's), {len(zs):,} of them in the AABB band "
+          f"[{band['aabb_remove_below']:.3f}, {band['aabb_remove_above']:.3f}]; IoU with the ball fitted to the recentered model's inliers (center "
+          f"{np.round(center, 4).tolist()}, radius {radius:.4f}) {iou:.3f}")
+    if iou < 0.5:
+        raise AssertionError(f"launcher L: IoU with the ball {iou:.3f} < 0.5")
+    return {"seconds": seconds, "iou": iou, "total_s": end - starts[0]}
+
+
+# -- phase D: several processes on the one card -----------------------------------------------------
+
+D_STEPS = 16  # train() steps of D1 and D2 (one epoch of 8192-ray batches)
+D_RES = 256
+D_CHILD_TIMEOUT_S = 300
+D_RTOL = 2e-2  # the bf16 step bound (tests/test_torch_train_step.py)
+D_TIMING = ("query_seconds", "transfer_seconds", "phase_seconds", "timestamp", "device")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _children(job: str, world: int, work: Path, env_for) -> list[str]:
+    """``world`` processes of ``python3 chip_smoke.py --child job --work
+    work`` (after the build: they load its libraries), each with the
+    environment env_for(rank, port) adds; their output in work/job_<r>.log.
+    On a failure or after D_CHILD_TIMEOUT_S the rest are killed and the
+    phase fails with every child's output."""
+    import os
+
+    port, procs, logs = _free_port(), [], [work / f"{job}_{r}.log" for r in range(world)]
+    joined = ("NERFJAX_COORDINATOR", "NERFJAX_NUM_PROCESSES", "NERFJAX_PROCESS_ID", "NERFJAX_DISTRIBUTED", "RANK",
+              "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+    for r in range(world):
+        env = {k: v for k, v in os.environ.items() if k not in joined}
+        env.update(env_for(r, port))
+        procs.append(subprocess.Popen([sys.executable, str(HERE / "chip_smoke.py"), "--child", job, "--work", str(work)],
+                                      env=env, stdout=logs[r].open("w"), stderr=subprocess.STDOUT, cwd=HERE))
+    deadline = time.monotonic() + D_CHILD_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            p.wait()
+    outs = [log.read_text() for log in logs]
+    for r, text in enumerate(outs):
+        for line in text.splitlines():
+            if line.startswith("[chip_smoke]"):
+                print(f"  [{job} rank {r}] {line[len('[chip_smoke] '):]}")
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"{job}: rank(s) {bad} exited {[procs[r].returncode for r in bad]}\n" + "\n".join(
+            f"--- rank {r} ---\n{text[-4000:]}" for r, text in enumerate(outs)))
+    return outs
+
+
+def _flat_params(p: dict) -> dict:
+    return {"table": np.asarray(p["table"]),
+            **{f"{n}{i}": np.asarray(layer["w"]) for n in ("dmlp", "cmlp") for i, layer in enumerate(p[n])}}
+
+
+def _d_train(cfg: dict, out: Path, rank: int) -> dict:
+    """train() on cfg into out (the K1-K5 launches counted from 0 around
+    it, the peak memory from a reset); its parameters, PSNR, launches, peak
+    GiB and the table's AdamW bytes on this rank."""
+    import torch
+
+    from nerfjax_torch.ops import hash_encode as he
+    from nerfjax_torch.train import train
+
+    he.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train({**cfg, "output_dir": str(out), "checkpoint_dir": str(out / "checkpoints")}, seed=SEED,
+                log_every=1000, device="cuda")
+    torch.cuda.synchronize()
+    return {"params": _flat_params(res["params"]), "psnr": res["psnr"], "launches": dict(he.launch_counts),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "table_bytes": res["table_optimizer_bytes"],
+            "seconds": time.perf_counter() - t0, "steps": res["steps"], "rank": rank}
+
+
+def _lockstep(cfg: dict, steps: int, mesh) -> int:
+    """The two table modes on the same gradients: a replicated state and a
+    shard_hash_table state from one seed, each step's gradient computed
+    once (on the replicated state: step_gradients) and copied to the
+    other, then apply_gradients on both (the all_reduce, the cut to the
+    rank's slice, AdamW). Before every step the gathered table must equal
+    the replicated one and after the last every parameter and the table's
+    AdamW moments, torch.equal. Returns the steps taken."""
+    import torch
+
+    from nerfjax_torch.data import RayDataset, batch_to_device
+    from nerfjax_torch.train import TrainSettings, apply_gradients, make_train_state, shard_table, step_gradients
+
+    ds = RayDataset(cfg["rays_file"], verbose=False)
+    B = int(cfg["batch_size"])
+    settings = TrainSettings.from_cfg(cfg, ds.steps_per_epoch(B))
+    a, b = (make_train_state(cfg, settings, seed=SEED, device="cuda") for _ in range(2))
+    a.mesh = b.mesh = mesh
+    shard_table(b)
+    pa = [p for f in a.fields() for p in f.parameters()]
+    pb = [p for f in b.fields() for p in f.parameters()]
+    n = 0
+    for batch in ds.epoch_batches(B, seed=SEED * 100003 + 1, process_index=mesh.rank, process_count=mesh.world):
+        if n == steps:
+            break
+        n += 1
+        b.shard.gather()
+        if not torch.equal(b.field.table, a.field.table):
+            raise AssertionError(f"lockstep step {n - 1}: the gathered table != the replicated table")
+        step_gradients(a, batch_to_device(batch, "cuda"))
+        for x, y in zip(pa, pb):
+            y.grad = x.grad.clone()
+        b.occ_grid = None if a.occ_grid is None else a.occ_grid.clone()
+        apply_gradients(a)
+        apply_gradients(b)
+    b.shard.gather()
+    for i, (x, y) in enumerate(zip(pa, pb)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"lockstep: parameter {i} differs between the table modes after {n} steps")
+    mine, whole = b.shard.moments(b.optimizer), a.optimizer.state[a.field.table]
+    for key in ("exp_avg", "exp_avg_sq"):
+        if not torch.equal(mine[key], whole[key]):
+            raise AssertionError(f"lockstep: the table's {key} differs between the table modes")
+    return n
+
+
+def multi_child(job: str, work: Path) -> int:
+    """A child of phase D. d1: one process, the reference runs without a
+    process group, then NCCL at a world of one (NERFJAX_DISTRIBUTED=1,
+    WORLD_SIZE=1); d2: a rank of two over gloo on the one card. Writes its
+    results under work; the parent compares."""
+    import torch
+    import torch.distributed as dist
+
+    from nerfjax_torch.extract import extract_volume
+    from nerfjax_torch.parallel import init_distributed, make_mesh
+
+    cfg = json.loads((work / "cfg.json").read_text())
+
+    def save(tag: str, r: dict) -> None:
+        np.savez(work / f"{tag}.npz", **r.pop("params"))
+        (work / f"{tag}.json").write_text(json.dumps(r))
+
+    def volume(ckpt: Path) -> dict:
+        return extract_volume({**cfg, "checkpoint": str(ckpt)}, resolution=D_RES, device="cuda", verbose=False)
+
+    def save_volume(tag: str, vol: dict) -> None:
+        np.savez(work / f"{tag}.npz", occ=vol["occupancy_volume"], rgb=vol["rgb_volume"])
+        md = {k: v for k, v in vol["metadata"].items() if k not in D_TIMING}
+        (work / f"{tag}.json").write_text(json.dumps(md))
+
+    if job == "d1":
+        for tag in ("ref", "again"):  # no process group: the run-to-run reference
+            r = _d_train(cfg, work / "d1" / tag, 0)
+            phase(f"{tag}: train() without a process group, {r['steps']} steps in {r['seconds']:.2f} s")
+            save(f"d1_{tag}", r)
+        ckpt = work / "d1" / "ref" / "checkpoints" / "nerf_final.pth"
+        save_volume("d1_vol_alone", volume(ckpt))
+        rank, world = init_distributed()
+        if (rank, world) != (0, 1) or dist.get_backend() != "nccl":
+            raise AssertionError(f"d1: joined as {(rank, world)} over {dist.get_backend()}")
+        for tag, over in (("off", {}), ("on", {"shard_hash_table": True})):
+            r = _d_train({**cfg, **over}, work / "d1" / tag, 0)
+            phase(f"{tag}: train() under NCCL at a world of one, shard_hash_table {bool(over)}, {r['steps']} steps "
+                  f"in {r['seconds']:.2f} s, peak {r['peak_gib']:.2f} GiB, table AdamW {r['table_bytes']:,} B")
+            save(f"d1_{tag}", r)
+        save_volume("d1_vol_group", volume(ckpt))
+        n = _lockstep(cfg, D_STEPS, make_mesh())
+        phase(f"lockstep under NCCL at a world of one: {n} steps, the two table modes torch.equal")
+    else:
+        rank, world = init_distributed(backend="gloo")
+        if world != 2 or dist.get_backend() != "gloo":
+            raise AssertionError(f"d2: joined as {(rank, world)} over {dist.get_backend()}")
+        t0 = time.perf_counter()
+        n = _lockstep(cfg, D_STEPS, make_mesh())
+        phase(f"lockstep over gloo, 2 ranks: {n} steps, the two table modes torch.equal "
+              f"({time.perf_counter() - t0:.2f} s)")
+        for tag, over in (("off", {}), ("on", {"shard_hash_table": True})):
+            dist.barrier()
+            r = _d_train({**cfg, **over}, work / "d2" / tag, rank)
+            phase(f"{tag}: train() over gloo, rank {rank} of 2, shard_hash_table {bool(over)}, {r['steps']} steps "
+                  f"in {r['seconds']:.2f} s, peak {r['peak_gib']:.2f} GiB, table AdamW {r['table_bytes']:,} B, "
+                  f"launches {r['launches']}")
+            save(f"d2_{tag}_{rank}", r)
+        dist.barrier()  # rank 0's checkpoint is written
+        t0 = time.perf_counter()
+        vol = volume(work / "d2" / "off" / "checkpoints" / "nerf_final.pth")
+        phase(f"D3: the 256^3 extraction over 2 ranks in {time.perf_counter() - t0:.2f} s")
+        save_volume(f"d2_vol_{rank}", vol)
+    torch.cuda.synchronize()
+    return 0
+
+
+def _beyond(got: dict, want: dict) -> dict:
+    """Per array: entries beyond the bf16 step bound (rtol D_RTOL, floor D_RTOL x the largest entry),
+    unequal entries and the largest difference."""
+    out = {}
+    for k, w in want.items():
+        d = np.abs(got[k] - w)
+        out[k] = (int((d > D_RTOL * np.abs(w) + D_RTOL * np.abs(w).max()).sum()), int((got[k] != w).sum()),
+                  float(d.max()))
+    return out
+
+
+def multi_phase(tmp: Path) -> dict:
+    """Phase D: the multi-process paths on the one card. D1: a child with
+    NERFJAX_DISTRIBUTED=1, WORLD_SIZE=1: train() of TUNED_TRAIN at full width
+    for one epoch of D_STEPS steps twice without a process group (the card's
+    run-to-run difference: K2 and K3 add with float atomics, whose order
+    varies), then under NCCL with shard_hash_table off and on; the 256^3
+    extraction of the first run's checkpoint without and with the group
+    (torch.equal); the two table modes on the same gradients (_lockstep,
+    torch.equal). D2: two ranks over gloo on the card, global batch 8192:
+    the lockstep check, then train() with shard_hash_table off and on, K1-K5
+    launched on each rank, peak memory and the table's AdamW bytes per
+    rank. D3: D2's checkpoint extracted at 256^3 over the two ranks, equal
+    to one rank (torch.equal). Every train() run: each step's PSNR within
+    the bf16 step bound of the first run's, and where the two runs without
+    a group are equal, its parameters torch.equal to them; the parameters'
+    differences are printed."""
+    work = tmp / "multi"
+    work.mkdir()
+    data = dict(np.load(tmp / "rays.npz"))
+    n = D_STEPS * int(TUNED_TRAIN["batch_size"])
+    np.savez(work / "rays.npz", **{k: v[:n] for k, v in data.items()})
+    cfg = {**TUNED_TRAIN, "num_epochs": 1, "rays_file": str(work / "rays.npz")}
+    (work / "cfg.json").write_text(json.dumps(cfg))
+
+    def load(tag: str):
+        return dict(np.load(work / f"{tag}.npz")), json.loads((work / f"{tag}.json").read_text())
+
+    t0 = time.perf_counter()
+    _children("d1", 1, work, lambda r, port: {"NERFJAX_DISTRIBUTED": "1", "WORLD_SIZE": "1", "RANK": "0",
+                                               "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+                                               "MASTER_PORT": str(port)})
+    d1_s = time.perf_counter() - t0
+    ref, ref_info = load("d1_ref")
+    again, _ = load("d1_again")
+    repeatable = all(np.array_equal(again[k], ref[k]) for k in ref)
+    noise = _beyond(again, ref)
+    phase(f"D1: two train() runs without a process group {'are' if repeatable else 'are not'} bit-equal; per array "
+          f"(beyond the bf16 bound, unequal, max |diff|): {noise}")
+    out: dict = {"d1_s": d1_s, "repeatable": repeatable, "noise": noise}
+
+    def held(label: str, arrays: dict, info: dict, world_of_one: bool) -> None:
+        psnr, want = np.asarray(info["psnr"]), np.asarray(ref_info["psnr"])
+        diff = _beyond(arrays, ref)
+        phase(f"{label}: PSNR first/last step {psnr[0]:.3f}/{psnr[-1]:.3f} dB (reference {want[0]:.3f}/"
+              f"{want[-1]:.3f}); parameters against the reference (beyond the bf16 bound, unequal, max |diff|): {diff}")
+        if len(psnr) != len(want) or not np.isfinite(psnr).all() or not np.allclose(psnr, want, rtol=D_RTOL, atol=0):
+            raise AssertionError(f"{label}: PSNR per step outside the bf16 step bound of the reference's")
+        if world_of_one and repeatable and any(v[1] for v in diff.values()):
+            raise AssertionError(f"{label}: parameters != the reference's, which two runs reproduce bit for bit")
+        for name, n_launch in info["launches"].items():
+            if name in STEP_KERNELS and n_launch <= 0:
+                raise AssertionError(f"{label}: {name} was not launched")
+
+    for tag in ("off", "on"):
+        held(f"D1 NCCL world of one, shard_hash_table {tag}", *load(f"d1_{tag}"), world_of_one=True)
+    on_info = load("d1_on")[1]
+    va, vg = load("d1_vol_alone"), load("d1_vol_group")
+    if not (np.array_equal(va[0]["occ"], vg[0]["occ"]) and np.array_equal(va[0]["rgb"], vg[0]["rgb"])
+            and va[1] == vg[1]):
+        raise AssertionError("D1: the 256^3 extraction under NCCL at a world of one != without a process group")
+    phase(f"D1: the {D_RES}^3 extraction under NCCL at a world of one == without a process group (volumes, "
+          f"threshold {va[1]['threshold']:.6f}, metadata); child {d1_s:.1f} s")
+
+    t0 = time.perf_counter()
+    _children("d2", 2, work, lambda r, port: {"NERFJAX_COORDINATOR": f"localhost:{port}",
+                                               "NERFJAX_NUM_PROCESSES": "2", "NERFJAX_PROCESS_ID": str(r)})
+    out["d2_s"] = time.perf_counter() - t0
+    per_rank = {}
+    for tag in ("off", "on"):
+        runs = [load(f"d2_{tag}_{r}") for r in range(2)]
+        if not all(np.array_equal(runs[1][0][k], runs[0][0][k]) for k in runs[0][0]):
+            raise AssertionError(f"D2 shard_hash_table {tag}: rank 1's parameters != rank 0's")
+        held(f"D2 gloo, 2 ranks, shard_hash_table {tag}", *runs[0], world_of_one=False)
+        for r, (_, info) in enumerate(runs):
+            missing = [k for k in STEP_KERNELS if info["launches"].get(k, 0) <= 0]
+            if missing:
+                raise AssertionError(f"D2 rank {r}: {missing} not launched")
+            per_rank[f"{tag}_rank{r}"] = {"peak_gib": info["peak_gib"], "table_bytes": info["table_bytes"],
+                                          "seconds": info["seconds"], "launches": info["launches"]}
+    phase("D2: the two table modes' train() runs against each other (beyond the bf16 bound, unequal, max |diff|; "
+          "their steps' gradients differ as two runs alone do): "
+          + str(_beyond(load("d2_on_0")[0], load("d2_off_0")[0])))
+    for r in range(2):
+        if per_rank[f"on_rank{r}"]["table_bytes"] * 2 != per_rank[f"off_rank{r}"]["table_bytes"]:
+            raise AssertionError(f"D2 rank {r}: the sharded table's AdamW bytes are not half the replicated ones")
+    # D3: one rank's extraction of the same checkpoint, here without a process group
+    from nerfjax_torch.extract import extract_volume
+
+    t0 = time.perf_counter()
+    alone = extract_volume({**cfg, "checkpoint": str(work / "d2" / "off" / "checkpoints" / "nerf_final.pth")},
+                           resolution=D_RES, device="cuda", verbose=False)
+    alone_s = time.perf_counter() - t0
+    md = json.loads(json.dumps({k: v for k, v in alone["metadata"].items() if k not in D_TIMING}))
+    for r in range(2):
+        arrays, got = load(f"d2_vol_{r}")
+        if not (np.array_equal(arrays["occ"], alone["occupancy_volume"])
+                and np.array_equal(arrays["rgb"], alone["rgb_volume"]) and got == md):
+            raise AssertionError(f"D3: rank {r}'s {D_RES}^3 extraction over 2 ranks != one rank's")
+    phase(f"D3: the {D_RES}^3 extraction over 2 ranks (gloo) == one rank's on every rank (volumes, threshold "
+          f"{md['threshold']:.6f}, metadata); one rank {alone_s:.2f} s")
+    phase("D2 per rank: " + "; ".join(f"{k}: peak {v['peak_gib']:.2f} GiB, table AdamW {v['table_bytes']:,} B, "
+                                        f"train() {v['seconds']:.2f} s" for k, v in per_rank.items())
+          + f"; D1 sharded at a world of one: table AdamW {on_info['table_bytes']:,} B; children: D1 {d1_s:.1f} s, "
+          f"D2 {out['d2_s']:.1f} s")
+    out["per_rank"] = per_rank
+    return out
+
+
 def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of nerfjax_torch on one CUDA card (every phase by default)")
-    ap.add_argument("--only", choices=["quality", "steps"], default=None,
+    ap.add_argument("--only", choices=["quality", "steps", "launcher", "multi"], default=None,
                     help="run only the card, the build and this phase (no kernels line, no final line)")
+    ap.add_argument("--child", choices=["d1", "d2"], default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--work", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--seeds", default=None,
                     help="with --only quality: the seeds to train, e.g. 0-7 or 0,3,5 (default 0,1,2: nerfjax's)")
     args = ap.parse_args()
@@ -3472,6 +3944,10 @@ def main() -> int:
     sys.path.insert(0, str(HERE))
     import torch
 
+    if args.child:  # a process of phase D, started by multi_phase after the build
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        return multi_child(args.child, Path(args.work))
     smi = card()
     phase(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     build()
@@ -3484,6 +3960,21 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             steps_around_train(Path(tmp))
         phase("--only steps: done")
+        return 0
+    if args.only == "launcher":
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            frames = json.loads(precompute_scene(tmp / "scene").read_text())["frames"]
+            focal = float(0.5 * PRECOMPUTE_SIZE / np.tan(0.5 * PRECOMPUTE_ANGLE_X) * FRONT_SIZE / PRECOMPUTE_SIZE)
+            planted = colmap_model(tmp / "front" / "colmap", frames, focal)
+            launcher_phase(tmp, tmp / "front" / "colmap" / "colmap_text", planted)
+        phase("--only launcher: done")
+        return 0
+    if args.only == "multi":
+        with tempfile.TemporaryDirectory() as tmp:
+            ray_npz(Path(tmp) / "rays.npz")
+            multi_phase(Path(tmp))
+        phase("--only multi: done")
         return 0
     stats = kernels_vs_plain()
     k4_shapes = {}  # K4 at each main-path call: the kernels line's extra keys
@@ -3544,6 +4035,10 @@ def main() -> int:
             step_card_vs_cpu(Path(tmp), label)
         dropin_step_card_vs_cpu(Path(tmp))
         render_card_vs_cpu(trained["final"])
+        # last: after other processes have used the card, this process's profiler traces dropped or gained
+        # device events for a while (PERF.md), which the timings above rely on
+        launcher = launcher_phase(Path(tmp), front.pop("colmap_text"), front.pop("planted"))
+        multi = multi_phase(Path(tmp))
     phase(f"train() wall per step, tuned run: {trained['train_wall_ms_per_step']:.2f} ms; precompute_rays: "
           f"{head['kept']:,} of {head['generated']:,} rays, {head['process_wall']:.2f} s (NPZ write "
           f"{head['write']:.2f} s)")
@@ -3557,6 +4052,10 @@ def main() -> int:
           f"clustered points {knn_more['clustered']['ms']:.3f} ms, all {FRONT_POINTS + FRONT_OUTLIERS:,} points "
           f"coincident {knn_more['coincident']['ms']:.3f} ms; precompute {front['precompute_s']:.2f} s, train "
           f"{front['train_s']:.2f} s, PSNR last 20 steps {front['psnr_last20']:.2f} dB, IoU {front['iou']:.3f}")
+    phase("launcher L: " + ", ".join(f"{k} {v:.2f} s" for k, v in launcher["seconds"].items())
+          + f" (total {launcher['total_s']:.1f} s), IoU {launcher['iou']:.3f}; multi-process D: children D1 "
+          f"{multi['d1_s']:.1f} s, D2 {multi['d2_s']:.1f} s; per rank " + "; ".join(
+              f"{k} peak {v['peak_gib']:.2f} GiB, table AdamW {v['table_bytes']:,} B" for k, v in multi["per_rank"].items()))
     phase(f"vanilla NeRF: {vanilla['steps']} train() steps, median warm {vanilla['ms_per_step']:.2f} ms/step, PSNR "
           f"{vanilla['psnr'][0]:.2f} -> {vanilla['psnr'][1]:.2f} dB, peak {vanilla['peak_gib']:.2f} GiB, idle "
           f"{vanilla['idle']:.1%}; extraction 256^3 {vanilla['extract_256_s']:.2f} s (IoU {vanilla['iou']:.3f}), "

@@ -94,10 +94,11 @@ def save_pth(obj, path: str | Path, extra_records: Mapping[str, bytes] | None = 
                 z.writestr(f"{prefix}/extra/{name}", blob)
 
 
-def load_pth(path: str | Path):
+def load_pth(path: str | Path, mmap: bool = False):
     """``torch.load(weights_only=True)`` with tensors as numpy arrays; reads
-    the files of both packages."""
-    return _to_arrays(torch.load(path, map_location="cpu", weights_only=True))
+    the files of both packages. ``mmap=True`` maps the stored tensors in
+    place of reading them (the arrays are then views of the file)."""
+    return _to_arrays(torch.load(path, map_location="cpu", weights_only=True, mmap=mmap))
 
 
 def load_extra_record(path: str | Path, name: str) -> bytes | None:

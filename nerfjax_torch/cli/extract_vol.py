@@ -1,7 +1,11 @@
-"""CLI: extract the colored occupancy volume on one card (counterpart of
+"""CLI: extract the colored occupancy volume (counterpart of
 ``nerfjax/cli/extract_vol.py``, with the same flags plus ``--device``).
 
     python -m nerfjax_torch.cli.extract_vol --cfg_path cfg/blender_scene_tuned.yml
+
+Several cards: one process per card, joined as the train CLI's are
+(``init_distributed``); the grid is split across them and rank 0 writes
+the volume.
 """
 
 from __future__ import annotations
@@ -46,6 +50,9 @@ def main() -> None:
         raise ValueError("Resolution must be positive")
     if args.bounds[0] >= args.bounds[1]:
         raise ValueError("Invalid bounds: min must be less than max")
+    from nerfjax_torch.parallel import init_distributed
+
+    lead = init_distributed(backend="gloo" if args.device == "cpu" else None)[0] == 0
     cfg = load_cfg(args)
 
     import json
@@ -77,6 +84,8 @@ def main() -> None:
         coarse_density_only=False if args.coarse_full else None,
         coarse_supersample=args.coarse_ss,
     )
+    if not lead:
+        return
     if args.density_only:
         vol["rgb_volume"] = vol["rgb_volume"] * 0
         vol["metadata"]["density_only"] = True

@@ -1,13 +1,13 @@
 """Scene configuration (the port's own copy of ``nerfjax/config.py``:
-``ConfigNode`` :27-133, ``load_config`` :136-152, ``BASE_DEFAULTS`` and
-``with_defaults`` :161-208; ``tests/test_torch_imports.py`` holds the two
+``ConfigNode`` :27-133, ``load_config`` :136-152, ``save_config`` :155-158,
+``BASE_DEFAULTS`` and ``with_defaults`` :161-208; ``tests/test_torch_imports.py`` holds the two
 equal).
 
 OmegaConf-compatible YAML configs with ``${key}`` interpolation resolved
 against the root (``${scene_name}``, ``${a.b.c}``, transitive references),
 attribute access and ``.get``. PyYAML is imported inside ``load_config``
-only: the card's machine does not promise it, and nothing else of the port
-needs it.
+and ``save_config`` only: the card's machine does not promise it, and
+nothing else of the port needs it.
 """
 
 from __future__ import annotations
@@ -148,6 +148,16 @@ def load_config(path: str | Path) -> ConfigNode:
     if not isinstance(data, dict):
         raise ValueError(f"Config root must be a mapping, got {type(data)} in {path}")
     return ConfigNode(data)
+
+
+def save_config(cfg: ConfigNode | dict, path: str | Path) -> None:
+    """Write ``cfg`` as YAML in its key order, ``${}`` interpolations kept
+    raw (the file nerfjax's ``save_config`` writes)."""
+    import yaml  # only here, as in load_config
+
+    data = cfg.to_dict(resolve=False) if isinstance(cfg, ConfigNode) else cfg
+    with open(path, "w") as f:
+        yaml.safe_dump(data, f, sort_keys=False)
 
 
 # Canonical defaults mirroring cfg/base_cfg.yml of the reference.

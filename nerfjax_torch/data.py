@@ -5,7 +5,9 @@ from ``np.random.default_rng(seed)``, as nerfjax draws it, cut into full
 batches, so the port's batches equal nerfjax's for the same seed. The
 training loop feeds them through ``prefetch_to_device``: ``depth`` batches
 in flight, each copied from pinned host buffers on a copy stream.
-``batch_to_device`` is a plain copy. One card, no mesh.
+``batch_to_device`` is a plain copy. Over several ranks each takes its
+block of every global batch (``epoch_batches``' process_index and
+process_count) to its own card.
 """
 
 from __future__ import annotations
@@ -41,12 +43,26 @@ class RayDataset:
     def __len__(self) -> int:
         return self.num_rays
 
-    def epoch_batches(self, batch_size: int, seed: int, drop_last: bool = True) -> Iterator[dict[str, np.ndarray]]:
-        """Shuffled full-epoch batches: {rays_o, rays_d, rgb, t_near, t_far}."""
+    def epoch_batches(self, batch_size: int, seed: int, drop_last: bool = True, process_index: int = 0,
+                      process_count: int = 1) -> Iterator[dict[str, np.ndarray]]:
+        """Shuffled full-epoch batches: {rays_o, rays_d, rgb, t_near, t_far}.
+
+        Several ranks: each calls with the same seed (one global
+        permutation) and its own (process_index, process_count), and gets
+        only its block of every global batch, rows [p*B/n, (p+1)*B/n)."""
+        if batch_size % process_count:
+            raise ValueError(f"batch_size {batch_size} not divisible by process_count {process_count}")
+        if process_count > 1 and not drop_last:
+            raise ValueError(
+                "multi-host batching requires drop_last=True (a ragged "
+                "final batch cannot be block-sliced across processes)"
+            )
         perm = np.random.default_rng(seed).permutation(self.num_rays)
         end = (self.num_rays // batch_size) * batch_size if drop_last else self.num_rays
+        block = batch_size // process_count
+        lo = process_index * block
         for start in range(0, end, batch_size):
-            idx = perm[start : start + batch_size]
+            idx = perm[start + lo : start + lo + block]
             yield {
                 "rays_o": np.ascontiguousarray(self.rays_o[idx]),
                 "rays_d": np.ascontiguousarray(self.rays_d[idx]),

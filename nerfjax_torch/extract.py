@@ -1,8 +1,14 @@
 """Volume extraction: checkpoint -> colored 512^3 occupancy volume (counterpart
 of ``nerfjax/extract.py:34-570``).
 
-One card, no mesh: ``device`` names where the field, the volumes and every
-query live. The field runs through the fused MLP kernels
+``device`` names where the field, the volumes and every query live. Over
+several ranks (``nerfjax_torch.parallel.init_distributed`` first; one
+process per card) every rank loads the same parameters, the exact sweep's
+x-slabs, the coarse pass's slabs and the fine pass's chunks of marked cells
+are split across the ranks in contiguous blocks, and the results are
+gathered, so every rank holds the volume, the threshold and the metadata a
+world of one computes (every call keeps its shape). Only rank 0 prints and
+saves. The field runs through the fused MLP kernels
 (``nerfjax_torch.ops.fused_mlp``): on a CUDA device those are the CUDA
 kernels, on the CPU their plain PyTorch versions.
 
@@ -60,6 +66,35 @@ class _PhaseClock:
         now = time.perf_counter()
         self.seconds[name] = self.seconds.get(name, 0.0) + now - self._t
         self._t = now
+
+
+def _world() -> tuple[int, int]:
+    from nerfjax_torch.parallel import rank, world_size
+
+    return rank(), world_size()
+
+
+def _split(sizes: list[int]) -> tuple[range, list[int]]:
+    """This rank's contiguous block of the work items whose row counts are
+    ``sizes`` (the items split as evenly as np.array_split splits them),
+    and the rows of every rank's block."""
+    r, w = _world()
+    blocks = [range(k * len(sizes) // w, (k + 1) * len(sizes) // w) for k in range(w)]
+    return blocks[r], [sum(sizes[i] for i in b) for b in blocks]
+
+
+def _gathered(local: torch.Tensor, counts: list[int]) -> torch.Tensor:
+    """Every rank's ``local`` rows (counts[r] of them on rank r), joined in
+    rank order along dim 0; ``local`` itself at a world of one."""
+    if len(counts) == 1:
+        return local
+    from nerfjax_torch.parallel import all_gather
+
+    most = max(counts)
+    padded = local.new_zeros((most, *local.shape[1:]))
+    padded[: local.shape[0]] = local
+    parts = all_gather(padded)
+    return torch.cat([part[:n] for part, n in zip(parts, counts)])
 
 
 def _linspace(lo: float, hi: float, res: int, dev) -> torch.Tensor:
@@ -223,6 +258,9 @@ def extract_volume(
     the coarse subsamples per cell per axis.
     """
     dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    verbose = verbose and _world()[0] == 0
     res = int(resolution or cfg.get("volume_resolution", 512))
     _, field, _ = build_fields(cfg, device=dev)
     if params is None:
@@ -268,15 +306,19 @@ def extract_volume(
 def _query_exact(field, res, bounds, view, slab, dev, dtype):
     """Exhaustive sweep in x-slabs -> (sigma [R,R,R] f32, rgb [R,R,R,3] u8, queries)."""
     coords = _linspace(bounds[0], bounds[1], res, dev)
-    sigma_vol = torch.empty(res, res, res, dtype=torch.float32, device=dev)
-    rgb_vol = torch.empty(res, res, res, 3, dtype=torch.uint8, device=dev)
-    for x0 in range(0, res, slab):
-        x1 = min(res, x0 + slab)
+    starts = list(range(0, res, slab))
+    mine, counts = _split([min(res, x0 + slab) - x0 for x0 in starts])
+    first = starts[mine[0]] if mine else 0
+    rows = counts[_world()[0]]
+    sigma_vol = torch.empty(rows, res, res, dtype=torch.float32, device=dev)
+    rgb_vol = torch.empty(rows, res, res, 3, dtype=torch.uint8, device=dev)
+    for i in mine:
+        x0, x1 = starts[i], min(res, starts[i] + slab)
         pos3 = _slab_points(coords[x0:x1], coords)
         rgb, sigma = field.apply_planar_fused(pos3, _view3(view, pos3[0]), dtype=dtype)
-        sigma_vol[x0:x1] = sigma.to(torch.float32).reshape(x1 - x0, res, res)
-        rgb_vol[x0:x1] = _to_u8(rgb).reshape(x1 - x0, res, res, 3)
-    return sigma_vol, rgb_vol, res**3
+        sigma_vol[x0 - first : x1 - first] = sigma.to(torch.float32).reshape(x1 - x0, res, res)
+        rgb_vol[x0 - first : x1 - first] = _to_u8(rgb).reshape(x1 - x0, res, res, 3)
+    return _gathered(sigma_vol, counts), _gathered(rgb_vol, counts), res**3
 
 
 def _query_hierarchical(
@@ -302,17 +344,22 @@ def _query_hierarchical(
 
     # -- coarse pass ------------------------------------------------------
     coords2 = _linspace(lo, hi, res2, dev)
-    sig2 = torch.empty(res2, res2, res2, dtype=torch.float32, device=dev)
-    rgb2 = None if coarse_density_only else torch.empty(res2, res2, res2, 3, dtype=torch.float32, device=dev)
-    for x0 in range(0, res2, COARSE_SLAB):
-        x1 = min(res2, x0 + COARSE_SLAB)
+    starts = list(range(0, res2, COARSE_SLAB))
+    mine, counts = _split([min(res2, x0 + COARSE_SLAB) - x0 for x0 in starts])
+    first, rows = (starts[mine[0]] if mine else 0), counts[_world()[0]]
+    sig2 = torch.empty(rows, res2, res2, dtype=torch.float32, device=dev)
+    rgb2 = None if coarse_density_only else torch.empty(rows, res2, res2, 3, dtype=torch.float32, device=dev)
+    for i in mine:
+        x0, x1 = starts[i], min(res2, starts[i] + COARSE_SLAB)
         pos3 = _slab_points(coords2[x0:x1], coords2)
         if coarse_density_only:
             sigma = field.query_density_planar_fused(pos3, dtype=dtype)
         else:
             rgb, sigma = field.apply_planar_fused(pos3, _view3(view, pos3[0]), dtype=dtype)
-            rgb2[x0:x1] = rgb.to(torch.float32).T.reshape(x1 - x0, res2, res2, 3)
-        sig2[x0:x1] = sigma.to(torch.float32).reshape(x1 - x0, res2, res2)
+            rgb2[x0 - first : x1 - first] = rgb.to(torch.float32).T.reshape(x1 - x0, res2, res2, 3)
+        sig2[x0 - first : x1 - first] = sigma.to(torch.float32).reshape(x1 - x0, res2, res2)
+    sig2 = _gathered(sig2, counts)
+    rgb2 = None if rgb2 is None else _gathered(rgb2, counts)
 
     cell_sigma = sig2 if ss == 1 else sig2.reshape(C, ss, C, ss, C, ss).amax(dim=(1, 3, 5))
 
@@ -347,16 +394,36 @@ def _query_hierarchical(
     off = torch.stack(torch.meshgrid(ar, ar, ar, indexing="ij"), -1).reshape(-1, 3)  # [64, 3]
     sigma_flat = sigma_vol.reshape(-1)
     rgb_flat = rgb_vol.reshape(-1, 3)
-    for start in range(0, len(cells), FINE_CHUNK_CELLS):
-        chunk = cells[start : start + FINE_CHUNK_CELLS]
+    chunk_cells = FINE_CHUNK_CELLS
+    starts = list(range(0, len(cells), chunk_cells))
+
+    def voxels(i):
+        chunk = cells[starts[i] : starts[i] + chunk_cells]
         xi = (chunk[:, 0:1] * B + off[None, :, 0]).reshape(-1)
         yi = (chunk[:, 1:2] * B + off[None, :, 1]).reshape(-1)
         zi = (chunk[:, 2:3] * B + off[None, :, 2]).reshape(-1)
+        return xi, yi, zi
+
+    alone = _world()[1] == 1
+    mine, counts = _split([B**3 * min(chunk_cells, len(cells) - start) for start in starts])
+    sig_parts, rgb_parts = [], []
+    for i in mine:
+        xi, yi, zi = voxels(i)
         pos3 = (coords[xi], coords[yi], coords[zi])
         rgb, sigma = field.apply_planar_fused(pos3, _view3(view, pos3[0]), dtype=dtype)
-        flat = (xi * res + yi) * res + zi
-        sigma_flat[flat] = sigma.to(torch.float32)
-        rgb_flat[flat] = _to_u8(rgb)
+        if alone:  # straight into the volumes
+            flat = (xi * res + yi) * res + zi
+            sigma_flat[flat] = sigma.to(torch.float32)
+            rgb_flat[flat] = _to_u8(rgb)
+        else:
+            sig_parts.append(sigma.to(torch.float32))
+            rgb_parts.append(_to_u8(rgb))
+    if not alone and starts:
+        sigma_all = _gathered(torch.cat(sig_parts) if sig_parts else sigma_flat.new_zeros(0), counts)
+        rgb_all = _gathered(torch.cat(rgb_parts) if rgb_parts else rgb_flat.new_zeros(0, 3), counts)
+        flat = torch.cat([(xi * res + yi) * res + zi for xi, yi, zi in map(voxels, range(len(starts)))])
+        sigma_flat[flat] = sigma_all
+        rgb_flat[flat] = rgb_all
     clock.lap("fine")
 
     extra = {

@@ -1,7 +1,8 @@
-"""Training on one card (counterpart of ``nerfjax/train.py``: ``build_fields``
+"""Training (counterpart of ``nerfjax/train.py``: ``build_fields``
 :53-144, ``TrainSettings`` :166-246, ``_validated_single_pass`` :249-269,
 ``onecycle_lr_host`` :291-317, ``make_optimizer`` :320-327, ``loss_fn``
-:330-373, the step :392-425, ``init_occupancy`` :486-492, ``train`` :500-).
+:330-373, the step :392-425, ``table_shardings`` :445-483,
+``init_occupancy`` :486-492, ``train`` :500-).
 
 The step follows nerfjax's order: with the occupancy grid on, every
 ``occ_update_every``-th step first refreshes it (1/P of its cells,
@@ -22,9 +23,22 @@ Ported: the single-pass NGP paths (``cfg/blender_scene_tuned.yml``,
 reference's configs (``cfg/blender_scene.yml``: ``single_pass: false``,
 with or without the grid, either CDF sampler), and vanilla NeRF
 (``ngp: false``: two independent MLPs, coarse and fine, with train-time
-sigma noise, on the coarse->pdf->fine path). Not ported, raising
-``NotImplementedError``: more than one card (``mesh_shape``,
-``shard_hash_table``).
+sigma noise, on the coarse->pdf->fine path).
+
+Several cards (one process per card, ``nerfjax_torch.parallel``): every
+rank steps on its block of the global batch, with the draws the one-rank
+step makes for the whole batch (``_global_draws``), and the gradients are
+averaged over the world, one ``all_reduce`` per parameter in a fixed order,
+so a step over W ranks equals the one-rank step up to the order of
+summation. The occupancy grid is replicated and updated identically on
+every rank. ``shard_hash_table`` splits the hash table and its AdamW
+moments along T over the mesh's model axis (``TableShard``): before each
+forward the table is all-gathered, its reduced gradient is cut to the
+rank's slice and AdamW steps that slice, so the two table modes give equal
+parameters. ``mesh_shape: [dp, tp]`` picks the 2-D mesh. Rank 0 alone
+makes the directories, prints, writes TensorBoard and checkpoints; every
+rank joins the gathers before a save; resume is read by rank 0 and
+broadcast.
 
 Randomness: nerfjax folds the step into its key (``fold_in(key, step)``),
 so a resumed run draws what an uninterrupted one would. The port reseeds
@@ -39,13 +53,17 @@ import dataclasses
 import math
 import time
 from pathlib import Path
-from typing import Mapping
+from typing import TYPE_CHECKING, Mapping
 
 import torch
+import torch.distributed as dist
 
 from nerfjax_torch.fields.ngp import NERF_TYPE_LOG2, HashGridSpec, InstantNGP
 from nerfjax_torch.fields.vanilla import VanillaNeRF
 from nerfjax_torch.ops.occupancy import OccupancyGridSpec
+
+if TYPE_CHECKING:
+    from nerfjax_torch.parallel import Mesh
 
 
 # -- model construction -------------------------------------------------------------
@@ -225,13 +243,6 @@ def _validated_single_pass(cfg: Mapping) -> bool:
     return sp
 
 
-def _check_ported(s: TrainSettings) -> None:
-    if s.shard_hash_table:
-        raise NotImplementedError("shard_hash_table (multi-GPU) is ROADMAP Queue 1 item 'multi-GPU'")
-    if s.use_occupancy:
-        s.occ_spec()
-
-
 def onecycle_lr_host(s: TrainSettings, count: int) -> float:
     """The OneCycle cosine learning rate after ``count`` optimizer steps:
     optax's ``cosine_onecycle_schedule`` with peak 10*lr, pct_start 0.1,
@@ -292,7 +303,6 @@ def loss_fn(field, batch: Mapping[str, torch.Tensor], settings: TrainSettings, o
     shared NGP field). ``noise_*``: vanilla's sigma noise of each pass."""
     from nerfjax_torch.render import render_rays_planar
 
-    _check_ported(settings)
     occ = settings.use_occupancy
     out = render_rays_planar(
         field if field_coarse is None else field_coarse, field, batch["rays_o"], batch["rays_d"], batch["t_near"],
@@ -319,8 +329,9 @@ class TrainState:
     """Everything a step changes: the field (the fine one: the NGP field
     both passes share, or vanilla's fine MLP), vanilla's coarse MLP
     (``field_coarse``, None for NGP), AdamW and its schedule, the occupancy
-    grid (None with ``occupancy_grid: false``), the step count, and the
-    generator of the step's draws."""
+    grid (None with ``occupancy_grid: false``), the step count, the
+    generator of the step's draws, and, over several ranks, the mesh (None:
+    no collectives) and the table's shard (``shard_hash_table``)."""
 
     settings: TrainSettings
     field: InstantNGP | VanillaNeRF
@@ -331,6 +342,8 @@ class TrainState:
     seed: int = 0
     step: int = 0
     field_coarse: VanillaNeRF | None = None
+    mesh: "Mesh | None" = None
+    shard: "TableShard | None" = None
 
     def fields(self) -> list:
         """The trained fields: [field], or vanilla's [coarse, fine]."""
@@ -352,7 +365,6 @@ def make_train_state(cfg: Mapping, settings: TrainSettings, *, seed: int = 0, de
     AdamW at step 0, the all-ones occupancy grid (none with the grid off)."""
     from nerfjax_torch.ops.occupancy import init_grid
 
-    _check_ported(settings)
     dev = torch.device(device)
     coarse, field, shared = build_fields(cfg, train=True, device=dev)
     gen = torch.Generator().manual_seed(seed)
@@ -380,28 +392,190 @@ def update_occupancy(state: TrainState, *, jitter=None) -> None:
                                      generator=state.generator, dtype=state.settings.dtype)
 
 
+class TableShard:
+    """This rank's slice of the hash table under ``shard_hash_table``
+    (nerfjax ``table_shardings``): columns [i*S, (i+1)*S) of the [2, T]
+    table, S = ceil(T / n), over the n ranks of the mesh's model axis, i
+    this rank's place there (the last slice zero-padded to S). ``param`` is
+    what AdamW steps, so the moments it keeps are 1/n of the table's; the
+    field's full table is refreshed from the slices by ``gather`` before
+    each forward and before a save."""
+
+    def __init__(self, field: InstantNGP, mesh):
+        self.field, self.group, self.n = field, mesh.table_group, mesh.table_size
+        T = field.table.shape[1]
+        self.size = -(-T // self.n)
+        self.lo = min(T, mesh.table_index * self.size)
+        self.hi = min(T, self.lo + self.size)
+        self.param = torch.nn.Parameter(self.cut(field.table.detach()))
+
+    def cut(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's [2, S] slice of a [2, T] tensor (zero-padded)."""
+        out = full.new_zeros(full.shape[0], self.size)
+        out[:, : self.hi - self.lo] = full[:, self.lo : self.hi]
+        return out
+
+    def joined(self, part: torch.Tensor) -> torch.Tensor:
+        """The [2, T] tensor whose slices the model axis' ranks hold."""
+        from nerfjax_torch.parallel import all_gather
+
+        parts = [part] if self.n == 1 else all_gather(part, self.group)
+        return torch.cat(parts, dim=1)[:, : self.field.table.shape[1]]
+
+    @torch.no_grad()
+    def gather(self) -> None:
+        self.field.table.copy_(self.joined(self.param.detach()))
+
+    def take_grad(self) -> None:
+        """The (reduced) table gradient, cut to this rank's slice."""
+        table = self.field.table
+        self.param.grad = self.cut(table.grad)
+        table.grad = None
+
+    def moments(self, optimizer: torch.optim.Optimizer) -> dict:
+        """The table's AdamW state with the whole moments (every rank of the
+        model axis joins)."""
+        st = optimizer.state[self.param]
+        return {"step": st["step"], "exp_avg": self.joined(st["exp_avg"]),
+                "exp_avg_sq": self.joined(st["exp_avg_sq"])}
+
+
+def shard_table(state: TrainState) -> None:
+    """Split ``state``'s hash table over its mesh's model axis: AdamW steps
+    the rank's slice (with its slice of any restored moments) in place of
+    the table. Vanilla NeRF has no table: nothing changes, as in nerfjax."""
+    field = state.field
+    if state.field_coarse is not None or not isinstance(field, InstantNGP):
+        return
+    shard = TableShard(field, state.mesh)
+    opt = state.optimizer
+    for group in opt.param_groups:
+        group["params"] = [shard.param if p is field.table else p for p in group["params"]]
+    st = opt.state.pop(field.table, None)
+    if st:
+        opt.state[shard.param] = {"step": st["step"], "exp_avg": shard.cut(st["exp_avg"]),
+                                  "exp_avg_sq": shard.cut(st["exp_avg_sq"])}
+    state.shard = shard
+
+
+def _collective(state: TrainState) -> bool:
+    return state.mesh is not None and dist.is_initialized()
+
+
+def _global_draws(state: TrainState, B: int, given: dict) -> dict:
+    """This rank's rows of the draws the one-rank step makes for the global
+    batch, in its order: the first depths' uniforms, then (two passes) the
+    coarse sigma noise, the importance uniforms and the fine sigma noise.
+    Draws given by the caller are left out, as the one-rank step leaves
+    them out. The position-keyed corner draws need nothing: they follow
+    from the positions."""
+    s, W, r = state.settings, state.mesh.world, state.mesh.rank
+    gen, dev, Bg = state.generator, next(state.field.parameters()).device, B * W
+    rows = slice(r * B, (r + 1) * B)
+    out = dict(given)
+    n_first = s.n_samples + s.n_importance if s.single_pass else s.n_samples
+
+    def noise(S):
+        flat = torch.randn(Bg * S, generator=gen, device=dev, dtype=s.dtype)
+        return flat[r * B * S : (r + 1) * B * S]
+
+    if out["u_strat"] is None:
+        out["u_strat"] = torch.rand(Bg, n_first, generator=gen, device=dev)[rows]
+    if not s.single_pass:
+        coarse = state.field_coarse if state.field_coarse is not None else state.field
+        if out["noise_coarse"] is None and getattr(coarse, "sigma_noise", False):
+            out["noise_coarse"] = noise(s.n_samples)
+        if out["u_pdf"] is None:
+            out["u_pdf"] = torch.rand(Bg, s.n_importance, generator=gen, device=dev)[rows]
+        if out["noise_fine"] is None and getattr(state.field, "sigma_noise", False):
+            out["noise_fine"] = noise(s.n_samples + s.n_importance)
+    return out
+
+
+def _reduce_grads(state: TrainState) -> None:
+    """Average every gradient over the world: one all_reduce per parameter,
+    in the fields' parameter order (the table's, whole, in both table
+    modes)."""
+    from nerfjax_torch.parallel import all_reduce_sum_
+
+    world = state.mesh.world
+    for p in (p for f in state.fields() for p in f.parameters()):
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        all_reduce_sum_(p.grad)
+        if world > 1:
+            p.grad.div_(world)
+
+
+def step_gradients(state: TrainState, batch: Mapping[str, torch.Tensor], *, u_strat=None, u_pdf=None,
+                   occ_jitter=None, noise_coarse=None, noise_fine=None):
+    """The first half of a step: the table gathered (``shard_hash_table``),
+    the generator reseeded, the occupancy update, render, loss and
+    backward, leaving each parameter's (this rank's) gradient. Returns
+    (total, aux) of ``loss_fn``."""
+    s = state.settings
+    if state.shard is not None:
+        state.shard.gather()
+    state.generator.manual_seed(state.seed * 1_000_003 + state.step)
+    update_occupancy(state, jitter=occ_jitter)
+    draws = {"u_strat": u_strat, "u_pdf": u_pdf, "noise_coarse": noise_coarse, "noise_fine": noise_fine}
+    if state.mesh is not None and state.mesh.world > 1:
+        draws = _global_draws(state, batch["rays_o"].shape[0], draws)
+    total, aux = loss_fn(state.field, batch, s, state.occ_grid, field_coarse=state.field_coarse,
+                         generator=state.generator, **draws)
+    state.optimizer.zero_grad(set_to_none=True)
+    total.backward()
+    return total, aux
+
+
+def apply_gradients(state: TrainState) -> None:
+    """The second half of a step: the gradients averaged over the world,
+    the global-norm clip, the table's gradient cut to this rank's slice
+    (``shard_hash_table``), AdamW and the schedule."""
+    if _collective(state):
+        _reduce_grads(state)
+    if state.settings.grad_clip is not None:
+        clip_by_global_norm_([p for f in state.fields() for p in f.parameters()], float(state.settings.grad_clip))
+    if state.shard is not None:
+        state.shard.take_grad()
+    state.optimizer.step()
+    state.scheduler.step()
+    state.step += 1
+
+
 def train_step(state: TrainState, batch: Mapping[str, torch.Tensor], *, u_strat=None, u_pdf=None,
                occ_jitter=None, noise_coarse=None, noise_fine=None) -> dict:
     """One step on a batch of tensors on the field's device: occupancy
     update (every update_every steps, with the grid on), render, loss,
-    backward, AdamW. ``u_strat``/``u_pdf`` (the render's), ``occ_jitter``
-    and vanilla's sigma noise ``noise_coarse``/``noise_fine`` override the
-    generator's draws (the parity tests pass nerfjax's). Returns the step's
-    metrics as 0-d tensors (no host sync)."""
-    s = state.settings
-    state.generator.manual_seed(state.seed * 1_000_003 + state.step)
-    update_occupancy(state, jitter=occ_jitter)
-    total, aux = loss_fn(state.field, batch, s, state.occ_grid, field_coarse=state.field_coarse, u_strat=u_strat,
-                         u_pdf=u_pdf, generator=state.generator, noise_coarse=noise_coarse, noise_fine=noise_fine)
-    state.optimizer.zero_grad(set_to_none=True)
-    total.backward()
-    if s.grad_clip is not None:
-        clip_by_global_norm_([p for f in state.fields() for p in f.parameters()], float(s.grad_clip))
-    state.optimizer.step()
-    state.scheduler.step()
-    state.step += 1
-    return {"loss_total": total.detach(), "loss_coarse": aux["loss_coarse"].detach(),
-            "loss_fine": aux["loss_fine"].detach(), "psnr": aux["psnr"].detach()}
+    backward, AdamW (``step_gradients``, then ``apply_gradients``).
+    ``u_strat``/``u_pdf`` (the render's), ``occ_jitter`` and vanilla's
+    sigma noise ``noise_coarse``/``noise_fine`` override the generator's
+    draws (the parity tests pass nerfjax's). Returns the step's metrics as
+    0-d tensors (no host sync).
+
+    With ``state.mesh`` over several ranks ``batch`` is this rank's block
+    of the global batch and the overrides its rows; the gradients are
+    averaged over the world and the metrics are those of the global batch."""
+    total, aux = step_gradients(state, batch, u_strat=u_strat, u_pdf=u_pdf, occ_jitter=occ_jitter,
+                                noise_coarse=noise_coarse, noise_fine=noise_fine)
+    apply_gradients(state)
+    metrics = {"loss_total": total.detach(), "loss_coarse": aux["loss_coarse"].detach(),
+               "loss_fine": aux["loss_fine"].detach(), "psnr": aux["psnr"].detach()}
+    if state.mesh is not None and state.mesh.world > 1:
+        from nerfjax_torch.parallel import all_reduce_sum_
+
+        losses = all_reduce_sum_(torch.stack([metrics[k] for k in ("loss_total", "loss_coarse", "loss_fine")]))
+        losses = losses / state.mesh.world
+        metrics = {"loss_total": losses[0], "loss_coarse": losses[1], "loss_fine": losses[2],
+                   "psnr": -10.0 * torch.log10(losses[2])}
+    return metrics
+
+
+def _set_step(state: TrainState, step: int) -> None:
+    state.step = step
+    state.scheduler.last_epoch = step
+    for group in state.optimizer.param_groups:
+        group["lr"] = onecycle_lr_host(state.settings, step)
 
 
 def restore(state: TrainState, path, steps_per_epoch: int) -> int:
@@ -411,15 +585,62 @@ def restore(state: TrainState, path, steps_per_epoch: int) -> int:
     from nerfjax_torch import checkpoint as ckpt
 
     epoch = ckpt.restore_train_state(path, state.field, state.optimizer, field_coarse=state.field_coarse)
-    state.step = epoch * steps_per_epoch
-    state.scheduler.last_epoch = state.step
-    for group in state.optimizer.param_groups:
-        group["lr"] = onecycle_lr_host(state.settings, state.step)
+    _set_step(state, epoch * steps_per_epoch)
     if state.occ_grid is not None:
         grid = ckpt.load_occ_grid(path)
         if grid is not None and grid.shape == tuple(state.occ_grid.shape):
             state.occ_grid = torch.from_numpy(grid).to(state.occ_grid.device)
     return epoch
+
+
+def _broadcast_restored(state: TrainState, epoch: int, steps_per_epoch: int) -> int:
+    """Agree on rank 0's restored state: its epoch, then (if it restored
+    one) the parameters, AdamW's moments and step counts, and the
+    occupancy grid, each broadcast in place. A rank that read no checkpoint
+    (its own checkpoint_dir may be empty) resumes all the same."""
+    from nerfjax_torch.parallel import broadcast_, broadcast_object
+
+    params = [p for f in state.fields() for p in f.parameters()]
+    opt_params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    steps = [int(state.optimizer.state[p]["step"]) if state.optimizer.state.get(p) else 0 for p in opt_params]
+    epoch, steps = broadcast_object([epoch, steps])
+    if epoch == 0:
+        return 0
+    with torch.no_grad():
+        for p in params:
+            broadcast_(p.data)
+        for p, step in zip(opt_params, steps):
+            st = state.optimizer.state[p]
+            if not st:
+                st.update(step=torch.tensor(float(step)), exp_avg=torch.zeros_like(p), exp_avg_sq=torch.zeros_like(p))
+            broadcast_(st["exp_avg"])
+            broadcast_(st["exp_avg_sq"])
+        if state.occ_grid is not None:
+            broadcast_(state.occ_grid)
+    _set_step(state, epoch * steps_per_epoch)
+    return epoch
+
+
+def _optimizer_view(state: TrainState):
+    """What ``checkpoint.save_train_state`` reads of the optimizer (its
+    ``state``), with the table's whole moments under ``shard_hash_table``
+    (every rank of the model axis joins)."""
+    if state.shard is None:
+        return state.optimizer
+    import types
+
+    view = dict(state.optimizer.state)
+    view[state.field.table] = state.shard.moments(state.optimizer)
+    return types.SimpleNamespace(state=view)
+
+
+def table_optimizer_bytes(state: TrainState) -> int:
+    """Bytes of the hash table's AdamW moments this rank holds (0 for vanilla)."""
+    table = state.shard.param if state.shard is not None else getattr(state.field, "table", None)
+    st = state.optimizer.state.get(table) if table is not None else None
+    if st:
+        return sum(st[k].numel() * st[k].element_size() for k in ("exp_avg", "exp_avg_sq"))
+    return 0 if table is None else 2 * table.numel() * table.element_size()
 
 
 # -- the loop --------------------------------------------------------------------------
@@ -436,57 +657,88 @@ def train(
 ) -> dict:
     """Full training run (nerfjax ``train``): returns {"params" (nerfjax
     layout, numpy: ``TrainState.params``), "metrics" (the last logged),
-    "psnr" (every step's),
-    "total_time", "rays_per_sec", "steps"}. Writes TensorBoard scalars
-    under ``output_dir/logs``, ``nerf_epoch_{E:06d}.pth`` every second
-    epoch and ``nerf_final.pth`` under ``checkpoint_dir``."""
+    "psnr" (every step's), "total_time", "rays_per_sec", "steps", "rank",
+    "world", "table_optimizer_bytes" (this rank's)}. Writes TensorBoard
+    scalars under ``output_dir/logs``, ``nerf_epoch_{E:06d}.pth`` every
+    second epoch and ``nerf_final.pth`` under ``checkpoint_dir``.
+
+    Over several ranks (``parallel.init_distributed`` first) every rank
+    calls it with the same cfg and seed; ``batch_size`` is the global
+    batch. Rank 0 alone writes files and prints."""
     from nerfjax_torch import checkpoint as ckpt
     from nerfjax_torch.data import RayDataset, prefetch_to_device
     from nerfjax_torch.extract import resolve_device
     from nerfjax_torch.logging_utils import Logger
+    from nerfjax_torch.parallel import make_mesh
 
-    if cfg.get("mesh_shape", None) is not None:
-        raise NotImplementedError("mesh_shape (multi-GPU) is ROADMAP Queue 1 item 'multi-GPU'")
     dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    mesh_shape = cfg.get("mesh_shape", None)
+    mesh = make_mesh(shape=tuple(int(v) for v in mesh_shape) if mesh_shape is not None else None)
+    is_lead = mesh.rank == 0
     output_dir, checkpoint_dir = Path(cfg["output_dir"]), Path(cfg["checkpoint_dir"])
-    output_dir.mkdir(parents=True, exist_ok=True)
-    checkpoint_dir.mkdir(parents=True, exist_ok=True)
-    dataset = RayDataset(cfg["rays_file"], use_memmap=bool(cfg.get("use_memmap", False)))
+    if is_lead:
+        output_dir.mkdir(parents=True, exist_ok=True)
+        checkpoint_dir.mkdir(parents=True, exist_ok=True)
+    dataset = RayDataset(cfg["rays_file"], use_memmap=bool(cfg.get("use_memmap", False)), verbose=is_lead)
     batch_size, num_epochs = int(cfg["batch_size"]), int(cfg["num_epochs"])
     steps_per_epoch = dataset.steps_per_epoch(batch_size)
     settings = TrainSettings.from_cfg(cfg, num_epochs * steps_per_epoch)
     state = make_train_state(cfg, settings, seed=seed, device=dev)
-    logger = Logger(output_dir / "logs")
+    state.mesh = mesh
+    logger = Logger(output_dir / "logs") if is_lead else None
 
     start_epoch = 1
     if resume:
-        latest = ckpt.latest_checkpoint(checkpoint_dir)
-        if latest is not None:
-            start_epoch = restore(state, latest, steps_per_epoch) + 1
-            print(f"Resumed from {latest} at epoch {start_epoch - 1}")
+        # only the lead reads: it alone writes, so other ranks may not see the files
+        latest = ckpt.latest_checkpoint(checkpoint_dir) if is_lead else None
+        epoch = restore(state, latest, steps_per_epoch) if latest is not None else 0
+        if dist.is_initialized():
+            epoch = _broadcast_restored(state, epoch, steps_per_epoch)
+        if epoch > 0:
+            start_epoch = epoch + 1
+            if is_lead:
+                print(f"Resumed from {latest} at epoch {epoch}")
+    if settings.shard_hash_table:
+        shard_table(state)
     n_params = sum(p.numel() for f in state.fields() for p in f.parameters())
-    print(f"NERF: {n_params * 1e-6:.3f}M")
-    print(f"Device: {dev}" + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else ""))
-    print(f"White background: {settings.white_bg}")
-    print(f"Starting training for {num_epochs} epochs")
-    print(f"Total steps: {settings.total_steps}")
+    table_bytes = table_optimizer_bytes(state)
+    if is_lead:
+        print(f"NERF: {n_params * 1e-6:.3f}M")
+        print(f"Device: {dev}" + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else "")
+              + f", {mesh.world} process(es), mesh {'x'.join(map(str, mesh.shape))} {mesh.axis_names}")
+        if state.shard is not None:
+            print(f"Hash table split over {mesh.table_size} rank(s): its AdamW moments {table_bytes:,} B per rank")
+        print(f"White background: {settings.white_bg}")
+        print(f"Starting training for {num_epochs} epochs")
+        print(f"Total steps: {settings.total_steps}")
+
+    def save(path: Path, epoch: int) -> None:
+        if state.shard is not None:  # every rank joins the gathers
+            state.shard.gather()
+        opt = _optimizer_view(state)
+        if is_lead:
+            ckpt.save_train_state(path, cfg, state.field, opt, epoch, occ_grid=state.occ_grid,
+                                  field_coarse=state.field_coarse)
 
     acts = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    profiler = torch.profiler.profile(activities=acts) if profile_dir else contextlib.nullcontext()
+    profiler = torch.profiler.profile(activities=acts) if profile_dir and is_lead else contextlib.nullcontext()
     start_time = time.time()
     rays_done = 0
     metrics_host: dict = {}
     psnr_steps: list[torch.Tensor] = []
     with profiler:
         for epoch in range(start_epoch, num_epochs + 1):
-            batches = dataset.epoch_batches(batch_size, seed=seed * 100003 + epoch)
+            batches = dataset.epoch_batches(batch_size, seed=seed * 100003 + epoch, process_index=mesh.rank,
+                                            process_count=mesh.world)
             for idx, batch in enumerate(prefetch_to_device(batches, dev)):
                 metrics = train_step(state, batch)
                 psnr_steps.append(metrics["psnr"])
                 rays_done += batch_size
-                if idx % log_every == 0:
+                if idx % log_every == 0 and is_lead:
                     metrics_host = {k: float(v) for k, v in metrics.items()}
                     elapsed = time.time() - start_time
                     rays_per_s = rays_done / max(elapsed, 1e-9)
@@ -508,21 +760,26 @@ def train(
                     })
             if epoch % 2 == 0:
                 path = checkpoint_dir / f"nerf_epoch_{epoch:06d}.pth"
-                ckpt.save_train_state(path, cfg, state.field, state.optimizer, epoch, occ_grid=state.occ_grid,
-                                      field_coarse=state.field_coarse)
-                print(f"Saved checkpoint to {path}")
-    if profile_dir:
+                save(path, epoch)
+                if is_lead:
+                    print(f"Saved checkpoint to {path}")
+    if profile_dir and is_lead:
         Path(profile_dir).mkdir(parents=True, exist_ok=True)
         profiler.export_chrome_trace(str(Path(profile_dir) / "trace.json"))
 
     final_path = checkpoint_dir / "nerf_final.pth"
-    ckpt.save_train_state(final_path, cfg, state.field, state.optimizer, num_epochs, occ_grid=state.occ_grid,
-                          field_coarse=state.field_coarse)
+    save(final_path, num_epochs)
+    if dist.is_initialized() and mesh.world > 1 and state.occ_grid is not None:
+        from nerfjax_torch.parallel import broadcast_
+
+        if not torch.equal(broadcast_(state.occ_grid.clone()), state.occ_grid):
+            raise RuntimeError(f"rank {mesh.rank}: the occupancy grid differs from rank 0's")
     total_time = time.time() - start_time
-    print(f"Saved final models to {final_path}")
-    print(f"Training completed in {total_time:.2f}s")
-    print("Training completed.")
-    logger.close()
+    if is_lead:
+        print(f"Saved final models to {final_path}")
+        print(f"Training completed in {total_time:.2f}s")
+        print("Training completed.")
+        logger.close()
     return {
         "params": state.params(),
         "metrics": metrics_host,
@@ -530,4 +787,7 @@ def train(
         "total_time": total_time,
         "rays_per_sec": rays_done / max(total_time, 1e-9),
         "steps": state.step,
+        "rank": mesh.rank,
+        "world": mesh.world,
+        "table_optimizer_bytes": table_bytes,
     }

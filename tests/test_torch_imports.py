@@ -72,7 +72,8 @@ def test_every_port_module_imports_without_nerfjax_and_jax():
                  "formats.tiff", "formats.vti", "cli.post_process_vol", "cli.write_format", "utils", "utils.images",
                  "cli.resize_images", "colmap", "colmap.quaternion", "colmap.model_io", "ops.knn", "colmap.outliers",
                  "colmap.normalize", "colmap.convert", "colmap.transform", "colmap.driver", "cli.colmap2nerf",
-                 "cli.transform_colmap", "cli.run_colmap"):
+                 "cli.transform_colmap", "cli.run_colmap", "gui.logic", "gui.final_gui", "gui.run_gui",
+                 "gui.open3d_gui", "parallel", "parallel.mesh", "parallel.distributed"):
         assert f"nerfjax_torch.{name}" in mods
 
 

@@ -98,11 +98,12 @@ def test_default_device_needs_a_card(tmp_path, monkeypatch):
         train(_cfg(tmp_path))
 
 
-@pytest.mark.parametrize("over, error", [({"shard_hash_table": True}, NotImplementedError),
+@pytest.mark.parametrize("over, error", [({"mesh_shape": [2, 1]}, ValueError),
                                          ({"ngp": False, "single_pass": True}, ValueError),
-                                         ({"mesh_shape": [1, 1]}, NotImplementedError)])
+                                         ({"mesh_shape": [1, 2]}, ValueError)])
 def test_unported_options_raise(tmp_path, over, error):
-    """More than one card is not ported; vanilla NeRF is, and like nerfjax
-    it refuses single_pass: true."""
+    """Options a run cannot take raise: a mesh that does not cover the world
+    (here a world of one), and, like nerfjax, vanilla NeRF with
+    single_pass: true."""
     with pytest.raises(error):
         train(_cfg(tmp_path, **over), device="cpu")
