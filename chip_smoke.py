@@ -17,7 +17,7 @@ final line:
      all at once (ptxas report);
   3. the MLP kernels against their plain PyTorch versions at the
      extraction's shapes (N = 524,288 and 1,000,003; E = 24, 32, 40 and
-     64; bf16 and f32), with per-call times;
+     64; bf16 and f32; f32 also at E = 128), with per-call times;
   4. a synthetic NGP-large checkpoint (seeded sphere field, written with
      nerfjax_torch.checkpoint.save_field_params) ->
      nerfjax_torch.extract.extract_volume at 512^3 on the card ->
@@ -307,13 +307,27 @@ profiler traces dropped or gained device events for a while):
      ranks, torch.equal to one rank. Alone: python3 chip_smoke.py --only
      multi.
 
+Added for the redesign of the f32 head and density kernels (a persistent
+grid, cp.async tiles, register-blocked FP32 products):
+
+  3. every f32 output held to HEAD_DIGESTS (E = 24 to 128 at both N: the
+     sums of the first design, bit for bit); each kernel's blocks an SM;
+  5b. (after 5, extract_f32) the f32 kernels' main path: extract_volume(...,
+     dtype=torch.float32) of the synthetic checkpoint at 512^3, twice (the
+     two volumes bit-equal, their digest the pinned one), the launches of
+     the timed run counted from 0 around it (the kernels line's
+     f32_launches), its wall; the f32 head and density kernels on its own
+     calls against their plain versions (atol 2e-5), the density sigma ==
+     the head's.
+
 The last two lines are a JSON object with each kernel's launches (summed
 over the main paths: the 512^3 extraction, the tuned, drop-in and fast
 train() runs, the k2 knob steps, the eval renders, the probe entry point),
 error, times and bound (extra keys: the k >= 2 modes at the fast and k2
 knob steps' calls; K1, K2 and K3 also their times, bounds and atomics at
 the drop-in passes; the head at E = 40 and 64 and at the eval renders'
-fine passes; K6 launched by C3's colmap2nerf, timed at C4), then
+fine passes; the f32 kernels' launches on the f32 extraction and their
+times; K6 launched by C3's colmap2nerf, timed at C4), then
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -339,22 +353,29 @@ SEED = 0
 TUNED_CFG = {"ngp": True, "nerf_type": "large", "hash_n_levels": 12, "hash_extra_dense_levels": 1}
 SPHERE_CENTER = np.array([0.10, -0.05, 0.0])
 SPHERE_RADIUS = 0.5
-KERNEL_SHAPES = [(n, e, dt) for n in (524_288, 1_000_003) for e in (24, 32, 40, 64) for dt in ("bf16", "f32")]
+KERNEL_SHAPES = ([(n, e, dt) for n in (524_288, 1_000_003) for e in (24, 32, 40, 64) for dt in ("bf16", "f32")]
+                 + [(524_288, 128, "f32")])
 MAIN_SHAPE = (524_288, 24, "bf16")  # the fine pass's call: 8192 cells x 64 voxels
-F32_SHAPE = (524_288, 24, "f32")  # the f32 kernels (--fp32 and precision: fp32 only: on no shipped cfg's path)
+F32_SHAPE = (524_288, 24, "f32")  # the f32 kernels: an extraction or a render with dtype=torch.float32
 # timed beside MAIN_SHAPE: 16, 20 and 32 levels
 WIDE_SHAPES = [(524_288, 32, "bf16"), (524_288, 40, "bf16"), (524_288, 64, "bf16")]
-# sha-256 prefixes of (rgb, sigma, density sigma) of the MLP kernels at E = 24
-# and 32 on _head_inputs, on an H100. f32: as the FP32 kernels computed them
-# before the first layer was split into 32-row chunks (W1 staged as one [64,
-# 32] block); the chunked kernels run the same sums and must reproduce them
-# bit for bit. bf16: as the tensor-core kernels compute them (their order of
-# additions is fixed, so any change to it shows here)
+# sha-256 prefixes of (rgb, sigma, density sigma) of the MLP kernels on
+# _head_inputs, on an H100. f32 (every shape of KERNEL_SHAPES): as the
+# first design of the FP32 kernels (one point per thread) computed them; E =
+# 24 and 32 from before its first layer was split into 32-row chunks, E =
+# 40, 64 and 128 pinned from the chunked one. The f32 kernels' order of
+# additions is fixed, so every later design must reproduce them bit for bit.
+# bf16 (E = 24 and 32): as the tensor-core kernels compute them (their
+# order of additions is fixed, so any change to it shows here). ("f32
+# extraction", 512): the occupancy and RGB volumes of extract_f32.
 HEAD_DIGESTS = {
     (524_288, 24, "bf16"): "50034c4833e3cc25", (524_288, 24, "f32"): "2a21ea1846941ddd",
     (524_288, 32, "bf16"): "460680b3c25de4f7", (524_288, 32, "f32"): "c4fb4edeb8dce1ae",
     (1_000_003, 24, "bf16"): "7edeb9394c4de77c", (1_000_003, 24, "f32"): "276ab8e05a8b9298",
     (1_000_003, 32, "bf16"): "35b7e0b69abc0b0a", (1_000_003, 32, "f32"): "1066bfe6a9dc1cff",
+    (524_288, 40, "f32"): "db042fdeb2256384", (1_000_003, 40, "f32"): "c11e047ddec388aa",
+    (524_288, 64, "f32"): "a793322bf685f000", (1_000_003, 64, "f32"): "cb747000851c69e0",
+    (524_288, 128, "f32"): "0cdb68f44dff70ea", ("f32 extraction", 512): "fcdd78660afad0f2",
 }
 
 
@@ -545,12 +566,15 @@ def kernels_vs_plain() -> dict:
 
     from nerfjax_torch.ops import fused_mlp as fm
 
-    stats = {"fused_ngp_head": {"max_abs_err": 0.0, "wide": {}}, "fused_ngp_density": {"max_abs_err": 0.0}}
+    stats = {"fused_ngp_head": {"max_abs_err": 0.0, "f32_max_abs_err": 0.0, "wide": {}},
+             "fused_ngp_density": {"max_abs_err": 0.0, "f32_max_abs_err": 0.0}}
     lib = fm._lib()
     for dt, flag in (("bf16", 1), ("f32", 0)):
-        phase(f"{dt} MLP kernels' dynamic shared memory per block: head " + ", ".join(
-            f"E={E} {lib.nerf_fused_smem_bytes(E, flag, 0):,} B" for E in (24, 32, 64, 128))
-            + "; density " + ", ".join(f"E={E} {lib.nerf_fused_smem_bytes(E, flag, 1):,} B" for E in (24, 32)))
+        phase(f"{dt} MLP kernels' dynamic shared memory per block (blocks an SM): head " + ", ".join(
+            f"E={E} {lib.nerf_fused_smem_bytes(E, flag, 0):,} B ({lib.nerf_fused_blocks_per_sm(E, flag, 0)})"
+            for E in (24, 32, 64, 128)) + "; density " + ", ".join(
+            f"E={E} {lib.nerf_fused_smem_bytes(E, flag, 1):,} B ({lib.nerf_fused_blocks_per_sm(E, flag, 1)})"
+            for E in (24, 32, 128)))
     equal, total, worst = 0, 0, 0.0  # bf16 outputs bit-equal to plain, of all; the largest error in ulps
     for N, E, dt in KERNEL_SHAPES:
         params, enc, sh = _head_inputs(N, E, dt)
@@ -571,6 +595,8 @@ def kernels_vs_plain() -> dict:
                 if not ok:
                     raise AssertionError(f"{name} disagrees with its plain version at N={N} E={E} {dt}: {err}")
                 stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+                if dt == "f32":
+                    stats[name]["f32_max_abs_err"] = max(stats[name]["f32_max_abs_err"], err)
                 if dt == "bf16" and name == "fused_ngp_head":
                     shape_eq += int(torch.eq(got, ref).sum())
                     shape_worst = max(shape_worst, float(_ulps(got, ref).max()))
@@ -579,7 +605,7 @@ def kernels_vs_plain() -> dict:
             equal, total, worst = equal + shape_eq, total + 4 * N, max(worst, shape_worst)
             line += (f"; head outputs bit-equal to plain {shape_eq / (4 * N):.4%}, largest error "
                      f"{shape_worst:.3f} bf16 ulp")
-        if E <= 32:
+        if E <= 32 or dt == "f32":
             digest = _digest(rgb_k, sig_k, dsig_k)
             if HEAD_DIGESTS.get((N, E, dt)) != digest:
                 raise AssertionError(f"the MLP kernels' outputs at N={N} E={E} {dt} changed: digest {digest}, "
@@ -782,6 +808,68 @@ def card_vs_cpu_128(ckpt_path: Path) -> None:
         raise AssertionError(f"128^3 RGB differs by {rgb_err}")
     phase(f"128^3 f32 card vs cpu: thresholds {ta:.6f} / {tb:.6f}, occupancy differs at "
           f"{diff.size} of {oa.size} voxels, RGB max diff {rgb_err}")
+
+
+def extract_f32(ckpt_path: Path) -> dict:
+    """The f32 MLP kernels' main path: nerfjax_torch.extract.extract_volume(cfg,
+    dtype=torch.float32) at 512^3 on the synthetic checkpoint, the library
+    call a caller makes for an f32 extraction (the hash kernels write f32
+    encodings, the f32 head and density kernels take them). Run twice: a
+    warm-up, then the timed run with the launch counts set to 0 just before
+    it; the two volumes must be bit-equal, and their digest the pinned one.
+    Then the MLP kernels on the timed run's own calls against their plain
+    versions (atol 2e-5), the density sigma == the head's on the same enc.
+    Returns the timed run's wall and launches."""
+    import torch
+
+    from nerfjax_torch.extract import extract_volume
+    from nerfjax_torch.ops import fused_mlp as fm
+
+    res = 512
+    cfg = {**TUNED_CFG, "checkpoint": str(ckpt_path), "volume_resolution": res}
+
+    def digest(vol):
+        return _digest(*(torch.from_numpy(np.ascontiguousarray(vol[k])) for k in ("occupancy_volume", "rgb_volume")))
+
+    warm = digest(extract_volume(cfg, device="cuda", dtype=torch.float32, verbose=False))
+    fm.reset_launch_counts()
+    with _recorded((fm, "fused_ngp_density"), (fm, "fused_ngp_head")) as calls:
+        t0 = time.perf_counter()
+        vol = extract_volume(cfg, device="cuda", dtype=torch.float32, verbose=False)
+        wall = time.perf_counter() - t0
+    launches = dict(fm.launch_counts)
+    md, got = vol["metadata"], digest(vol)
+    phase(f"{res}^3 f32 extraction: {wall:.2f} s wall; " + _phases(md) + f"; launches {launches}; occupied "
+          f"{md['occupied_voxels']:,} voxels, threshold {md['threshold']:.6f}; volumes' digest {got} (warm-up run: "
+          f"{warm})")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched by the f32 extraction")
+    if warm != got:
+        raise AssertionError(f"two f32 extractions of one checkpoint differ: digests {warm} and {got}")
+    if HEAD_DIGESTS.get(("f32 extraction", res)) != got:
+        raise AssertionError(f"the f32 extraction's volumes changed: digest {got}, pinned "
+                             f"{HEAD_DIGESTS.get(('f32 extraction', res))}")
+    sizes = []
+    for N, seen in sorted(calls.items()):
+        if "fused_ngp_density" in seen:  # the marking pass: also the head's sigma on the same enc
+            (params, enc), kw = seen["fused_ngp_density"]
+            sigma = fm.fused_ngp_density(params, enc, **kw)
+            _, head_sigma = fm.fused_ngp_head(params, enc, torch.zeros(16, N, dtype=enc.dtype, device=enc.device), **kw)
+            err = float((sigma - fm.fused_ngp_density_plain(params, enc)).abs().max())
+            if enc.dtype != torch.float32 or err > 2e-5 or not torch.equal(sigma, head_sigma):
+                raise AssertionError(f"fused_ngp_density at the f32 extraction (N={N:,}): {enc.dtype}, {err} from "
+                                     "plain, or not the head's sigma")
+            sizes.append(f"density {N:,}")
+        if "fused_ngp_head" in seen:
+            (params, enc, sh), kw = seen["fused_ngp_head"]
+            for a, b in zip(fm.fused_ngp_head(params, enc, sh, **kw), fm.fused_ngp_head_plain(params, enc, sh)):
+                if enc.dtype != torch.float32 or float((a - b).abs().max()) > 2e-5:
+                    raise AssertionError(f"fused_ngp_head at the f32 extraction (N={N:,}): beyond 2e-5 of plain")
+            sizes.append(f"head {N:,}")
+    phase(f"the f32 MLP kernels on the f32 extraction's calls ({', '.join(sizes)}): within atol 2e-5 of plain, the "
+          "density sigma == the head's on the same enc; the volumes equal to the pinned ones and to the warm-up run's")
+    return {"wall_s": wall, "launches": launches}
 
 
 # -- the training path -----------------------------------------------------
@@ -3983,6 +4071,7 @@ def main() -> int:
         synthetic_checkpoint(ckpt_path)
         extract_launches = extract_full(ckpt_path, Path(tmp), k4_shapes)
         card_vs_cpu_128(ckpt_path)
+        f32x = extract_f32(ckpt_path)
     hstats = hash_kernels_vs_plain()
     dense_kernels_vs_plain(hstats)
     hstats["dense_levels_fwd"]["shapes"].update(k4_shapes)
@@ -4092,9 +4181,10 @@ def main() -> int:
             "max_abs_err": stats[name]["max_abs_err"], "ms": stats[name]["ms"],
             "plain_ms": stats[name]["plain_ms"], "bound_ms": bound, "bound_by": by, "library_ms": None,
         })
-        t = stats[name]["f32"]  # the f32 kernel (ngp_head_kernel, ngp_density_kernel): on no main path
-        kernels[-1].update(f32_launches=0, f32_ms=t["ms"], f32_plain_ms=t["plain_ms"], f32_bound_ms=t["bound"][0],
-                           f32_bound_by=t["bound"][1])
+        t = stats[name]["f32"]  # the f32 kernel (ngp_head_kernel, ngp_density_kernel): the f32 extraction's
+        kernels[-1].update(f32_launches=f32x["launches"][name], f32_ms=t["ms"], f32_plain_ms=t["plain_ms"],
+                           f32_bound_ms=t["bound"][0], f32_bound_by=t["bound"][1],
+                           f32_max_abs_err=stats[name]["f32_max_abs_err"], f32_extraction_s=f32x["wall_s"])
         if name == "fused_ngp_head":  # the extra lines: E = 32, 40 and 64, and the eval renders' fine passes
             kernels[-1].update(bit_equal_share=stats[name]["bit_equal_share"], max_err_ulp=stats[name]["max_err_ulp"])
             for E, t in stats[name]["wide"].items():

@@ -24,7 +24,10 @@
 // tensor cores (989 TFLOP/s) would wait on HBM (3.35 TB/s), so the bound is
 // bytes. On the FP32 pipes (67 TFLOP/s, ~20 FLOP/byte) it would be ten
 // times above that line, which is why the bf16 kernels run on the tensor
-// cores.
+// cores. The f32 kernels keep their sums on the FP32 pipes (their results
+// are fixed bit for bit, below), so their bound is operations: 139 us for
+// the head at N = 524,288, E = 24, and their design is about issuing FMAs:
+// in layers 1, 3 and 4 every 16-byte shared-memory load feeds 16 of them.
 //
 // The bf16 kernels: mma.sync.m16n8k16 (bf16 in, f32 accumulate), points as
 // M. A block of 4 warps steps over the points 128 at a time (a grid of as
@@ -54,14 +57,42 @@
 // kernel and refines them with the head kernel under one threshold, so the
 // two sigmas must agree bit for bit. The bf16 kernels both call
 // density_mma() (the same fragments, k-step order and term order; mma is
-// deterministic), the f32 kernels density_features(), whose accumulation
-// order is fixed: ascending fan-in (chunk by chunk), one __fmaf_rn per term.
+// deterministic), the f32 kernels layer1() and the same order of additions
+// in layer 2.
 //
-// The f32 kernels keep one point per thread on FP32 FMAs: every weight
-// staged per block in dynamic shared memory (37.6 KB at E <= 32, 62.2 KB at
-// E = 128) and read as a broadcast, 16 bytes at a time, activations in
-// registers. The first layer walks the encoding in chunks of 32 rows, the
-// 64 sums staying in registers across chunks.
+// The f32 kernels: a grid of as many 128-thread blocks as fit on the card,
+// each staging the weights once (transposed, pack_weights) and walking
+// every gridDim-th step of TILE = 128 points. A step's enc and sh rows are copied into shared memory with
+// cp.async: the density kernel double-buffers enc (the next step's copy is
+// in flight while this one computes); the head, short of shared memory for
+// two, issues the next enc copy once layer 1 has read its tile and the next
+// sh copy once layer 3 has, so each lands during the layers after. Each
+// layer is a register-blocked product: a thread owns 8 outputs x 8 points
+// (layers 1, 3 and 4; 4 x 4 in layer 2), reads a fan-in step's 8 weights
+// and 8 activations with four 16-byte shared loads and issues 64 FMAs; the
+// ReLU'd activations go to a shared buffer [64][128] for the next layer.
+// Layer 5 (3 outputs) and the output take one point a thread; so does the
+// density kernel's layer 2, one row: a serial chain of 64 FMAs a point
+// over W2's row 0, kept contiguous.
+//
+// Measured on an H100 (80GB HBM3, 700 W) at N = 524,288, E = 24: the head
+// at ~59 % of its operations bound, the density kernel at ~47 %, where a
+// loop of FMAs alone reaches 94 % (63 TFLOP/s) from 8 warps an SM. What is
+// left is outside the FMA loops: a warp of the density kernel spends ~52 %
+// of its time in layer 1, ~18 % in the layer-2 chain (its order is fixed)
+// and ~23 % issuing the next tile's cp.async copies, the price of keeping
+// enough copies in flight: one bulk copy (TMA) a row issued by one thread,
+// a warp that only copies, and the copies spread over the chain were all
+// slower; another lane map and loading each step's operands one step ahead
+// moved the times by 0-3 %.
+//
+// Their numerics are those of the plain order of additions, fixed: every
+// sum starts at +0.0f, each term is one __fmaf_rn, and the terms run in
+// ascending fan-in (layer 1 over the encoding's rows 0..E-1, layer 3 over
+// feat then sh). The tiling changes which thread makes a sum, not the order
+// within it, so the outputs are bit for bit those of the first design
+// (HEAD_DIGESTS in chip_smoke.py). No TF32 or bf16 splitting: the f32
+// kernels compute what a caller who asks for f32 expects.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,134 +109,287 @@ constexpr int NOUT = 3;
 constexpr int THREADS = 128;
 
 // ---------------------------------------------------------------------------
-// f32: one point per thread on FP32 FMAs
+// shared by both halves: asynchronous copies into shared memory
 // ---------------------------------------------------------------------------
 
-constexpr int CHUNK = 32;  // rows of the encoding per step of the first layer
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
 
-// Packed f32 weight buffer, written by the wrapper, for an encoding of E
-// rows in C = ceil(E / 32) chunks:
-//   W1 as C chunks of [HID][CHUNK] (chunk c holds fan-in columns 32c..32c+31
-//      of every row, row-major; the columns past E are zero), then
-//   W2 [GEO][HID], W3 [HID][CIN], W4 [HID][HID], W5 [NOUT][HID], row-major
-//      [out][in].
-constexpr int W1_CHUNK = HID * CHUNK;
-constexpr int OFF_W3 = GEO * HID;                 // offsets after W1
-constexpr int OFF_W4 = OFF_W3 + HID * CIN;
-constexpr int OFF_W5 = OFF_W4 + HID * HID;
-constexpr int W_REST = OFF_W5 + NOUT * HID;       // 7,360 floats
-static_assert(W1_CHUNK % 4 == 0 && OFF_W3 % 4 == 0 && W_REST % 4 == 0, "16-byte staging");
+// 16 (4) bytes from global to shared memory, asynchronously; with src_bytes
+// = 0 the destination is filled with zeros (rows past E, points past N).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+// every group but the newest has landed
+__device__ __forceinline__ void cp_async_wait_prior() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
 
-__host__ __device__ constexpr int chunks(int E) { return (E + CHUNK - 1) / CHUNK; }
-__host__ __device__ constexpr int weights_size(int E) { return chunks(E) * W1_CHUNK + W_REST; }  // 9,408 floats at E <= 32
+// ---------------------------------------------------------------------------
+// f32: register-blocked products on the FP32 pipes
+// ---------------------------------------------------------------------------
+
+constexpr int TILE = 128;  // points per step of the f32 kernels: one per thread in layer 5
+static_assert(TILE == THREADS, "layer 5 and the output take one point a thread");
+
+// Packed f32 weight buffer, written by the wrapper: every layer transposed
+// to [in][out], row-major, so that a row holds one fan-in step's weights of
+// consecutive outputs:
+//   W1t [E][HID], then W2t [HID][GEO], W3t [CIN][HID], W4t [HID][HID] and
+//   W5t [HID][4] (its 3 outputs and a zero column, one 16-byte load a step).
+constexpr int OFF_T3 = HID * GEO;  // offsets after W1t
+constexpr int OFF_T4 = OFF_T3 + CIN * HID;
+constexpr int OFF_T5 = OFF_T4 + HID * HID;
+constexpr int T_REST = OFF_T5 + HID * 4;  // 7,424 floats
+static_assert(OFF_T3 % 4 == 0 && OFF_T4 % 4 == 0 && OFF_T5 % 4 == 0 && T_REST % 4 == 0, "16-byte rows");
+
+__host__ __device__ constexpr int weights_size(int E) { return E * HID + T_REST; }  // 8,960 floats at E = 24
+
+// dynamic shared memory of the f32 kernels, in floats. Head: the weights,
+// one enc tile [E][TILE], one sh tile [SHD][TILE], the activations [HID]
+// [TILE] (h, then h2, then h3) and feat [GEO][TILE]. Density: W1t and W2t,
+// two enc tiles, the activations and W2's row 0 (contiguous).
+__host__ __device__ constexpr int f32_smem_floats(int E, bool head) {
+  return head ? weights_size(E) + (E + SHD + HID + GEO) * TILE : E * HID + OFF_T3 + (2 * E + HID) * TILE + HID;
+}
 
 // relu that lets NaN through, as jnp.maximum(x, 0) and torch.relu do
 __device__ __forceinline__ float relu(float v) { return v != v ? v : fmaxf(v, 0.0f); }
 
-// acc + sum_k w[k] * x[k] in ascending k, one __fmaf_rn per term. The
-// weights are read four at a time (one 16-byte shared load feeds four
-// FMAs); every row starts at a multiple of 4 floats in the packed buffer.
-template <int IN>
-__device__ __forceinline__ float dot_row(const float* w, const float (&x)[IN], float acc) {
-  static_assert(IN % 4 == 0, "fan-in must be a multiple of 4");
-  const float4* w4 = reinterpret_cast<const float4*>(w);
+// the same relu in one instruction, for values that come out of FMAs: max.NaN
+// returns the canonical NaN where its input is NaN, and an FMA's NaN result
+// is the canonical one already
+__device__ __forceinline__ float relu_sum(float v) {
+  float r;
+  asm("max.NaN.f32 %0, %1, 0f00000000;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// A thread's tile of a layer: TO consecutive outputs o0.. by TP points,
+// TP / 4 runs of 4 at p0 + r * TILE / 2 (TP = 8: p0.. and p0 + 64..; TP =
+// 4: p0..). The callers give each half-warp 2 groups of outputs by 8 runs
+// of points, so its 16-byte loads of a row touch at most 128 contiguous
+// bytes (an H100 serves a half-warp's 16-byte loads in one 128-byte
+// wavefront when they read at most 8 distinct chunks, in two at 16).
+template <int TO, int TP>
+struct Tile {
+  static_assert(TO % 4 == 0 && (TP == 4 || TP == 8), "16-byte loads");
+  float acc[TO][TP];
+
+  __device__ __forceinline__ void zero() {
 #pragma unroll
-  for (int k = 0; k < IN / 4; ++k) {
-    const float4 v = w4[k];
-    acc = __fmaf_rn(v.x, x[4 * k + 0], acc);
-    acc = __fmaf_rn(v.y, x[4 * k + 1], acc);
-    acc = __fmaf_rn(v.z, x[4 * k + 2], acc);
-    acc = __fmaf_rn(v.w, x[4 * k + 3], acc);
+    for (int i = 0; i < TO; ++i)
+#pragma unroll
+      for (int j = 0; j < TP; ++j) acc[i][j] = 0.0f;
   }
-  return acc;
-}
 
-// rows k0..k0+31 of enc at point n (zero past E)
-__device__ __forceinline__ void load_chunk(const float* __restrict__ enc, int E, int64_t N, int64_t n, int k0,
-                                           float (&x)[CHUNK]) {
+  // one fan-in step: acc[i][j] += w[i] * a[j], one __fmaf_rn per term; w:
+  // the step's row of a transposed weight matrix at o0 (16-byte loads), a:
+  // the step's activation row at p0
+  __device__ __forceinline__ void step(const float* w, const float* a) {
+    float wv[TO], av[TP];
 #pragma unroll
-  for (int k = 0; k < CHUNK; ++k) x[k] = k0 + k < E ? enc[(k0 + k) * N + n] : 0.0f;
-}
-
-// The shared W1 -> W2 stage: the first ROWS rows of feat. Row r is computed
-// the same way whatever ROWS is, so feat[0] is bit-identical in both
-// kernels. The chunk loop is not unrolled: its weight addresses move with
-// the chunk, so nothing is hoisted out of it.
-template <int ROWS>
-__device__ __forceinline__ void density_features(const float* __restrict__ enc, int E, int64_t N, int64_t n,
-                                                 const float* sw, float (&feat)[ROWS]) {
-  float h[HID];
+    for (int i = 0; i < TO / 4; ++i) {
+      const float4 v = reinterpret_cast<const float4*>(w)[i];
+      wv[4 * i] = v.x, wv[4 * i + 1] = v.y, wv[4 * i + 2] = v.z, wv[4 * i + 3] = v.w;
+    }
 #pragma unroll
-  for (int o = 0; o < HID; ++o) h[o] = 0.0f;
-  const int C = chunks(E);
-#pragma unroll 1
-  for (int c = 0; c < C; ++c) {
-    float x[CHUNK];
-    load_chunk(enc, E, N, n, c * CHUNK, x);
-    const float* w1 = sw + c * W1_CHUNK;
+    for (int r = 0; r < TP / 4; ++r) {
+      const float4 v = *reinterpret_cast<const float4*>(a + r * (TILE / 2));
+      av[4 * r] = v.x, av[4 * r + 1] = v.y, av[4 * r + 2] = v.z, av[4 * r + 3] = v.w;
+    }
 #pragma unroll
-    for (int o = 0; o < HID; ++o) h[o] = dot_row<CHUNK>(w1 + o * CHUNK, x, h[o]);
+    for (int i = 0; i < TO; ++i)
+#pragma unroll
+      for (int j = 0; j < TP; ++j) acc[i][j] = __fmaf_rn(wv[i], av[j], acc[i][j]);
   }
+
+  // K fan-in steps in ascending order over rows [K][OUT] of a transposed
+  // weight matrix (from wt + o0) and rows [K][TILE] of activations (from
+  // act + p0). Unrolled by 4, not fully: the kernels' code stays small.
+  template <int OUT>
+  __device__ __forceinline__ void product(int K, const float* wt, const float* act) {
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) step(wt + k * OUT, act + k * TILE);
+  }
+
+  // relu(acc) into rows o0.. of dst [*][TILE] at the thread's points
+  __device__ __forceinline__ void store_relu(float* dst, int o0, int p0) const {
 #pragma unroll
-  for (int o = 0; o < HID; ++o) h[o] = relu(h[o]);
-  const float* w2 = sw + C * W1_CHUNK;
+    for (int i = 0; i < TO; ++i)
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) feat[r] = relu(dot_row<HID>(w2 + r * HID, h, 0.0f));
+      for (int r = 0; r < TP / 4; ++r)
+        *reinterpret_cast<float4*>(dst + (o0 + i) * TILE + p0 + r * (TILE / 2)) =
+            make_float4(relu_sum(acc[i][4 * r]), relu_sum(acc[i][4 * r + 1]), relu_sum(acc[i][4 * r + 2]),
+                        relu_sum(acc[i][4 * r + 3]));
+  }
+};
+
+// The 8 x 8 tiles of a 64-output layer: 8 groups of outputs by 16 of
+// points; a warp holds 4 groups of outputs by 8 of points (lane / 8, lane
+// % 8), the two warps of one half of the outputs the two halves of the
+// points.
+struct Wide {
+  int o0, p0;
+  __device__ __forceinline__ Wide()
+      : o0((threadIdx.x / 64 * 4 + threadIdx.x % 32 / 8) * 8), p0((threadIdx.x / 32 % 2 * 8 + threadIdx.x % 8) * 4) {}
+};
+
+// Layer 1 into act [HID][TILE]: h = relu(W1 . enc) over the encoding's E
+// rows in ascending order. Shared by both kernels with the same tiles, so
+// the two compute every h bit for bit alike.
+__device__ __forceinline__ void layer1(const float* w1t, const float* senc, int E, float* act) {
+  const Wide t;
+  Tile<8, 8> h;
+  h.zero();
+  h.product<HID>(E, w1t + t.o0, senc + t.p0);
+  h.store_relu(act, t.o0, t.p0);
 }
 
-// Copy the first `count` floats of the packed weights into shared memory.
-// One point per thread and no loop over points: a loop would let the
-// compiler hoist the (loop-invariant) weight loads into registers, which
-// spills thousands of values.
-__device__ __forceinline__ void stage_weights(const float* __restrict__ w, float* sw, int count) {
-  const float4* src = reinterpret_cast<const float4*>(w);
-  float4* dst = reinterpret_cast<float4*>(sw);
-  for (int i = threadIdx.x; i < count / 4; i += blockDim.x) dst[i] = src[i];
-  __syncthreads();
+// Rows [0, rows) of src [rows, N] at points n0.. into dst [rows][TILE],
+// zeros at points >= N, with cp.async: 16 bytes a copy where every row
+// starts on a 16-byte boundary (vec: N % 4 == 0 and src aligned), else 4.
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src, int rows, int64_t N,
+                                           int64_t n0, bool vec) {
+  if (vec) {
+    constexpr int PIECES = TILE / 4;
+    for (int i = threadIdx.x; i < rows * PIECES; i += THREADS) {
+      const int k = i / PIECES, p = i % PIECES * 4;
+      const bool in = n0 + p < N;
+      cp_async16(dst + k * TILE + p, in ? src + k * N + n0 + p : src, in ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * TILE; i += THREADS) {
+      const int k = i / TILE, p = i % TILE;
+      const bool in = n0 + p < N;
+      cp_async4(dst + k * TILE + p, in ? src + k * N + n0 + p : src, in ? 4 : 0);
+    }
+  }
 }
+
+// The first `count` floats of the packed weights (a multiple of 4), once per block
+__device__ __forceinline__ void stage_weights(float* dst, const float* __restrict__ src, int count) {
+  for (int i = threadIdx.x; i < count / 4; i += THREADS) cp_async16(dst + 4 * i, src + 4 * i, 16);
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 __global__ void __launch_bounds__(THREADS)
 ngp_head_kernel(const float* __restrict__ enc, const float* __restrict__ sh, const float* __restrict__ w,
                 float* __restrict__ out, int E, int64_t N) {
-  extern __shared__ float4 smem[];  // weights_size(E) floats
-  float* sw = reinterpret_cast<float*>(smem);
-  stage_weights(w, sw, weights_size(E));
-  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;  // the ragged edge: no padding
-  float feat[GEO];
-  density_features(enc, E, N, n, sw, feat);
-  const float* rest = sw + chunks(E) * W1_CHUNK;
+  extern __shared__ float4 smem_f32[];  // f32_smem_floats(E, true)
+  float* sw = reinterpret_cast<float*>(smem_f32);
+  float* senc = sw + weights_size(E);
+  float* ssh = senc + E * TILE;
+  float* act = ssh + SHD * TILE;
+  float* feat = act + HID * TILE;
+  const float* w2t = sw + E * HID;
+  const float* w3t = w2t + OFF_T3;
+  const float* w4t = w2t + OFF_T4;
+  const float* w5t = w2t + OFF_T5;
+  const Wide t;
+  const int o4 = threadIdx.x % 32 / 8 * 4, p4 = (threadIdx.x / 32 * 8 + threadIdx.x % 8) * 4;  // layer 2: 4 x 4 tiles, 4 by 32
+  const bool vec = N % 4 == 0 && aligned16(enc) && aligned16(sh);
+  const int64_t steps = (N + TILE - 1) / TILE;
 
-  float x2[CIN];
-#pragma unroll
-  for (int k = 0; k < GEO; ++k) x2[k] = feat[k];
-#pragma unroll
-  for (int k = 0; k < SHD; ++k) x2[GEO + k] = sh[k * N + n];
-  float h2[HID];
-#pragma unroll
-  for (int o = 0; o < HID; ++o) h2[o] = relu(dot_row<CIN>(rest + OFF_W3 + o * CIN, x2, 0.0f));
-  float h3[HID];
-#pragma unroll
-  for (int o = 0; o < HID; ++o) h3[o] = relu(dot_row<HID>(rest + OFF_W4 + o * HID, h2, 0.0f));
-#pragma unroll
-  for (int c = 0; c < NOUT; ++c) {
-    const float z = dot_row<HID>(rest + OFF_W5 + c * HID, h3, 0.0f);
-    out[c * N + n] = 1.0f / (1.0f + expf(-z));
+  stage_weights(sw, w, weights_size(E));
+  if (blockIdx.x < steps) {
+    stage_rows(senc, enc, E, N, (int64_t)blockIdx.x * TILE, vec);
+    stage_rows(ssh, sh, SHD, N, (int64_t)blockIdx.x * TILE, vec);
   }
-  out[NOUT * N + n] = feat[0];
+  cp_async_commit();
+  for (int64_t c = blockIdx.x; c < steps; c += gridDim.x) {
+    const int64_t n0 = c * TILE, next = (c + gridDim.x) * TILE;
+    cp_async_wait_all();  // this step's enc and sh (and, first, the weights)
+    __syncthreads();
+    layer1(sw, senc, E, act);
+    __syncthreads();
+    if (next < N) stage_rows(senc, enc, E, N, next, vec);  // lands during layers 2-5
+    cp_async_commit();
+
+    Tile<4, 4> f;  // feat = relu(W2 . h)
+    f.zero();
+    f.product<GEO>(HID, w2t + o4, act + p4);
+    f.store_relu(feat, o4, p4);
+    __syncthreads();
+
+    Tile<8, 8> h2;  // h2 = relu(W3 . [feat; sh])
+    h2.zero();
+    h2.product<HID>(GEO, w3t + t.o0, feat + t.p0);
+    h2.product<HID>(SHD, w3t + GEO * HID + t.o0, ssh + t.p0);
+    h2.store_relu(act, t.o0, t.p0);
+    __syncthreads();
+    if (next < N) stage_rows(ssh, sh, SHD, N, next, vec);  // lands during layers 4-5 and the next layer 1
+    cp_async_commit();
+
+    Tile<8, 8> h3;  // h3 = relu(W4 . h2), into act once every thread has read h2
+    h3.zero();
+    h3.product<HID>(HID, w4t + t.o0, act + t.p0);
+    __syncthreads();
+    h3.store_relu(act, t.o0, t.p0);
+    __syncthreads();
+
+    const int p = threadIdx.x;  // rgb = sigmoid(W5 . h3), one point a thread
+    float z0 = 0.0f, z1 = 0.0f, z2 = 0.0f;
+#pragma unroll 8
+    for (int k = 0; k < HID; ++k) {
+      const float4 wk = reinterpret_cast<const float4*>(w5t)[k];
+      const float a = act[k * TILE + p];
+      z0 = __fmaf_rn(wk.x, a, z0);
+      z1 = __fmaf_rn(wk.y, a, z1);
+      z2 = __fmaf_rn(wk.z, a, z2);
+    }
+    if (n0 + p < N) {  // the ragged edge: no padding
+      out[n0 + p] = 1.0f / (1.0f + expf(-z0));
+      out[N + n0 + p] = 1.0f / (1.0f + expf(-z1));
+      out[2 * N + n0 + p] = 1.0f / (1.0f + expf(-z2));
+      out[NOUT * N + n0 + p] = feat[p];  // sigma = feat row 0
+    }
+  }
 }
 
 __global__ void __launch_bounds__(THREADS)
 ngp_density_kernel(const float* __restrict__ enc, const float* __restrict__ w, float* __restrict__ out, int E,
                    int64_t N) {
-  extern __shared__ float4 smem[];  // W1 and W2 only
-  float* sw = reinterpret_cast<float*>(smem);
-  stage_weights(w, sw, chunks(E) * W1_CHUNK + OFF_W3);
-  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  float feat[1];
-  density_features(enc, E, N, n, sw, feat);
-  out[n] = feat[0];
+  extern __shared__ float4 smem_f32[];  // f32_smem_floats(E, false)
+  float* sw = reinterpret_cast<float*>(smem_f32);
+  float* senc = sw + E * HID + OFF_T3;  // two tiles: step i in senc + (i % 2) * E * TILE
+  float* act = senc + 2 * E * TILE;
+  float* w2r = act + HID * TILE;  // W2 row 0, contiguous
+  if (threadIdx.x < HID) w2r[threadIdx.x] = w[E * HID + threadIdx.x * GEO];
+  const bool vec = N % 4 == 0 && aligned16(enc);
+  const int64_t steps = (N + TILE - 1) / TILE;
+
+  stage_weights(sw, w, E * HID + OFF_T3);
+  if (blockIdx.x < steps) stage_rows(senc, enc, E, N, (int64_t)blockIdx.x * TILE, vec);
+  cp_async_commit();
+  int buf = 0;
+  for (int64_t c = blockIdx.x; c < steps; c += gridDim.x, buf ^= 1) {
+    const int64_t n0 = c * TILE, next = (c + gridDim.x) * TILE;
+    // the next step's tile into the other buffer, whose last reader (layer
+    // 1 of the step before) is behind the barrier that followed it
+    if (next < N) stage_rows(senc + (buf ^ 1) * E * TILE, enc, E, N, next, vec);
+    cp_async_commit();
+    cp_async_wait_prior();  // this step's tile
+    __syncthreads();
+    layer1(sw, senc + buf * E * TILE, E, act);
+    __syncthreads();
+    const int p = threadIdx.x;  // sigma = relu(W2 row 0 . h), one point a thread
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < HID; k += 4) {
+      const float4 wk = *reinterpret_cast<const float4*>(w2r + k);
+      s = __fmaf_rn(wk.x, act[k * TILE + p], s);
+      s = __fmaf_rn(wk.y, act[(k + 1) * TILE + p], s);
+      s = __fmaf_rn(wk.z, act[(k + 2) * TILE + p], s);
+      s = __fmaf_rn(wk.w, act[(k + 3) * TILE + p], s);
+    }
+    if (n0 + p < N) out[n0 + p] = relu_sum(s);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -242,18 +426,6 @@ __host__ __device__ constexpr size_t mma_smem_bytes(int E, bool head) {
   return 2 * (size_t)((head ? bf16_weights_size(E) : pad16(E) * HID + OFF_B3) + pad16(E) * PITCH +
                       (head ? SHD * PITCH + 4 * MMA_POINTS : MMA_POINTS));
 }
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, asynchronously; with src_bytes =
-// 0 the destination is filled with zeros (rows past E, points past N).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -523,36 +695,25 @@ ngp_density_mma_kernel(const __nv_bfloat16* __restrict__ enc, const __nv_bfloat1
 // launches
 // ---------------------------------------------------------------------------
 
-// Launch with `bytes` of dynamic shared memory. Above 48 KB a kernel may
-// take them only after its limit is raised; the limit is set before every
-// launch, as it holds per device and context and costs nothing beside the
-// launch.
+// Every kernel's grid: as many blocks as fit on the card at once (each
+// walks every gridDim-th step of its points), fewer for a short N, with
+// `bytes` of dynamic shared memory. Above 48 KB a kernel may take them only
+// after its limit is raised; the limit is set before every launch, as it
+// holds per device and context and costs nothing beside the launch.
 template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, int grid, size_t bytes, cudaStream_t s, Args... args) {
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (e != cudaSuccess) return e;
-  kernel<<<grid, THREADS, bytes, s>>>(args...);
-  return cudaGetLastError();
-}
-
-// The bf16 kernels' grid: as many blocks as fit on the card at once (each
-// walks every gridDim-th step of MMA_POINTS points), fewer for a short N.
-template <typename Kernel, typename... Args>
-cudaError_t launch_mma(Kernel kernel, int64_t N, size_t bytes, cudaStream_t s, Args... args) {
+cudaError_t launch_persistent(Kernel kernel, int64_t steps, size_t bytes, cudaStream_t s, Args... args) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   int dev = 0, sms = 0, per_sm = 0;
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, bytes);
   if (e != cudaSuccess) return e;
-  const int64_t steps = (N + MMA_POINTS - 1) / MMA_POINTS;
   const int grid = static_cast<int>(steps < (int64_t)sms * per_sm ? steps : (int64_t)sms * per_sm);
   kernel<<<grid > 0 ? grid : 1, THREADS, bytes, s>>>(args...);
   return cudaGetLastError();
 }
 
-int f32_grid(int64_t N) { return static_cast<int>((N + THREADS - 1) / THREADS); }  // one point per thread
+int64_t steps_of(int64_t N, int points) { return (N + points - 1) / points; }
 
 }  // namespace
 
@@ -574,7 +735,23 @@ extern "C" int nerf_fused_weights_size(int E, int is_bf16) {
 extern "C" int nerf_fused_smem_bytes(int E, int is_bf16, int density) {
   if (E < 1 || E > EMAX) return -1;
   if (is_bf16) return static_cast<int>(mma_smem_bytes(E, !density));
-  return static_cast<int>(sizeof(float) * (density ? chunks(E) * W1_CHUNK + OFF_W3 : weights_size(E)));
+  return static_cast<int>(sizeof(float) * f32_smem_floats(E, !density));
+}
+
+// blocks of the head (density = 0) or density kernel that fit on one SM at
+// once (the persistent grid is this many times the SMs); -1 outside
+// 1..EMAX, -2 - the CUDA error where the query fails
+extern "C" int nerf_fused_blocks_per_sm(int E, int is_bf16, int density) {
+  if (E < 1 || E > EMAX) return -1;
+  const int bytes = nerf_fused_smem_bytes(E, is_bf16, density);
+  const void* kernel = is_bf16 ? (density ? reinterpret_cast<const void*>(ngp_density_mma_kernel)
+                                          : reinterpret_cast<const void*>(ngp_head_mma_kernel))
+                               : (density ? reinterpret_cast<const void*>(ngp_density_kernel)
+                                          : reinterpret_cast<const void*>(ngp_head_kernel));
+  int per_sm = 0;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, bytes);
+  return e == cudaSuccess ? per_sm : -2 - static_cast<int>(e);
 }
 
 extern "C" int nerf_fused_head(const void* enc, const void* sh, const void* w, void* out, int E, int64_t N,
@@ -582,13 +759,15 @@ extern "C" int nerf_fused_head(const void* enc, const void* sh, const void* w, v
   if (E < 1 || E > EMAX) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    return static_cast<int>(launch_mma(ngp_head_mma_kernel, N, mma_smem_bytes(E, true), s,
-                                       static_cast<const __nv_bfloat16*>(enc), static_cast<const __nv_bfloat16*>(sh),
-                                       static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(out), E, N));
+    return static_cast<int>(launch_persistent(ngp_head_mma_kernel, steps_of(N, MMA_POINTS), mma_smem_bytes(E, true),
+                                              s, static_cast<const __nv_bfloat16*>(enc),
+                                              static_cast<const __nv_bfloat16*>(sh),
+                                              static_cast<const __nv_bfloat16*>(w),
+                                              static_cast<__nv_bfloat16*>(out), E, N));
   }
-  return static_cast<int>(launch(ngp_head_kernel, f32_grid(N), sizeof(float) * weights_size(E), s,
-                                 static_cast<const float*>(enc), static_cast<const float*>(sh),
-                                 static_cast<const float*>(w), static_cast<float*>(out), E, N));
+  return static_cast<int>(launch_persistent(ngp_head_kernel, steps_of(N, TILE), sizeof(float) * f32_smem_floats(E, true),
+                                            s, static_cast<const float*>(enc), static_cast<const float*>(sh),
+                                            static_cast<const float*>(w), static_cast<float*>(out), E, N));
 }
 
 extern "C" int nerf_fused_density(const void* enc, const void* w, void* out, int E, int64_t N, int is_bf16,
@@ -596,11 +775,13 @@ extern "C" int nerf_fused_density(const void* enc, const void* w, void* out, int
   if (E < 1 || E > EMAX) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    return static_cast<int>(launch_mma(ngp_density_mma_kernel, N, mma_smem_bytes(E, false), s,
-                                       static_cast<const __nv_bfloat16*>(enc), static_cast<const __nv_bfloat16*>(w),
-                                       static_cast<__nv_bfloat16*>(out), E, N));
+    return static_cast<int>(launch_persistent(ngp_density_mma_kernel, steps_of(N, MMA_POINTS),
+                                              mma_smem_bytes(E, false), s, static_cast<const __nv_bfloat16*>(enc),
+                                              static_cast<const __nv_bfloat16*>(w),
+                                              static_cast<__nv_bfloat16*>(out), E, N));
   }
-  return static_cast<int>(launch(ngp_density_kernel, f32_grid(N), sizeof(float) * (chunks(E) * W1_CHUNK + OFF_W3),
-                                 s, static_cast<const float*>(enc), static_cast<const float*>(w),
-                                 static_cast<float*>(out), E, N));
+  return static_cast<int>(launch_persistent(ngp_density_kernel, steps_of(N, TILE),
+                                            sizeof(float) * f32_smem_floats(E, false), s,
+                                            static_cast<const float*>(enc), static_cast<const float*>(w),
+                                            static_cast<float*>(out), E, N));
 }

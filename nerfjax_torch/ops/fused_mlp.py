@@ -26,7 +26,10 @@ The bf16 kernels run on the tensor cores (``mma.sync``, bf16 in, f32
 accumulate). A float32 activation ``a`` enters layers 2-5 as three bf16
 terms (``split3_bf16``) whose products with the bf16 weights are exact, so
 they compute the same function as the plain version with another order of
-additions. The f32 kernels run one point per thread on FP32 FMAs.
+additions. The f32 kernels run register-blocked products on FP32 FMAs
+(a thread owns 8 outputs x 8 points of a layer), every sum in the plain
+order of additions (ascending fan-in, one fused multiply-add per term), so
+their outputs are fixed bit for bit.
 """
 
 from __future__ import annotations
@@ -40,8 +43,11 @@ HIDDEN = 64
 GEO = 16
 SH = 16
 E_MAX = 128
-CHUNK = 32  # W1's fan-in columns per chunk of the packed f32 buffer
-W_REST = GEO * HIDDEN + (GEO + SH) * HIDDEN + HIDDEN * HIDDEN + 3 * HIDDEN  # W2..W5, f32 buffer
+# W2..W5 of the f32 buffer, transposed: W5's 3 outputs padded to 4 (one 16-byte load a fan-in step)
+W_REST = GEO * HIDDEN + (GEO + SH) * HIDDEN + HIDDEN * HIDDEN + 4 * HIDDEN
+F32_TILE = 128  # points per step of the f32 kernels (TILE in csrc/fused_mlp.cu)
+MMA_POINTS = 128  # points per step of the bf16 kernels
+MMA_PITCH = MMA_POINTS + 8  # bf16 per staged row of the bf16 kernels (PITCH)
 # W2..W5 of the bf16 buffer, each zero-padded to whole m16n8k16 B fragments
 # (fan-in a multiple of 16, fan-out of 8): W5's 3 outputs become 8
 B_REST = GEO * HIDDEN + (GEO + SH) * HIDDEN + HIDDEN * HIDDEN + 8 * HIDDEN
@@ -152,10 +158,14 @@ def _lib() -> ctypes.CDLL:
     lib.nerf_fused_max_width.argtypes, lib.nerf_fused_max_width.restype = [], i32
     lib.nerf_fused_weights_size.argtypes, lib.nerf_fused_weights_size.restype = [i32, i32], i32
     lib.nerf_fused_smem_bytes.argtypes, lib.nerf_fused_smem_bytes.restype = [i32, i32, i32], i32
+    lib.nerf_fused_blocks_per_sm.argtypes, lib.nerf_fused_blocks_per_sm.restype = [i32, i32, i32], i32
     if lib.nerf_fused_max_width() != E_MAX or any(
             lib.nerf_fused_weights_size(E, int(dt == torch.bfloat16)) != weights_size(E, dt)
             for E in (1, 16, 17, 24, 32, 33, 64, 65, E_MAX) for dt in _DTYPES):
         raise RuntimeError("fused_mlp.cu and fused_mlp.py disagree on the weight layout")
+    if any(lib.nerf_fused_smem_bytes(E, int(dt == torch.bfloat16), int(density)) != smem_bytes(E, dt, density)
+           for E in range(1, E_MAX + 1) for dt in _DTYPES for density in (False, True)):
+        raise RuntimeError("fused_mlp.cu and fused_mlp.py disagree on the kernels' shared memory")
     return lib
 
 
@@ -168,7 +178,26 @@ def weights_size(E: int, dtype: torch.dtype) -> int:
     ``dtype``: floats (f32) or bf16 values (bf16); see ``pack_weights``."""
     if dtype == torch.bfloat16:
         return HIDDEN * _pad16(E) + B_REST
-    return HIDDEN * CHUNK * -(-E // CHUNK) + W_REST
+    return HIDDEN * E + W_REST
+
+
+def smem_bytes(E: int, dtype: torch.dtype, density: bool = False) -> int:
+    """Dynamic shared memory of one block of the head (or the density)
+    kernel for an encoding of E rows of ``dtype``, in bytes: the library's
+    ``nerf_fused_smem_bytes``, which the loader holds equal to this for
+    every E. f32 head: the weights, one enc tile [E, 128], one sh tile [16,
+    128], the activations [64, 128] and feat [16, 128]; f32 density: W1
+    and W2, two enc tiles, the activations and W2's row 0 (64 floats).
+    bf16: the weights, the enc
+    tile [pad16(E), 136] and the output tile (head: the sh tile, 4 rows of
+    output; density: 1 row)."""
+    if dtype == torch.bfloat16:
+        w = HIDDEN * _pad16(E) + (B_REST if not density else GEO * HIDDEN)
+        tiles = _pad16(E) * MMA_PITCH + (MMA_POINTS if density else SH * MMA_PITCH + 4 * MMA_POINTS)
+        return 2 * (w + tiles)
+    if density:
+        return 4 * (HIDDEN * E + GEO * HIDDEN + (2 * E + HIDDEN) * F32_TILE + HIDDEN)
+    return 4 * (weights_size(E, torch.float32) + (E + SH + HIDDEN + GEO) * F32_TILE)
 
 
 def _fragments(w: torch.Tensor, fan_in: int, fan_out: int) -> torch.Tensor:
@@ -188,10 +217,11 @@ def pack_weights(params: dict, dtype: torch.dtype, device) -> torch.Tensor:
     field are constant, so a caller packs them once and passes the buffer
     as the wrappers' ``packed``.
 
-    float32 (the FP32 kernels): W1 [64, E] zero-padded to C = ceil(E / 32)
-    chunks of 32 fan-in columns and laid out chunk by chunk, each chunk [64,
-    32] row-major (at E <= 32 simply W1 [64, 32]); then W2, W3, W4, W5, each
-    row-major [out, in].
+    float32 (the FP32 kernels): every layer transposed to [in, out],
+    row-major, one after the other: W1 [E, 64], W2 [64, 16], W3 [32, 64],
+    W4 [64, 64], then W5 [64, 4] with its 3 outputs and a zero column; a
+    fan-in step's weights of consecutive outputs are contiguous, which the
+    kernels read 16 bytes at a time.
 
     bfloat16 (the tensor-core kernels): each of W1..W5 in m16n8k16 B-fragment
     order (``_fragments``), one after the other: W1 with its fan-in padded
@@ -203,11 +233,9 @@ def pack_weights(params: dict, dtype: torch.dtype, device) -> torch.Tensor:
     if dtype == torch.bfloat16:
         pads = [(_pad16(E), HIDDEN), (HIDDEN, GEO), (GEO + SH, HIDDEN), (HIDDEN, HIDDEN), (HIDDEN, 8)]
         return torch.cat([_fragments(w.to(torch.bfloat16), *pad) for w, pad in zip(ws, pads)]).contiguous()
-    C = -(-E // CHUNK)
-    w1 = torch.zeros(HIDDEN, C * CHUNK, dtype=torch.float32, device=device)
-    w1[:, :E] = ws[0]
-    w1 = w1.reshape(HIDDEN, C, CHUNK).transpose(0, 1)
-    return torch.cat([w1.reshape(-1)] + [w.reshape(-1) for w in ws[1:]]).contiguous()
+    w5 = torch.zeros(HIDDEN, 4, dtype=torch.float32, device=device)
+    w5[:, :3] = ws[4].T
+    return torch.cat([w.T.reshape(-1) for w in ws[:4]] + [w5.reshape(-1)]).contiguous()
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:

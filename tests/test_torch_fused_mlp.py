@@ -128,11 +128,11 @@ def _unfragment(buf: torch.Tensor, fan_in: int, fan_out: int) -> torch.Tensor:
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_pack_weights_layout(dt):
-    """The kernels' buffer at E = 24. f32 (the OFF_W* offsets of
-    csrc/fused_mlp.cu): W1..W5 row-major [out, in] in float32, W1's fan-in
-    zero-padded to 32. bf16 (the OFF_B* offsets): W1..W5 in bf16, each in
-    mma B-fragment order, W1's fan-in zero-padded to 32 and W5's 3 outputs
-    to 8."""
+    """The kernels' buffer at E = 24. f32 (the OFF_T* offsets of
+    csrc/fused_mlp.cu): W1..W5 transposed, row-major [in, out] in float32,
+    W5's 3 outputs padded with a zero column to 4. bf16 (the OFF_B*
+    offsets): W1..W5 in bf16, each in mma B-fragment order, W1's fan-in
+    zero-padded to 32 and W5's 3 outputs to 8."""
     _, tdt = DTYPES[dt]
     params = _params(24, seed=11)
     buf = fused_mlp.pack_weights(_torch_params(params), tdt, "cpu")
@@ -140,14 +140,13 @@ def test_pack_weights_layout(dt):
     ws = [params["dmlp"][0]["w"], params["dmlp"][1]["w"]] + [l["w"] for l in params["cmlp"]]
     off = 0
     if dt == "f32":
-        w1 = buf[: 64 * 32].reshape(64, 32)
-        assert not w1[:, 24:].any()
         for i, w in enumerate(ws):
-            rounded = torch.from_numpy(w.T.copy())
-            got = w1[:, :24] if i == 0 else buf[off : off + w.size].reshape(w.shape[1], w.shape[0])
-            assert torch.equal(got, rounded)
-            off += 64 * 32 if i == 0 else w.size
-        assert off == fused_mlp.weights_size(24, tdt) == 9408
+            cols = 4 if i == 4 else w.shape[1]
+            got = buf[off : off + w.shape[0] * cols].reshape(w.shape[0], cols)
+            assert torch.equal(got[:, : w.shape[1]], torch.from_numpy(w))
+            assert not got[:, w.shape[1] :].any()
+            off += w.shape[0] * cols
+        assert off == fused_mlp.weights_size(24, tdt) == 8960
         return
     for w, (fan_in, fan_out) in zip(ws, [(32, 64), (64, 16), (32, 64), (64, 64), (64, 8)]):
         got = _unfragment(buf[off : off + fan_in * fan_out], fan_in, fan_out)
@@ -161,21 +160,19 @@ def test_pack_weights_layout(dt):
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("E", [33, 40, 64, 100, 128])
 def test_pack_weights_chunks_wide_encodings(E, dt):
-    """f32: above E = 32, W1 is packed as ceil(E / 32) chunks of [64, 32]
-    (fan-in columns 32c..32c+31 of every row), zero past E, and W2..W5
-    follow. bf16: W1's fan-in is padded to a multiple of 16 (ceil(E / 16)
-    k16 steps of fragments), zero past E, and W2..W5 follow."""
+    """f32: W1 is packed transposed, [E, 64] with no padding at any E, and
+    W2..W5 follow. bf16: W1's fan-in is padded to a multiple of 16
+    (ceil(E / 16) k16 steps of fragments), zero past E, and W2..W5
+    follow."""
     _, tdt = DTYPES[dt]
     params = _params(E, seed=E)
     buf = fused_mlp.pack_weights(_torch_params(params), tdt, "cpu")
     w1_ref = torch.from_numpy(params["dmlp"][0]["w"].T.copy()).to(tdt)
     w2_ref = torch.from_numpy(params["dmlp"][1]["w"].T.copy()).to(tdt)
     if dt == "f32":
-        C = -(-E // 32)
-        assert buf.shape == (fused_mlp.weights_size(E, tdt),) == (C * 64 * 32 + 7360,)
-        w1 = buf[: C * 64 * 32].reshape(C, 64, 32)
-        full = torch.cat(list(w1.unbind(0)), dim=1)  # [64, 32 C]
-        w2 = buf[C * 64 * 32 : C * 64 * 32 + 16 * 64].reshape(16, 64)
+        assert buf.shape == (fused_mlp.weights_size(E, tdt),) == (E * 64 + 7424,)
+        full = buf[: E * 64].reshape(E, 64).T
+        w2 = buf[E * 64 : E * 64 + 64 * 16].reshape(64, 16).T
     else:
         E16 = -(-E // 16) * 16
         assert buf.shape == (fused_mlp.weights_size(E, tdt),) == (E16 * 64 + 7680,)
@@ -206,6 +203,58 @@ def test_bf16_pack_decodes_to_the_weights(E):
         assert torch.equal(got, want)
         off += fan_in * fan_out
     assert off == buf.numel()
+
+
+def _kernel_model_f32(buf: torch.Tensor, enc: torch.Tensor, sh: torch.Tensor):
+    """(rgb, sigma) in float64, reading the packed f32 buffer at the offsets
+    the f32 kernels read it (W1t at k * 64 + o, then W2t, W3t, W4t, W5t at
+    the OFF_T* offsets, W5t's rows 4 wide)."""
+    E = enc.shape[0]
+    b = buf.to(torch.float64)
+    w1t = b[: E * 64].reshape(E, 64)
+    rest = b[E * 64 :]
+    w2t = rest[:1024].reshape(64, 16)
+    w3t = rest[1024:3072].reshape(32, 64)
+    w4t = rest[3072:7168].reshape(64, 64)
+    w5t = rest[7168:7424].reshape(64, 4)
+    h = torch.relu(w1t.T @ enc.to(torch.float64))
+    feat = torch.relu(w2t.T @ h)
+    h2 = torch.relu(w3t.T @ torch.cat([feat, sh.to(torch.float64)]))
+    h3 = torch.relu(w4t.T @ h2)
+    return torch.sigmoid(w5t.T @ h3)[:3], feat[0]
+
+
+@pytest.mark.parametrize("E", [1, 24, 33, 128])
+def test_f32_pack_read_as_the_kernels_read_it(E):
+    """A float64 model of the f32 kernels that reads the packed buffer at
+    their offsets computes the plain version's outputs (atol 2e-5: float32
+    rounding only), so the buffer's layout and the kernels' indexing agree."""
+    tp = _torch_params(_params(E, seed=40 + E))
+    enc, sh = (torch.from_numpy(a) for a in _inputs(E, 257, seed=41 + E))
+    buf = fused_mlp.pack_weights(tp, torch.float32, "cpu")
+    rgb_m, sig_m = _kernel_model_f32(buf, enc, sh)
+    rgb_p, sig_p = fused_mlp.fused_ngp_head_plain(tp, enc, sh)
+    np.testing.assert_allclose(rgb_m.numpy(), rgb_p.numpy(), rtol=0, atol=2e-5)
+    np.testing.assert_allclose(sig_m.numpy(), sig_p.numpy(), rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_kernels_shared_memory_fits_a_block(dt):
+    """The Python mirror of the kernels' dynamic shared memory (which the
+    loader holds equal to the library's nerf_fused_smem_bytes) fits one
+    block of an H100, 232,448 bytes, at every E from 1 to 128, for the head
+    and the density kernel; the f32 head at E = 24 leaves room for two
+    blocks an SM (228 KB, 1 KB of it reserved per block)."""
+    _, tdt = DTYPES[dt]
+    for E in range(1, fused_mlp.E_MAX + 1):
+        for density in (False, True):
+            size = fused_mlp.smem_bytes(E, tdt, density)
+            assert 0 < size <= 232_448, (E, density, size)
+            assert size % 16 == 0
+    if dt == "f32":
+        assert fused_mlp.smem_bytes(24, tdt) == 4 * (8960 + (24 + 16 + 64 + 16) * 128) == 97_280
+        assert 2 * (fused_mlp.smem_bytes(24, tdt) + 1024) <= 228 * 1024
+        assert fused_mlp.smem_bytes(128, tdt, density=True) == 4 * (128 * 64 + 1024 + (256 + 64) * 128 + 64)
 
 
 def test_wrapper_rejects_bad_packed_buffer():

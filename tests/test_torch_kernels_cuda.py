@@ -57,10 +57,10 @@ def test_kernels_match_plain(cuda_device, E, dtype, N):
     """Each kernel against its plain version: one bf16 ulp (f32: atol 2e-5,
     summation order only); the density sigma bit-identical to the head's.
     E = 1 and 100 pad the bf16 kernels' first layer to whole k16 steps;
-    above E = 32 the f32 kernels' first layer runs over several 32-row
-    chunks, above 64 their weights take more than 48 KB of shared memory.
-    N = 4,104 is a multiple of 8 with a ragged last step (the bf16 kernels'
-    16-byte copies); the other N stage element by element."""
+    every f32 block takes more than 48 KB of shared memory. N = 4,104 is a
+    multiple of 8 with a ragged last step (16-byte copies in both dtypes);
+    the other N stage element by element (bf16) or 4 bytes a copy (f32,
+    where N = 100,003 is not a multiple of 4)."""
     params = _params(E, 11, cuda_device)
     rng = np.random.default_rng(12)
     enc = torch.from_numpy(rng.uniform(-1, 1, (E, N)).astype(np.float32)).to(cuda_device, dtype)
@@ -80,6 +80,29 @@ def test_kernels_match_plain(cuda_device, E, dtype, N):
             np.testing.assert_allclose(got, ref, rtol=0, atol=2e-5)
         else:
             assert (np.abs(got - ref) <= _ulp_bound(ref)).all()
+
+
+@pytest.mark.parametrize("E", [1, 24, 33, 64, 128])
+@pytest.mark.parametrize("N", [1, 127, 129, 1_000_003])
+def test_f32_kernels_on_partial_tiles(cuda_device, E, N):
+    """The f32 kernels step over 128 points at a time: N = 1 and 127 fill
+    part of one step, 129 one whole step and one point of a second, and
+    1,000,003 (not a multiple of 4) takes the 4-byte copies and many steps
+    per block of the persistent grid. E = 1 and 33 are odd widths of layer
+    1's loop, 128 the widest. The density sigma equals the head's
+    (torch.equal); both are within atol 2e-5 of plain, rgb too."""
+    params = _params(E, 21, cuda_device)
+    rng = np.random.default_rng(22)
+    enc = torch.from_numpy(rng.uniform(-1, 1, (E, N)).astype(np.float32)).to(cuda_device)
+    sh = torch.from_numpy(rng.uniform(-1, 1, (16, N)).astype(np.float32)).to(cuda_device)
+    packed = fused_mlp.pack_weights(params, torch.float32, cuda_device)
+    rgb_k, sig_k = fused_mlp.fused_ngp_head(params, enc, sh, packed=packed)
+    dsig_k = fused_mlp.fused_ngp_density(params, enc, packed=packed)
+    rgb_p, sig_p = fused_mlp.fused_ngp_head_plain(params, enc, sh)
+    torch.cuda.synchronize()
+    assert torch.equal(dsig_k, sig_k)
+    for got, ref in ((rgb_k, rgb_p), (sig_k, sig_p), (dsig_k, sig_p)):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=2e-5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
