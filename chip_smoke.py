@@ -320,9 +320,33 @@ grid, cp.async tiles, register-blocked FP32 products):
      calls against their plain versions (atol 2e-5), the density sigma ==
      the head's.
 
+Added for the point-major path (nerfjax's render_rays and field.apply; its
+encode's forward, hashgrid_fwd_kernel, and its backward's staging,
+hashgrid_bwd_kernel, whose entries K3 adds):
+
+  R. (after the drop-in run, feature_last_phase) hashgrid_fwd against its
+     plain version at nerfjax's eval shape (N = 786,432 seeded positions
+     with the domain's faces) at the quality protocol's spec (medium, 16
+     levels) and the tuned cfg's, timed beside its bounds (the touched
+     entries once; every gather counted); one render_rays(train=True) pass
+     and its backward at the drop-in shape (the drop-in checkpoint, 8192
+     rays, 64 + 128), launches counted from 0 around it (hashgrid_fwd 4,
+     hashgrid_bwd 2, K3 2, nothing else), each wrapper against its plain
+     version on the pass's own arguments, all three timed at the fine
+     pass; render_rays card vs CPU at the CPU tests' small spec. Alone:
+     python3 chip_smoke.py --only feature_last (a seeded drop-in field);
+  Q. each run now evaluated as psnr_parity._eval_psnr evaluates it:
+     render_rays with the checkpoint's field in f32, all 4,096 rays in one
+     call, 64 + 128, train=False, generator seed 0 (the number held against
+     nerfjax's range and the floors), the planar bf16 eval of the same
+     checkpoint beside it; the tuned arm spass12Led1k1f1scns24gl2sg32
+     (NGP-large, batch 8192, 600 steps, cfg/blender_scene_tuned.yml's
+     estimators) added.
+
 The last two lines are a JSON object with each kernel's launches (summed
 over the main paths: the 512^3 extraction, the tuned, drop-in and fast
-train() runs, the k2 knob steps, the eval renders, the probe entry point),
+train() runs, the k2 knob steps, the eval renders, the probe entry point,
+phase R's render and the quality evals' render_rays calls),
 error, times and bound (extra keys: the k >= 2 modes at the fast and k2
 knob steps' calls; K1, K2 and K3 also their times, bounds and atomics at
 the drop-in passes; the head at E = 40 and 64 and at the eval renders'
@@ -333,6 +357,7 @@ times; K6 launched by C3's colmap2nerf, timed at C4), then
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import io
@@ -1323,6 +1348,15 @@ def _timing_line(t: dict) -> str:
 
 
 STEP_KERNELS = ("hash_levels_fwd", "dense_levels_fwd", "dense_levels_bwd", "hash_levels_bwd", "table_grad_scatter")
+FEATURE_LAST_KERNELS = ("hashgrid_fwd", "hashgrid_bwd")  # the point-major encode's: render_rays' path only
+
+
+def _planar_launches() -> dict:
+    """The hash-encode launch counts of the feature-major paths (train,
+    extract, eval render): every key but FEATURE_LAST_KERNELS."""
+    from nerfjax_torch.ops import hash_encode as he
+
+    return {k: v for k, v in he.launch_counts.items() if k not in FEATURE_LAST_KERNELS}
 
 
 @contextlib.contextmanager
@@ -1850,7 +1884,7 @@ def train_full(tmp: Path) -> dict:
     t0 = time.perf_counter()
     out = train(cfg, seed=SEED, log_every=64, device="cuda")
     wall = time.perf_counter() - t0
-    launches = dict(he.launch_counts)
+    launches = _planar_launches()
     peak = torch.cuda.max_memory_allocated() / 2**30
     psnr = np.asarray(out["psnr"])
     first, last = float(psnr[:20].mean()), float(psnr[-20:].mean())
@@ -1921,7 +1955,7 @@ def train_dense_knob(tmp: Path, label: str, stats: dict) -> dict:
     t0 = time.perf_counter()
     out = train(cfg, seed=SEED, log_every=64, device="cuda")
     wall = time.perf_counter() - t0
-    launches = dict(he.launch_counts)
+    launches = _planar_launches()
     peak = torch.cuda.max_memory_allocated() / 2**30
     psnr = np.asarray(out["psnr"])
     first, last = float(psnr[:20].mean()), float(psnr[-20:].mean())
@@ -2106,7 +2140,7 @@ def train_fast(tmp: Path, stats: dict) -> dict:
     t0 = time.perf_counter()
     out = train(cfg, seed=SEED, log_every=64, device="cuda")
     wall = time.perf_counter() - t0
-    launches = dict(he.launch_counts)
+    launches = _planar_launches()
     psnr = np.asarray(out["psnr"])
     first, last = float(psnr[:20].mean()), float(psnr[-20:].mean())
     phase(f"train() fast (cfg/blender_scene_fast.yml's model and estimators): {out['steps']} steps in {wall:.2f} s "
@@ -2144,9 +2178,13 @@ def train_fast(tmp: Path, stats: dict) -> dict:
 
 # benchmarks/psnr_parity.py's protocol (run_one :267-319, _cfg :75-215,
 # _eval_psnr :238-264), repeated on the port: NGP-medium, batch 2048, 600
-# steps (12 epochs of 50) on tests/synthetic.py's sphere, eval at uniform
-# 64 + 128 on 4,096 held-out rays of seed 9999
+# steps (12 epochs of 50) on tests/synthetic.py's sphere (the tuned arm:
+# NGP-large, batch 8192), eval at uniform 64 + 128 on 4,096 held-out rays of
+# seed 9999 through render_rays in f32
 PARITY_BATCH = 2048
+PARITY_TUNED_ARM = "spass12Led1k1f1scns24gl2sg32"  # cfg/blender_scene_tuned.yml's estimators
+PARITY_ARMS = {"spass2": ("medium", PARITY_BATCH), "spass8": ("medium", PARITY_BATCH),
+               PARITY_TUNED_ARM: ("large", 8192)}  # arm -> (nerf_type, batch) of its psnr_parity.json rows
 PARITY_STEPS = 600
 PARITY_STEPS_PER_EPOCH = 50  # psnr_parity.STEPS_PER_EPOCH: the training NPZ holds batch * 50 rays
 PARITY_EVAL_RAYS = 4096
@@ -2154,9 +2192,10 @@ PARITY_EVAL_SEED = 9999
 PARITY_EVAL_SAMPLES = (64, 128)
 PARITY_SEEDS = (0, 1, 2)
 # nerfjax's eval PSNR in dB for seeds 0, 1, 2 (benchmarks/psnr_parity.json:
-# sphere, medium, batch 2048, 600 steps): a quality number of the method,
-# not a time
-PARITY_NERFJAX_DB = {"spass2": (32.091, 32.010, 31.625), "spass8": (33.117, 31.066, 31.854)}
+# sphere, 600 steps, each arm's nerf_type and batch): a quality number of the
+# method, not a time
+PARITY_NERFJAX_DB = {"spass2": (32.091, 32.010, 31.625), "spass8": (33.117, 31.066, 31.854),
+                     PARITY_TUNED_ARM: (32.818, 32.748, 32.335)}
 PARITY_FLOOR_DB = 30.0  # the least mean eval PSNR of an arm's seeds
 # the least eval PSNR of every run: a step that does not learn stays near the
 # sphere's first PSNR (~7 dB), while a healthy run of this protocol spreads
@@ -2167,22 +2206,29 @@ PARITY_SEED_SLACK_DB = 0.5  # a run in range lies at most this far below nerfjax
 
 
 def parity_cfg(arm: str, rays_file: Path, out_dir: Path):
-    """The port's copy of psnr_parity._cfg(tag, arm, 2048, 600, rays_file,
-    nerf_type="medium") for arms "spass2" (single pass, 16 + 32 samples from
-    the 128-segment occupancy CDF, the exact forward, hash_grad_corners 2:
-    the fast cfg's estimators) and "spass8" (the same, exact gradient),
+    """The port's copy of psnr_parity._cfg(tag, arm, batch, 600, rays_file,
+    nerf_type) at the arm's PARITY_ARMS shape, for arms "spass2" (single
+    pass, 16 + 32 samples from the 128-segment occupancy CDF, the exact
+    forward, hash_grad_corners 2: the fast cfg's estimators), "spass8" (the
+    same, exact gradient) and PARITY_TUNED_ARM (12 levels, one promoted
+    dense, 8 + 16 samples from the 32-segment fast CDF, k = 1 forward and
+    gradient over 2 drawn levels: cfg/blender_scene_tuned.yml's estimators),
     overlaid on the port's base defaults as _cfg overlays nerfjax's;
     tests/test_torch_quality_protocol.py holds it equal to _cfg on every
     key the port reads."""
     from nerfjax_torch.config import ConfigNode, with_defaults
 
+    nerf_type, batch = PARITY_ARMS[arm]
+    tuned = arm == PARITY_TUNED_ARM
     return with_defaults(ConfigNode({
-        "scene_name": out_dir.name, "ngp": True, "nerf_type": "medium", "batch_size": PARITY_BATCH,
-        "num_epochs": PARITY_STEPS // PARITY_STEPS_PER_EPOCH, "lr": 5e-4, "N_samples": 16, "N_importance": 32,
-        "precision": "bf16", "occupancy_grid": True, "hash_grad_corners": {"spass2": 2, "spass8": 8}[arm],
-        "single_pass": True, "hash_n_levels": 16, "hash_extra_dense_levels": 0, "hash_fwd_corners": 8,
-        "hash_dense_corners": 8, "hash_grad_levels": 0, "hash_dense_grad_levels": 0, "occ_fast_cdf": False,
-        "occ_update_partitions": 1, "occ_segments": 128, "rays_file": str(rays_file), "output_dir": str(out_dir),
+        "scene_name": out_dir.name, "ngp": True, "nerf_type": nerf_type, "batch_size": batch,
+        "num_epochs": PARITY_STEPS // PARITY_STEPS_PER_EPOCH, "lr": 5e-4, "N_samples": 8 if tuned else 16,
+        "N_importance": 16 if tuned else 32, "precision": "bf16", "occupancy_grid": True,
+        "hash_grad_corners": {"spass2": 2, "spass8": 8, PARITY_TUNED_ARM: 1}[arm], "single_pass": True,
+        "hash_n_levels": 12 if tuned else 16, "hash_extra_dense_levels": 1 if tuned else 0,
+        "hash_fwd_corners": 1 if tuned else 8, "hash_dense_corners": 8, "hash_grad_levels": 2 if tuned else 0,
+        "hash_dense_grad_levels": 0, "occ_fast_cdf": tuned, "occ_update_partitions": 1,
+        "occ_segments": 32 if tuned else 128, "rays_file": str(rays_file), "output_dir": str(out_dir),
         "checkpoint_dir": str(out_dir / "checkpoints"),
     }))
 
@@ -2198,40 +2244,57 @@ def _synthetic_module():
     return mod
 
 
-def _parity_eval_psnr(final: Path, cfg, data: dict) -> float:
-    """_eval_psnr on the port: the checkpoint's field renders the held-out
-    rays with the two-pass sampler (stratified 64, then 128 from the
-    coarse weights, train=False) in the cfg's precision; PSNR =
-    -10 log10(MSE) against their rgbs."""
+def _parity_eval_psnr(final: Path, cfg, data: dict, device: str = "cuda") -> dict:
+    """psnr_parity._eval_psnr on the port: render_rays (nerfjax's point-major
+    render) with the checkpoint's field in f32 for both passes, all the
+    held-out rays in one call, 64 + 128 samples, train=False, the draws from
+    a generator of seed 0; PSNR = -10 log10(MSE) against their rgbs:
+    "psnr". Beside it "planar_psnr", the same field through
+    render_rays_planar in the cfg's precision (the fused bf16 head and the
+    bf16-rounded hashed levels for every arm here), and "launches", the hash
+    kernels' launches of the render_rays call."""
     import torch
 
     from nerfjax_torch.checkpoint import load_field
-    from nerfjax_torch.render import render_rays_planar
+    from nerfjax_torch.ops import hash_encode as he
+    from nerfjax_torch.render import render_rays, render_rays_planar
 
-    field = load_field(final, cfg, device="cuda")
-    ro, rd, tn, tf = (torch.from_numpy(data[k]).cuda() for k in ("rays_o", "rays_d", "t_near", "t_far"))
+    field = load_field(final, cfg, device=device)
+    ro, rd, tn, tf = (torch.from_numpy(data[k]).to(device) for k in ("rays_o", "rays_d", "t_near", "t_far"))
+
+    def psnr(rgb) -> float:
+        mse = float(np.mean((rgb.float().cpu().numpy() - data["rgbs"]) ** 2))
+        return -10.0 * float(np.log10(mse))
+
+    he.reset_launch_counts()
+    with torch.no_grad():
+        rgb = render_rays(field, field, ro, rd, tn, tf, *PARITY_EVAL_SAMPLES, train=False,
+                          generator=torch.Generator(device=device).manual_seed(0))["rgb_fine"]
+    out = {"psnr": psnr(rgb), "launches": {k: v for k, v in he.launch_counts.items() if v}}
     with torch.no_grad():
         rgb = render_rays_planar(field, field, ro, rd, tn, tf, *PARITY_EVAL_SAMPLES, train=False,
                                  dtype=torch.bfloat16 if cfg["precision"] == "bf16" else torch.float32,
-                                 generator=torch.Generator(device="cuda").manual_seed(0))["rgb_fine"]
-    mse = float(np.mean((rgb.cpu().numpy() - data["rgbs"]) ** 2))
-    return -10.0 * float(np.log10(mse))
+                                 generator=torch.Generator(device=device).manual_seed(0))["rgb_fine"]
+    out["planar_psnr"] = psnr(rgb)
+    return out
 
 
 def quality_parity(tmp: Path, seeds=PARITY_SEEDS) -> dict:
-    """The fast op point's quality under nerfjax's own protocol: arms spass2
-    and spass8 (parity_cfg), each seed trained by nerfjax_torch.train.train
-    on the card from tests/synthetic.make_ray_npz rays (batch * 50 rays of
-    its seed: one NPZ per seed, shared by both arms) and evaluated on the
-    4,096 held-out rays of seed 9999 (_parity_eval_psnr). One line per run
-    (the port's eval PSNR beside nerfjax's for the same arm and seed where
-    benchmarks/psnr_parity.json has one, wall seconds, steps) and one per
-    arm (the mean, the verdict against nerfjax's three-seed range: in range
-    if the mean lies within [min, max] and no seed is more than
-    PARITY_SEED_SLACK_DB below the min). After every run has printed its
-    line, raises on a run that is not finite, misses its steps or lies
-    below PARITY_RUN_FLOOR_DB, or an arm whose mean lies below
-    PARITY_FLOOR_DB; the verdict itself is only reported."""
+    """The op points' quality under nerfjax's own protocol: arms spass2,
+    spass8 and PARITY_TUNED_ARM (parity_cfg), each seed trained by
+    nerfjax_torch.train.train on the card from tests/synthetic.make_ray_npz
+    rays (batch * 50 rays of its seed: one NPZ per seed and batch, shared by
+    the arms of that batch) and evaluated on the 4,096 held-out rays of seed
+    9999 as nerfjax evaluates it (_parity_eval_psnr: render_rays in f32).
+    One line per run (that eval PSNR beside nerfjax's for the same arm and
+    seed where benchmarks/psnr_parity.json has one, the planar bf16 eval of
+    the same checkpoint, wall seconds, steps) and one per arm (the mean, the
+    verdict against nerfjax's three-seed range: in range if the mean lies
+    within [min, max] and no seed is more than PARITY_SEED_SLACK_DB below
+    the min). After every run has printed its line, raises on a run that is
+    not finite, misses its steps or lies below PARITY_RUN_FLOOR_DB, or an
+    arm whose mean lies below PARITY_FLOOR_DB; the verdict itself is only
+    reported."""
     import torch
 
     from nerfjax_torch.train import train
@@ -2240,51 +2303,66 @@ def quality_parity(tmp: Path, seeds=PARITY_SEEDS) -> dict:
     t0 = time.perf_counter()
     eval_data = syn.make_ray_npz(tmp / "parity_eval.npz", n_rays=PARITY_EVAL_RAYS, seed=PARITY_EVAL_SEED,
                                  scene="sphere")
-    rays = {}
-    for seed in seeds:
-        rays[seed] = tmp / f"parity_rays_s{seed}.npz"
-        syn.make_ray_npz(rays[seed], n_rays=PARITY_BATCH * PARITY_STEPS_PER_EPOCH, seed=seed, scene="sphere")
-    phase(f"quality: tests/synthetic.make_ray_npz sphere NPZs ({len(seeds)} x "
-          f"{PARITY_BATCH * PARITY_STEPS_PER_EPOCH:,} training rays, {PARITY_EVAL_RAYS:,} eval rays of seed "
-          f"{PARITY_EVAL_SEED}) in {time.perf_counter() - t0:.1f} s")
-    result, failed = {}, []
+    rays = {(seed, batch): tmp / f"parity_rays_s{seed}_b{batch}.npz"
+            for batch in sorted({b for _, b in PARITY_ARMS.values()}) for seed in seeds}
+    # the NPZs in threads: the oracle's ray march is numpy ufuncs on whole arrays, which release the GIL
+    with concurrent.futures.ThreadPoolExecutor(max_workers=min(8, len(rays))) as pool:
+        for done in [pool.submit(syn.make_ray_npz, path, n_rays=batch * PARITY_STEPS_PER_EPOCH, seed=seed,
+                                 scene="sphere") for (seed, batch), path in rays.items()]:
+            done.result()
+    phase(f"quality: tests/synthetic.make_ray_npz sphere NPZs ({len(seeds)} seeds x "
+          + " and ".join(f"{b * PARITY_STEPS_PER_EPOCH:,}" for b in sorted({b for _, b in PARITY_ARMS.values()}))
+          + f" training rays, {PARITY_EVAL_RAYS:,} eval rays of seed {PARITY_EVAL_SEED}) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    result, failed, launches, eval_s = {}, [], {}, 0.0
     for arm, ref in PARITY_NERFJAX_DB.items():
-        runs = []
+        runs, t_arm = [], time.perf_counter()
         for seed in seeds:
-            cfg = parity_cfg(arm, rays[seed], tmp / f"parity_{arm}_s{seed}")
+            cfg = parity_cfg(arm, rays[seed, PARITY_ARMS[arm][1]], tmp / f"parity_{arm}_s{seed}")
             t1 = time.perf_counter()
             out = train(cfg, seed=seed, log_every=PARITY_STEPS, device="cuda")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t1
-            psnr = _parity_eval_psnr(Path(cfg["checkpoint_dir"]) / "nerf_final.pth", cfg, eval_data)
+            t1 = time.perf_counter()
+            ev = _parity_eval_psnr(Path(cfg["checkpoint_dir"]) / "nerf_final.pth", cfg, eval_data)
+            eval_s += time.perf_counter() - t1
+            for k, v in ev["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            psnr = ev["psnr"]
             nerfjax = f"{ref[seed]:.3f}" if seed < len(ref) else "not recorded"
-            phase(f"quality {arm} seed {seed}: eval PSNR {psnr:.3f} dB (nerfjax {nerfjax}), {out['steps']} steps in "
-                  f"{wall:.1f} s wall, train PSNR of the last 50 steps {np.mean(out['psnr'][-50:]):.2f} dB")
+            phase(f"quality {arm} seed {seed}: eval PSNR {psnr:.3f} dB (render_rays, f32; nerfjax {nerfjax}); the "
+                  f"planar render in {cfg['precision']} {ev['planar_psnr']:.3f} dB ({ev['planar_psnr'] - psnr:+.3f}); "
+                  f"{out['steps']} steps in {wall:.1f} s wall, train PSNR of the last 50 steps "
+                  f"{np.mean(out['psnr'][-50:]):.2f} dB")
             if not np.isfinite(psnr) or not np.isfinite(out["psnr"]).all() or psnr < PARITY_RUN_FLOOR_DB:
                 failed.append(f"{arm} seed {seed}: eval PSNR {psnr:.3f} dB (floor {PARITY_RUN_FLOOR_DB}), training "
                               f"PSNR {'finite' if np.isfinite(out['psnr']).all() else 'not finite'}")
             if out["steps"] != PARITY_STEPS:
                 failed.append(f"{arm} seed {seed}: {out['steps']} steps, not {PARITY_STEPS}")
-            runs.append({"seed": seed, "psnr": psnr, "wall_s": wall, "steps": out["steps"]})
+            runs.append({"seed": seed, "psnr": psnr, "planar_psnr": ev["planar_psnr"], "wall_s": wall,
+                         "steps": out["steps"]})
         psnrs = [r["psnr"] for r in runs]
         mean, lo, hi = float(np.mean(psnrs)), min(ref), max(ref)
+        planar = float(np.mean([r["planar_psnr"] for r in runs]))
         in_range = lo <= mean <= hi and min(psnrs) >= lo - PARITY_SEED_SLACK_DB
         spread = f", sd {np.std(psnrs, ddof=1):.3f}" if len(psnrs) > 1 else ""
         phase(f"quality {arm}: mean eval PSNR {mean:.3f} dB over seeds {tuple(seeds)}{spread}, lowest "
               f"{min(psnrs):.3f} (nerfjax mean {np.mean(ref):.3f} over seeds 0-2, range [{lo:.3f}, {hi:.3f}]): "
               f"{'in' if in_range else 'OUT OF'} nerfjax's range (mean within it, no seed below "
-              f"{lo - PARITY_SEED_SLACK_DB:.3f})")
+              f"{lo - PARITY_SEED_SLACK_DB:.3f}); the planar bf16 eval's mean {planar:.3f} dB "
+              f"({planar - mean:+.3f}); the arm {time.perf_counter() - t_arm:.1f} s")
         if mean < PARITY_FLOOR_DB:
             failed.append(f"{arm}: mean eval PSNR {mean:.3f} dB < {PARITY_FLOOR_DB}")
-        result[arm] = {"runs": runs, "mean": mean, "in_range": in_range}
+        result[arm] = {"runs": runs, "mean": mean, "planar_mean": planar, "in_range": in_range}
     gap = result["spass2"]["mean"] - result["spass8"]["mean"]
     ref_gap = np.mean(PARITY_NERFJAX_DB["spass2"]) - np.mean(PARITY_NERFJAX_DB["spass8"])
     phase(f"quality: the b = 2 gradient's cost, mean spass2 - mean spass8, {gap:+.3f} dB on the port over seeds "
           f"{tuple(seeds)} (nerfjax {ref_gap:+.3f} dB over seeds 0-2)")
-    phase(f"quality phase: {time.perf_counter() - t0:.1f} s")
+    phase(f"quality phase: {time.perf_counter() - t0:.1f} s, of it the evals (render_rays f32 and the planar bf16 "
+          f"render) {eval_s:.1f} s; render_rays' launches over the evals: {launches}")
     if failed:
         raise AssertionError("quality: " + "; ".join(failed))
-    return result
+    return {"arms": result, "launches": launches}
 
 
 def train_k2_knob(tmp: Path, stats: dict) -> dict:
@@ -2304,7 +2382,7 @@ def train_k2_knob(tmp: Path, stats: dict) -> dict:
     t0 = time.perf_counter()
     state, left, med = _warm_steps(cfg, tmp / "rays.npz", K2_STEPS - 8, 8, "k2 knob")
     torch.cuda.synchronize()
-    launches = dict(he.launch_counts)
+    launches = _planar_launches()
     phase(f"k2 knob {K2_KNOB}: {K2_STEPS} steps in {time.perf_counter() - t0:.2f} s; launches {launches}")
     for name, n in launches.items():
         if n < K2_STEPS:
@@ -3072,7 +3150,7 @@ def train_dropin(tmp: Path) -> dict:
     t0 = time.perf_counter()
     out = train(cfg, seed=SEED, log_every=64, device="cuda")
     wall = time.perf_counter() - t0
-    launches = dict(he.launch_counts)
+    launches = _planar_launches()
     peak = torch.cuda.max_memory_allocated() / 2**30
     psnr = np.asarray(out["psnr"])
     first, last = float(psnr[:20].mean()), float(psnr[-20:].mean())
@@ -3571,6 +3649,267 @@ def render_card_vs_cpu(final: Path) -> None:
           f"{_psnr(imgs[0], _ball_image(K, c2w, H, W)):.2f} dB")
 
 
+# -- phase R: the feature-last path (nerfjax's render_rays) ---------------------------------------
+
+R_EVAL_N = PARITY_EVAL_RAYS * sum(PARITY_EVAL_SAMPLES)  # 786,432: nerfjax's eval fine pass, 4,096 rays at 64 + 128
+R_FACE = 4096  # points per face of the domain in the seeded positions
+R_SMALL = {"ngp": True, "nerf_type": "small", "hash_n_levels": 6}  # tests/test_torch_feature_last.py's spec
+R_RAYS = 64  # rays of the card-vs-CPU render, 16 + 32 samples
+
+
+def _hashgrid_x01(N: int, rng):
+    """x01 [N, 3] on the card, uniform in [0, 1] but for the domain's faces:
+    for each axis R_FACE points at 0 and R_FACE at 1 on it, and the first
+    two points the corners 0 and 1."""
+    x01 = _rand((N, 3), rng, 0.0, 1.0)
+    for a in range(3):
+        x01[2 * a * R_FACE:(2 * a + 1) * R_FACE, a] = 0.0
+        x01[(2 * a + 1) * R_FACE:(2 * a + 2) * R_FACE, a] = 1.0
+    x01[0], x01[1] = 0.0, 1.0
+    return x01
+
+
+def _hashgrid_check(spec, planes, x01, label: str) -> tuple[float, int]:
+    """hashgrid_fwd against hashgrid_encode_plain: both f32, so they may
+    differ only by the order of a level's 8-term sum, within
+    8 * 2^-24 * sum_c |f_c w_c| of each output. (max |err|, outputs that
+    differ)."""
+    import torch
+
+    from nerfjax_torch.ops import hash_encode as he
+
+    got = he.hashgrid_fwd(spec, planes, x01)
+    ref = he.hashgrid_encode_plain(spec, planes, x01)
+    bound = 8 * 2.0**-24 * he.hashgrid_encode_plain(spec, planes.abs(), x01) + 1e-30
+    err = (got - ref).abs()
+    if not bool(torch.isfinite(got).all()) or not bool((err <= bound).all()):
+        raise AssertionError(f"hashgrid_fwd ({label}): kernel vs plain max |err| {float(err.max())} beyond the 8-term "
+                             "sum-order bound")
+    return float(err.max()), int((err > 0).sum())
+
+
+def _hashgrid_bounds(spec, x01) -> tuple[tuple, tuple]:
+    """The feature-last forward's bound at x01, twice. Bytes: positions in
+    (12 B a point), the [N, 2L] f32 output out (8 L B a point), and the
+    table: (1) each distinct entry the call touches, both planes, once
+    (8 B: the guide's rule, every repeat served by the L2); (2) every gather
+    counted, 16 4-byte loads a (point, level), the design's requests if no
+    cache served a repeat. Operations: 110 a (point, level) (K1 exact's
+    count), at the FP32 peak."""
+    import torch
+
+    from nerfjax_torch.fields.ngp import hashgrid_indices_and_weights
+
+    N, L = x01.shape[0], spec.n_levels
+    touched = torch.unique(hashgrid_indices_and_weights(spec, x01)[0]).numel()
+    base, ops = 12 * N + 8 * L * N, 110 * L * N
+    return _bound(base + 8 * touched, ops), _bound(base + 64 * L * N, ops)
+
+
+def _hashgrid_timed(spec, planes, x01, label: str) -> dict:
+    from nerfjax_torch.ops import hash_encode as he
+
+    bound, gathers = _hashgrid_bounds(spec, x01)
+    t = _time_kernel(lambda: he.hashgrid_fwd(spec, planes, x01), lambda: he.hashgrid_encode_plain(spec, planes, x01),
+                     None, bound)
+    t.update(N=x01.shape[0], gathers_bound=gathers)
+    phase(f"  hashgrid_fwd {label}: " + _timing_line(t) + f"; with every gather counted the bound is "
+          f"{gathers[0] * 1e3:.1f} us ({gathers[1]}), the kernel at {gathers[0] / t['ms']:.0%} of it")
+    return t
+
+
+def feature_last_phase(tmp: Path, final: Path | None, smi: str) -> dict:
+    """Phase R, nerfjax's point-major path on the port.
+
+    R1: hashgrid_fwd against its plain version at nerfjax's eval shape (N =
+    R_EVAL_N seeded positions with the domain's faces) at the quality
+    protocol's spec (medium, 16 levels) and the tuned cfg's (large, 12
+    levels, 1 promoted dense), timed beside its bounds (_hashgrid_bounds).
+    R2: one render_rays(train=True) pass and the backward of its two losses
+    at the drop-in shape (DROP_IN_TRAIN's model, the checkpoint ``final``
+    or a seeded init, 8192 rays of phase 7's NPZ, 64 + 128), the launch
+    counts set to 0 just before and read just after: hashgrid_fwd 4 (two
+    passes, each recomputed under remat), hashgrid_bwd 2, K3 2, no other
+    kernel; then, on the arguments each wrapper got there, hashgrid_fwd
+    against plain (the sum-order bound), hashgrid_bwd's staged entries
+    torch.equal to plain and handed to K3 whole, K3's table gradient
+    against table_grad_scatter_plain within the atomic-order bound; all
+    three timed at the fine pass (K3 net of its zero fill, beside
+    index_add_). R3: render_rays on the card against the CPU at the CPU
+    tests' small spec in f32, the same field and uniforms, train off and
+    on: the coarse pass (same depths) within 2e-5, rgb_fine within 1e-3
+    (an importance depth in a bin of low pdf moves by the coarse weights'
+    float32 noise over that pdf, as tests/test_torch_render_hier.py
+    explains)."""
+    import torch
+
+    from nerfjax_torch import render
+    from nerfjax_torch.checkpoint import load_field
+    from nerfjax_torch.data import RayDataset, batch_to_device
+    from nerfjax_torch.ops import fused_mlp as fm
+    from nerfjax_torch.ops import hash_encode as he
+    from nerfjax_torch.train import build_fields
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 18)
+    out = {"fwd": {}, "max_abs_err": {"hashgrid_fwd": 0.0, "hashgrid_bwd": 0.0, "table_grad_scatter": 0.0}}
+    specs = {"medium16": build_fields(parity_cfg("spass2", tmp / "r.npz", tmp / "r"))[1].spec,
+             "tuned12ed1": build_fields(TUNED_CFG)[1].spec}
+    for label, spec in specs.items():
+        planes = _rand((2, spec.total_table_size), rng)
+        x01 = _hashgrid_x01(R_EVAL_N, rng)
+        err, differ = _hashgrid_check(spec, planes, x01, label)
+        out["max_abs_err"]["hashgrid_fwd"] = max(out["max_abs_err"]["hashgrid_fwd"], err)
+        phase(f"R1 hashgrid_fwd {label} ({spec.n_levels} levels, N={R_EVAL_N:,}, {6 * R_FACE:,} points on the "
+              f"domain's faces): kernel vs plain max |err| {err:.3g} ({differ:,} of {R_EVAL_N * 2 * spec.n_levels:,} "
+              "outputs differ), within the 8-term sum-order bound")
+        out["fwd"][label] = _hashgrid_timed(spec, planes, x01, f"{label} N={R_EVAL_N:,}")
+        del planes, x01
+
+    # R2: the drop-in training pass through render_rays
+    cfg = DROP_IN_TRAIN
+    if final is not None:
+        field = load_field(final, cfg, device="cuda")
+    else:
+        field = build_fields(cfg, device="cuda")[1].init(torch.Generator().manual_seed(SEED))
+    field.requires_grad_(True)
+    batch = batch_to_device(next(RayDataset(tmp / "rays.npz", verbose=False).epoch_batches(
+        cfg["batch_size"], seed=SEED)), "cuda")
+    names = ("hashgrid_fwd", "hashgrid_bwd_entries", "table_grad_scatter")
+    seen = {name: [] for name in names}
+    real = {name: getattr(he, name) for name in names}
+
+    def recorder(name):
+        def call(*args, **kw):
+            seen[name].append(args)
+            return real[name](*args, **kw)
+        return call
+
+    for name in names:
+        setattr(he, name, recorder(name))
+    try:
+        he.reset_launch_counts()
+        fm.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        res = render.render_rays(field, field, batch["rays_o"], batch["rays_d"], batch["t_near"], batch["t_far"],
+                                 cfg["N_samples"], cfg["N_importance"], train=True,
+                                 generator=torch.Generator(device="cuda").manual_seed(SEED))
+        loss_f = torch.mean((res["rgb_fine"] - batch["rgb"]) ** 2)
+        (loss_f + torch.mean((res["rgb_coarse"] - batch["rgb"]) ** 2)).backward()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = {k: v for k, v in {**he.launch_counts, **fm.launch_counts}.items() if v}
+    finally:
+        for name in names:
+            setattr(he, name, real[name])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {"hashgrid_fwd": 4, "hashgrid_bwd": 2, "table_grad_scatter": 2}
+    if launches != want:
+        raise AssertionError(f"R2: render_rays(train=True) + backward launched {launches}, expected {want}")
+    grad = field.table.grad
+    if grad is None or not bool(torch.isfinite(grad).all()) or float(grad.abs().sum()) == 0:
+        raise AssertionError("R2: the table's gradient is missing, zero or not finite")
+    psnr = -10.0 * float(torch.log10(loss_f.detach()))
+    phase(f"R2 render_rays(train=True) + backward at the drop-in shape ({cfg['batch_size']} rays, "
+          f"{cfg['N_samples']} + {cfg['N_importance']}, {field.spec.n_levels} levels, "
+          f"{'the drop-in checkpoint' if final is not None else 'a seeded init'}): {wall * 1e3:.1f} ms wall, peak "
+          f"{peak:.2f} GiB, fine PSNR {psnr:.2f} dB; launches {launches}")
+    out.update(launches=launches, wall_ms=wall * 1e3, peak_gib=peak)
+
+    spec, total = field.spec, field.spec.total_table_size
+    planes = field.table.detach()
+    fwd_calls = {args[2].shape[0]: args for args in seen["hashgrid_fwd"]}
+    checked = []
+    for N, (_, pl, x01) in sorted(fwd_calls.items()):
+        err, differ = _hashgrid_check(spec, pl.detach(), x01, f"R2 N={N:,}")
+        out["max_abs_err"]["hashgrid_fwd"] = max(out["max_abs_err"]["hashgrid_fwd"], err)
+        checked.append(f"hashgrid_fwd N={N:,}: max |err| {err:.3g} ({differ:,} outputs differ)")
+    fine_n = max(fwd_calls)
+    staged = {}
+    for (_, g, x01), (idx, v0, v1, _) in zip(seen["hashgrid_bwd_entries"], seen["table_grad_scatter"]):
+        N = x01.shape[0]
+        got = he.hashgrid_bwd_entries(spec, g, x01)
+        ref = he.hashgrid_bwd_entries_plain(spec, g, x01)
+        if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"R2 hashgrid_bwd N={N:,}: kernel != plain")
+        if not (torch.equal(got[0], idx) and torch.equal(got[1], v0) and torch.equal(got[2], v1)):
+            raise AssertionError(f"R2 N={N:,}: K3 did not get hashgrid_bwd's {got[0].numel():,} staged entries")
+        one = torch.ones_like(v0)
+        kerr = _check_scatter(f"R2 table_grad_scatter N={N:,}", he.table_grad_scatter(idx, v0, v1, _zeros2(total)),
+                              he.table_grad_scatter_plain(idx, v0, v1, _zeros2(total)),
+                              he.table_grad_scatter_plain(idx, v0.abs(), v1.abs(), _zeros2(total)),
+                              he.table_grad_scatter_plain(idx, one, one, _zeros2(total)))
+        out["max_abs_err"]["table_grad_scatter"] = max(out["max_abs_err"]["table_grad_scatter"], kerr)
+        checked.append(f"hashgrid_bwd N={N:,}: {idx.numel():,} staged entries == plain, all handed to K3; K3 within "
+                       f"the atomic-order bound, max |err| {kerr:.3g}")
+        staged[N] = (g, x01, idx, v0, v1)
+    del seen
+    phase("R2 on the pass's own arguments: " + "; ".join(checked))
+
+    # the fine pass's calls, timed
+    _, pl, x01 = fwd_calls[fine_n]
+    out["fwd"]["render_fine"] = _hashgrid_timed(spec, pl.detach(), x01, f"the render's fine pass N={fine_n:,}")
+    g, x01, idx, v0, v1 = staged[fine_n]
+    L, K = spec.n_levels, idx.numel()
+    # bytes: positions and the cotangent in, the staged entries out (12 B each); 40 operations an entry
+    out["bwd"] = _time_kernel(lambda: he.hashgrid_bwd_entries(spec, g, x01),
+                              lambda: he.hashgrid_bwd_entries_plain(spec, g, x01), None,
+                              _bound(12 * fine_n + 8 * L * fine_n + 12 * K, 40 * K))
+    phase(f"  hashgrid_bwd at the render's fine pass (N={fine_n:,}, K={K:,}): " + _timing_line(out["bwd"]))
+    buf = torch.empty(2, total, device="cuda")
+    vv = torch.stack([v0, v1])
+    hits = int((torch.bincount(idx.long(), minlength=total) > 0).sum())
+    out["k3"] = _time_kernel(lambda: he.table_grad_scatter(idx, v0, v1, buf),
+                             lambda: he.table_grad_scatter_plain(idx, v0, v1, buf),
+                             lambda: buf.index_add_(1, idx, vv), _bound(12 * K + 8 * hits, 2 * K), fill=buf.zero_)
+    out["k3"]["atomics"] = {"first": 2 * K, "runs": he.k3_atomic_count(idx, total)}
+    phase(f"  table_grad_scatter at the render's fine pass (K={K:,} into {hits:,} distinct entries; "
+          f"{out['k3']['atomics']['runs']:,} float2 adds of merged runs): " + _timing_line(out["k3"]))
+    del staged, fwd_calls, vv, buf
+
+    # R3: the card against the CPU at the CPU tests' small size
+    cpu = build_fields(R_SMALL)[1].init(torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        cpu.table.uniform_(-0.2, 0.2, generator=torch.Generator().manual_seed(SEED + 1))
+    card_field = build_fields(R_SMALL, device="cuda")[1].load_params(cpu.params())
+    r3 = np.random.default_rng(SEED + 19)
+    o = r3.normal(size=(R_RAYS, 3))
+    o = o / np.linalg.norm(o, axis=1, keepdims=True) * 2.5
+    d = r3.uniform(-0.4, 0.4, (R_RAYS, 3)) - o
+    d = d / np.linalg.norm(d, axis=1, keepdims=True)
+    near = r3.uniform(1.0, 1.6, R_RAYS)
+    far = near + r3.uniform(1.5, 2.5, R_RAYS)
+    u_strat, u_pdf = r3.uniform(size=(R_RAYS, 16)), r3.uniform(size=(R_RAYS, 32))
+    arrays = [torch.from_numpy(a.astype(np.float32)) for a in (o, d, near, far, u_strat, u_pdf)]
+    errs = {}
+    for train in (False, True):
+        outs = []
+        for dev, f in (("cuda", card_field), ("cpu", cpu)):
+            o_, d_, n_, f_, us, up = (a.to(dev) for a in arrays)
+            with torch.no_grad():
+                outs.append({k: v.float().cpu() for k, v in render.render_rays(
+                    f, f, o_, d_, n_, f_, 16, 32, train=train, u_strat=us, u_pdf=up).items()})
+        a, b = outs
+        e = {k: float((a[k] - b[k]).abs().max()) for k in a}
+        if max(e["rgb_coarse"], e["weights_coarse"]) > 2e-5 or e["rgb_fine"] > 1e-3 or \
+                not all(bool(torch.isfinite(v).all()) for v in a.values()):
+            raise AssertionError(f"R3 render_rays card vs cpu (train={train}): max |err| {e}")
+        errs[train] = e
+    phase("R3 render_rays card vs cpu (small spec, f32, the same uniforms): " + "; ".join(
+        f"train={t}: coarse rgb {e['rgb_coarse']:.2g}, weights {e['weights_coarse']:.2g} (bound 2e-5), fine rgb "
+        f"{e['rgb_fine']:.2g} (bound 1e-3), depths {e['z_vals']:.2g}" for t, e in errs.items()))
+    out["seconds"] = time.perf_counter() - t0
+    fwd = out["fwd"]["medium16"]
+    phase(f"phase R: {out['seconds']:.1f} s; {smi}: hashgrid_fwd at N={R_EVAL_N:,} (medium, 16 levels) "
+          f"{fwd['ms'] * 1e3:.1f} us (plain {fwd['plain_ms'] * 1e3:.1f}, bound {fwd['bound'][0] * 1e3:.1f}); "
+          f"tuned spec {out['fwd']['tuned12ed1']['ms'] * 1e3:.1f} us; the render's fine pass "
+          f"{out['fwd']['render_fine']['ms'] * 1e3:.1f} us; hashgrid_bwd {out['bwd']['ms'] * 1e3:.1f} us; K3 "
+          f"{out['k3']['ms'] * 1e3:.1f} us (index_add_ {out['k3']['library_ms'] * 1e3:.1f})")
+    return out
+
+
 # -- phase L: the launcher -------------------------------------------------------------------------
 
 
@@ -4014,7 +4353,7 @@ def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of nerfjax_torch on one CUDA card (every phase by default)")
-    ap.add_argument("--only", choices=["quality", "steps", "launcher", "multi"], default=None,
+    ap.add_argument("--only", choices=["quality", "steps", "launcher", "multi", "feature_last"], default=None,
                     help="run only the card, the build and this phase (no kernels line, no final line)")
     ap.add_argument("--child", choices=["d1", "d2"], default=None, help=argparse.SUPPRESS)
     ap.add_argument("--work", default=None, help=argparse.SUPPRESS)
@@ -4057,6 +4396,12 @@ def main() -> int:
             planted = colmap_model(tmp / "front" / "colmap", frames, focal)
             launcher_phase(tmp, tmp / "front" / "colmap" / "colmap_text", planted)
         phase("--only launcher: done")
+        return 0
+    if args.only == "feature_last":  # phase R on a seeded drop-in field
+        with tempfile.TemporaryDirectory() as tmp:
+            ray_npz(Path(tmp) / "rays.npz")
+            feature_last_phase(Path(tmp), None, smi)
+        phase("--only feature_last: done")
         return 0
     if args.only == "multi":
         with tempfile.TemporaryDirectory() as tmp:
@@ -4104,6 +4449,7 @@ def main() -> int:
                 DROP_IN_KERNELS + ("pack_pairs",) if which == "fine"
                 else ("hash_levels_fwd", "dense_levels_fwd", "table_grad_scatter", "hash_levels_bwd"))
         del passes
+        flast = feature_last_phase(Path(tmp), dropin["final"], smi)
         shapes = hstats["dense_levels_fwd"]["shapes"]  # K4 at the train steps' calls
         shapes["tuned_step"] = {k: v for k, v in hstats["dense_levels_fwd"].items() if k != "shapes"}
         for label, knob in knobs.items():
@@ -4156,14 +4502,15 @@ def main() -> int:
           + f"{fast['busy_ms']:.2f} of {fast['traced_ms']:.2f} ms per 8 warm steps; tail seconds "
           + ", ".join(f"{k} {v:.2f}" for k, v in tail.items()) + "; eval render, 64+128: "
           + ", ".join(f"{k} {v['rays_per_s']:,.0f} rays/s" for k, v in evals.items())
-          + "; quality (psnr_parity protocol), mean eval PSNR: "
-          + ", ".join(f"{arm} {q['mean']:.3f} dB ({'in' if q['in_range'] else 'out of'} nerfjax's range)"
-                      for arm, q in quality.items()))
+          + "; quality (psnr_parity protocol), mean eval PSNR (render_rays, f32; the planar bf16 eval): "
+          + ", ".join(f"{arm} {q['mean']:.3f} dB ({q['planar_mean']:.3f}; {'in' if q['in_range'] else 'out of'} "
+                      f"nerfjax's range)" for arm, q in quality["arms"].items()))
     # launches on the main paths, each counted from 0 around its run: the
     # 512^3 extraction, the tuned and the drop-in train(), the eval renders
     paths = {"extraction": extract_launches, "tuned train": trained["launches"], "drop-in train": dropin["launches"],
              "fast train": fast["launches"], "k2 knob": k2["launches"],
-             **{f"eval render ({k})": v["launches"] for k, v in evals.items()}}
+             **{f"eval render ({k})": v["launches"] for k, v in evals.items()},
+             "feature-last render (R)": flast["launches"], "quality evals (render_rays)": quality["launches"]}
     launches = {}
     for counts in paths.values():
         for name, n in counts.items():
@@ -4261,6 +4608,36 @@ def main() -> int:
             t = knobs["dgl1"]["timings"][name]
             kernels[-1].update(dgl1_step_ms=t["ms"], dgl1_step_bound_ms=t["bound"][0],
                                dgl1_step_flushed_ms=t["flushed_timing"]["ms"])
+    # the feature-last forward (nerfjax's hashgrid_encode, an XLA op) at nerfjax's eval shape, its backward's
+    # staging, and K3 at phase R's fine pass (extra keys of K3's row)
+    t = flast["fwd"]["medium16"]
+    kernels.append({
+        "name": "hashgrid_fwd", "route": "cuda", "source": "nerfjax_torch/csrc/hash_encode.cu",
+        "replaces": "nerfjax/fields/ngp.py:212", "launches": launches["hashgrid_fwd"],
+        "max_abs_err": flast["max_abs_err"]["hashgrid_fwd"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "library_ms": None, "N": t["N"],
+        "gathers_bound_ms": t["gathers_bound"][0],
+        "launches_by_path": {"feature-last render (R)": flast["launches"].get("hashgrid_fwd", 0),
+                             "quality evals": quality["launches"].get("hashgrid_fwd", 0)},
+    })
+    for label in ("tuned12ed1", "render_fine"):
+        t = flast["fwd"][label]
+        kernels[-1].update({f"{label}_N": t["N"], f"{label}_ms": t["ms"], f"{label}_plain_ms": t["plain_ms"],
+                            f"{label}_bound_ms": t["bound"][0], f"{label}_gathers_bound_ms": t["gathers_bound"][0]})
+    t = flast["bwd"]
+    kernels.append({
+        "name": "hashgrid_bwd", "route": "cuda", "source": "nerfjax_torch/csrc/hash_encode.cu",
+        "replaces": "nerfjax/fields/ngp.py:212", "launches": launches["hashgrid_bwd"],
+        "max_abs_err": flast["max_abs_err"]["hashgrid_bwd"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "library_ms": None,
+    })
+    t = next(k for k in kernels if k["name"] == "table_grad_scatter")
+    r = flast["k3"]
+    t.update(feature_last_fine_ms=r["ms"], feature_last_fine_plain_ms=r["plain_ms"],
+             feature_last_fine_bound_ms=r["bound"][0], feature_last_fine_library_ms=r["library_ms"],
+             feature_last_fine_with_fill_ms=r["with_fill_ms"], feature_last_fine_fill_ms=r["fill_ms"],
+             feature_last_fine_atomics=r["atomics"]["runs"],
+             feature_last_max_abs_err=flast["max_abs_err"]["table_grad_scatter"])
     # K6's grid route at C3's cloud, launched by C3's colmap2nerf (every grid kernel's launches beside)
     t = front["knn"]
     kernels.append({

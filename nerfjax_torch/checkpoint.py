@@ -2,11 +2,12 @@
 ``vanilla_to_state_dict`` :55-79, ``vanilla_from_state_dict`` :82-98,
 ``_enc_col_perm`` :114-127, ``ngp_to_state_dict`` :130-148,
 ``ngp_from_state_dict`` :151-182, ``params_to_state_dicts`` :190-198,
-``params_from_state_dicts`` :201-207, the torch-AdamW-shaped
-``_optimizer_state_dict`` :211-245, ``save_train_state`` :248-277,
-``load_occ_grid`` :307-315, ``load_field_params`` :318-329,
-``latest_checkpoint`` :335-344; its ``_mlp_dims`` :102-111 is
-``InstantNGP.mlp_dims`` here).
+the torch-AdamW-shaped ``_optimizer_state_dict`` :211-245,
+``save_train_state`` :248-277, ``load_occ_grid`` :307-315,
+``load_field_params`` :318-329, ``latest_checkpoint`` :335-344; its
+``_mlp_dims`` :102-111 is ``InstantNGP.mlp_dims`` here, and
+``params_from_state_dicts`` :201-207 has no counterpart: the port loads
+each state dict straight into its field, ``_from_state_dict``).
 
 The file format is nerfjax's, written with ``torch.save`` and read with
 ``torch.load(weights_only=True)``. Vanilla (two MLPs, coarse and fine):

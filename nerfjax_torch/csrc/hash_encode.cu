@@ -25,6 +25,16 @@
 //   (+ _exact, fold)      scatter-add of g*w to all 8 corners (exact), of g
 //                         to the planned corner (k = 1), or of g*Lh/gl to
 //                         the planned corner of gl drawn levels
+//   hashgrid_fwd       <- the XLA forward of the feature-last encode
+//                         hashgrid_encode (nerfjax/fields/ngp.py:212-237):
+//                         every level's 8 corners (hashed, or dense with
+//                         each corner coordinate clipped to [0, r-1],
+//                         :149-206), both planes gathered and blended in
+//                         f32, no bf16 rounding, into a row-major [N, 2L]
+//   hashgrid_bwd       <- the first half of its autodiff transpose: the
+//                         terms g*w of the table gradient, staged as K3's
+//                         (idx, v0, v1); K3 then adds them (the scatter-add
+//                         of the take's transpose)
 //   table_grad_scatter <- the Pallas kernels grad_onehot (_onehot_kernel)
 //                         and grad_rowscatter (_rowscatter_kernel) of
 //                         benchmarks/micro_onehot.py:44-129: out[p][idx_k]
@@ -222,6 +232,30 @@
 // them at the knob's step 34 (21.0 us against 22.0), 89 % at its step 384,
 // once the occupancy grid has emptied, as at the tuned run's end (5.1 us
 // against 20.5).
+
+// The feature-last encode (hashgrid_fwd, hashgrid_bwd) is the path of
+// nerfjax's render_rays and its quality evals: exact f32, no pack, no
+// rounding. One thread per (point, level): the thread forms the lattice
+// cell and the 8 indices in registers (no [N, L*8] index tensor), issues
+// the 16 independent 4-byte gathers, and sums f*w over the corners in
+// order, each product and sum rounded on its own (no FMA, as the plain
+// version's separate multiplies and adds). Points run outermost (t = n*L
+// + l), so a point's L threads store its two L-value rows of the [N, 2L]
+// output side by side. Like K1 it is bound by its scattered requests: 16
+// random 4-byte loads per (point, level), each pulling a 32-byte sector.
+// The level as blockIdx.y of a 2-D grid (a warp's lanes 32 neighbouring
+// points at one level, as in K1, whose lanes share cells along a ray) was
+// slower on an H100 80GB HBM3 (700 W): 1,908 us against 1,493 at nerfjax's
+// eval shape (16 levels, N = 786,432) and 3,213 against 2,258 at the
+// drop-in render's fine pass, its two stores per (point, level) 8L bytes
+// apart, each a sector of its own (PERF.md).
+// The backward recomputes the indices and weights from the positions
+// instead of saving them: saving would write 8 bytes per (corner, level,
+// point) in the forward and hold them until the backward (1.6 GB at the
+// drop-in fine pass), where recomputing reads 12 bytes per point. It
+// stages one entry per (level, corner, point) in that order, so that
+// neighbouring lanes are neighbouring samples of one ray at one corner,
+// the runs K3's merge sums.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1099,6 +1133,94 @@ dense_levels_bwd_lr_kernel(const void* __restrict__ g, int64_t gs, const float* 
   }
 }
 
+// -- the feature-last encode ---------------------------------------------------
+//
+// Per level, in the order of the planes: lattice scale, resolution, the
+// offset of its table, and whether it is hashed (else dense).
+struct GridLevels {
+  float scale[MAX_LEVELS];
+  int64_t offset[MAX_LEVELS];
+  int res[MAX_LEVELS];
+  int hashed[MAX_LEVELS];
+};
+
+// The entry of the planes that corner c of level l's cell (ix, iy, iz)
+// reads: the masked uint32 hash plus the level's offset, or (dense) each
+// corner coordinate clipped to [0, r-1] (hashgrid_indices_and_weights)
+__device__ __forceinline__ int64_t grid_index(const GridLevels& G, int l, int ix, int iy, int iz, int c,
+                                              uint32_t mask) {
+  if (G.hashed[l]) return hash_index(ix, iy, iz, c, mask) + G.offset[l];
+  const int r = G.res[l];
+  const int64_t cx = min(max(ix + ((c >> 2) & 1), 0), r - 1);
+  const int64_t cy = min(max(iy + ((c >> 1) & 1), 0), r - 1);
+  const int64_t cz = min(max(iz + (c & 1), 0), r - 1);
+  return cx + cy * r + cz * (static_cast<int64_t>(r) * r) + G.offset[l];
+}
+
+// The cell of level l at point n of x01 [N, 3]: lattice coordinates and
+// fractions (unclamped, as nerfjax's weights)
+__device__ __forceinline__ void grid_cell(const GridLevels& G, int l, const float* __restrict__ x01, int64_t n,
+                                          int& ix, int& iy, int& iz, float& tx, float& ty, float& tz) {
+  const float s = G.scale[l];
+  lattice(x01[3 * n], s, ix, tx);
+  lattice(x01[3 * n + 1], s, iy, ty);
+  lattice(x01[3 * n + 2], s, iz, tz);
+}
+
+// out[n, l] and out[n, L + l] = sum over the corners, in order, of
+// plane_p[i_c] * w_c, from +0 in f32. planes: [2, total] f32; out [N, 2L].
+__global__ void __launch_bounds__(THREADS)
+hashgrid_fwd_kernel(const float* __restrict__ planes, int64_t total, const float* __restrict__ x01, int64_t N,
+                    int L, GridLevels G, uint32_t mask, float* __restrict__ out) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+  if (t >= N * L) return;
+  const int64_t n = t / L;
+  const int l = static_cast<int>(t - n * L);
+  int ix, iy, iz;
+  float tx, ty, tz;
+  grid_cell(G, l, x01, n, ix, iy, iz, tx, ty, tz);
+  float f0[8], f1[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int64_t i = grid_index(G, l, ix, iy, iz, c, mask);
+    f0[c] = __ldg(planes + i);
+    f1[c] = __ldg(planes + total + i);
+  }
+  float e0 = 0.0f, e1 = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float w = corner_weight(c, tx, ty, tz);
+    e0 = __fadd_rn(e0, __fmul_rn(f0[c], w));
+    e1 = __fadd_rn(e1, __fmul_rn(f1[c], w));
+  }
+  out[n * 2 * L + l] = e0;
+  out[n * 2 * L + L + l] = e1;
+}
+
+// The table gradient's terms from g [N, 2L] (f32): entry (l*8 + c)*N + n
+// holds corner c's index (int32) and g[n, l]*w_c, g[n, L + l]*w_c. One
+// thread per (level, point), level outermost.
+__global__ void __launch_bounds__(THREADS)
+hashgrid_bwd_kernel(const float* __restrict__ g, const float* __restrict__ x01, int64_t N, int L, GridLevels G,
+                    uint32_t mask, int32_t* __restrict__ idx, float* __restrict__ v0, float* __restrict__ v1) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+  if (t >= N * L) return;
+  const int l = static_cast<int>(t / N);
+  const int64_t n = t - static_cast<int64_t>(l) * N;
+  int ix, iy, iz;
+  float tx, ty, tz;
+  grid_cell(G, l, x01, n, ix, iy, iz, tx, ty, tz);
+  const float g0 = g[n * 2 * L + l], g1 = g[n * 2 * L + L + l];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int64_t k = (static_cast<int64_t>(l) * 8 + c) * N + n;
+    const float w = corner_weight(c, tx, ty, tz);
+    idx[k] = static_cast<int32_t>(grid_index(G, l, ix, iy, iz, c, mask));
+    v0[k] = __fmul_rn(g0, w);
+    v1[k] = __fmul_rn(g1, w);
+  }
+}
+
 unsigned blocks(int64_t work) { return static_cast<unsigned>((work + THREADS - 1) / THREADS); }
 
 // blocks of a grid-stride pass over T entries (the pack, the fold): at
@@ -1122,6 +1244,19 @@ bool fill_dense_levels(DenseLevels& L, int Ld, const float* scales, const int32_
     L.scale[l] = scales[l];
     L.res[l] = res[l];
     L.offset[l] = offsets[l];
+  }
+  return true;
+}
+
+bool fill_grid_levels(GridLevels& G, int L, const float* scales, const int64_t* offsets, const int32_t* res,
+                      const int32_t* hashed) {
+  if (L < 1 || L > MAX_LEVELS) return false;
+  for (int l = 0; l < L; ++l) {
+    if (res[l] < 1) return false;
+    G.scale[l] = scales[l];
+    G.offset[l] = offsets[l];
+    G.res[l] = res[l];
+    G.hashed[l] = hashed[l];
   }
   return true;
 }
@@ -1373,5 +1508,30 @@ extern "C" int nerf_dense_levels_bwd(const void* g, int64_t gs, int g_bf16, cons
     else NERF_DENSE_BWD(false, 2);
   }
 #undef NERF_DENSE_BWD
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The feature-last encode's forward: out [N, 2L] f32 (row-major) from the
+// [2, total] f32 planes and x01 [N, 3]. Levels as fill_grid_levels takes
+// them (every level, in the planes' order); mask = hashmap size - 1.
+extern "C" int nerf_hashgrid_fwd(const float* planes, int64_t total, const float* x01, int64_t N, int L,
+                                 const float* scales, const int64_t* offsets, const int32_t* res,
+                                 const int32_t* hashed, uint32_t mask, float* out, void* stream) {
+  GridLevels G;
+  if (!fill_grid_levels(G, L, scales, offsets, res, hashed)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  hashgrid_fwd_kernel<<<blocks(N * L), THREADS, 0, s>>>(planes, total, x01, N, L, G, mask, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Its table gradient's terms for K3: idx, v0, v1 [L * 8 * N] from the
+// cotangent g [N, 2L] f32 (row-major); the entries' indices must fit int32.
+extern "C" int nerf_hashgrid_bwd(const float* g, const float* x01, int64_t N, int L, const float* scales,
+                                 const int64_t* offsets, const int32_t* res, const int32_t* hashed, uint32_t mask,
+                                 int32_t* idx, float* v0, float* v1, void* stream) {
+  GridLevels G;
+  if (!fill_grid_levels(G, L, scales, offsets, res, hashed)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  hashgrid_bwd_kernel<<<blocks(N * L), THREADS, 0, s>>>(g, x01, N, L, G, mask, idx, v0, v1);
   return static_cast<int>(cudaGetLastError());
 }

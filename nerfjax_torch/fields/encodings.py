@@ -1,6 +1,7 @@
 """Input encodings (counterpart of ``nerfjax/fields/encodings.py``): the
-Fourier encodings of the vanilla field (:13-50) and the feature-major SH-4
-direction encoding of the NGP field. Elementwise torch; the float32
+Fourier encodings of the vanilla field (:13-50) and the SH-4 direction
+encoding of the NGP field, point-major (``sh4_encode`` :51-85) and
+feature-major. Elementwise torch; the float32
 frequencies are nerfjax's (2^k * f32(pi), exact scalings of one rounded pi).
 """
 
@@ -43,13 +44,12 @@ def fourier_encode_planar(px: torch.Tensor, py: torch.Tensor, pz: torch.Tensor, 
     return torch.stack(rows, dim=0)
 
 
-def sh4_encode_planar(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """Real spherical harmonics to degree 4 of unit directions, feature-major:
-    three [N] components -> [16, N] (nerfjax ``sh4_encode_planar``, same
-    constants and the same order of operations)."""
+def _sh4_terms(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> list[torch.Tensor]:
+    """The 16 real spherical harmonics to degree 4 of unit directions, each
+    of x's shape, with nerfjax's constants and order of operations."""
     xx, yy, zz = x * x, y * y, z * z
     xy, yz, xz = x * y, y * z, x * z
-    rows = [
+    return [
         torch.full_like(x, 0.28209479177387814),
         -0.48860251190291987 * y,
         0.48860251190291987 * z,
@@ -67,4 +67,17 @@ def sh4_encode_planar(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torc
         1.4453057213202769 * z * (xx - yy),
         0.59004358992664352 * x * (-xx + 3.0 * yy),
     ]
-    return torch.stack(rows, dim=0)
+
+
+def sh4_encode(d: torch.Tensor) -> torch.Tensor:
+    """Real spherical harmonics to degree 4 of unit directions d [..., 3]
+    -> [..., 16] (nerfjax ``sh4_encode``: the true unit direction, not
+    tcnn's 2x - 1 remap)."""
+    return torch.stack(_sh4_terms(d[..., 0], d[..., 1], d[..., 2]), dim=-1)
+
+
+def sh4_encode_planar(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Real spherical harmonics to degree 4 of unit directions, feature-major:
+    three [N] components -> [16, N] (nerfjax ``sh4_encode_planar``, same
+    constants and the same order of operations)."""
+    return torch.stack(_sh4_terms(x, y, z), dim=0)

@@ -5,9 +5,16 @@
 of ``extra_dense_levels`` to dense storage) because nerfjax's module imports
 jax; ``tests/test_torch_hash_encode.py`` holds the two equal.
 
+``hashgrid_indices_and_weights`` is nerfjax's (:149-206): every level's 8
+corner indices and trilinear weights as ``[N, L*8]`` columns.
+
 ``InstantNGP`` is an ``nn.Module`` holding the ``[2, total]`` table planes
 and the bias-free MLP weights in nerfjax's ``[in, out]`` layout
-(``fields/ngp.py:258-436``). Its feature-major methods keep nerfjax's names:
+(``fields/ngp.py:258-436``). ``query_density``/``apply`` are nerfjax's
+point-major ("feature-last", ``[N, C]``) forward (:323-346): the exact f32
+``hashgrid_encode`` (``nerfjax_torch.ops.hash_encode``), then the MLPs as
+``torch.matmul`` in the weights' dtype, as nerfjax's ``_mlp_apply`` leaves
+them to XLA. Its feature-major methods keep nerfjax's names:
 ``query_density_planar``/``apply_planar`` are the unfused, differentiable
 path the training step runs (each weight cast to ``dtype`` per matmul, the
 product in ``dtype``, as ``jnp.dot(w.T.astype(dtype), h,
@@ -86,6 +93,38 @@ class HashGridSpec:
     @property
     def output_dim(self) -> int:
         return self.n_levels * self.n_features
+
+
+def hashgrid_indices_and_weights(spec: HashGridSpec, x01: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gather indices and trilinear weights of every level, x01 [N, 3] in
+    [0, 1] -> (idx [N, L*8] int32 into the flat table, w [N, L*8] float32),
+    column ``level*8 + corner`` (corners in ``CORNERS`` order; nerfjax
+    ``hashgrid_indices_and_weights``). A hashed level's index is the uint32
+    hash masked to the table size; a dense level's clips each corner
+    coordinate to [0, r-1]. The weights are (wx*wy)*wz of the unclamped
+    fraction."""
+    from nerfjax_torch.ops.hash_encode import _corner_weights, _hash_level_indices
+
+    x, y, z = x01[:, 0], x01[:, 1], x01[:, 2]
+    levels = spec.level_params()
+    hashed = [lp for lp in levels if lp["use_hash"]]
+    hidx = _hash_level_indices(spec, hashed, x, y, z) if hashed else []  # per corner [Lh, N]
+    idx, h = [], 0
+    for lp in levels:
+        if lp["use_hash"]:
+            idx.append(torch.stack([hidx[c][h] for c in range(8)]) + hashed[0]["offset"])
+            h += 1
+            continue
+        r, s = lp["res"], torch.tensor(lp["scale"], dtype=torch.float32, device=x.device)
+        ix, iy, iz = (torch.floor(c * s + 0.5).to(torch.int64) for c in (x, y, z))
+        idx.append(torch.stack([
+            (ix + dx).clamp(0, r - 1) + (iy + dy).clamp(0, r - 1) * r + (iz + dz).clamp(0, r - 1) * (r * r)
+            for dx, dy, dz in CORNERS
+        ]) + lp["offset"])
+    N = x01.shape[0]
+    w = torch.stack(_corner_weights(levels, x, y, z), dim=1)  # [L, 8, N]
+    return (torch.stack(idx).permute(2, 0, 1).reshape(N, -1).to(torch.int32),
+            w.permute(2, 0, 1).reshape(N, -1).contiguous())
 
 
 def _to01(c: torch.Tensor) -> torch.Tensor:
@@ -201,6 +240,33 @@ class InstantNGP(nn.Module):
         if key not in self._packed:
             self._packed[key] = pack_weights(self.params(), dtype, self.table.device)
         return self._packed[key]
+
+    def num_params(self) -> int:
+        """The parameters' element count (table and both MLPs)."""
+        return sum(p.numel() for p in self.parameters())
+
+    # -- the point-major path: positions and directions as [N, 3] ----------
+
+    def query_density(self, pos: torch.Tensor, **_) -> tuple[torch.Tensor, torch.Tensor]:
+        """pos [N, 3] in [-1, 1] -> (sigma [N, 1], features [N, 16]): sigma is
+        the first channel of the ReLU'd density-MLP output. Extra keyword
+        arguments (nerfjax's ``rng``, ``train``) are accepted and ignored."""
+        from nerfjax_torch.ops.hash_encode import hashgrid_encode
+
+        h = hashgrid_encode(self.spec, self.table, _to01(pos))
+        for w in self.dmlp:
+            h = torch.relu(torch.matmul(h, w))
+        return h[:, :1], h
+
+    def apply(self, pos: torch.Tensor, view: torch.Tensor, **_) -> tuple[torch.Tensor, torch.Tensor]:
+        """pos, view [N, 3] -> (rgb [N, 3], sigma [N, 1])."""
+        from nerfjax_torch.fields.encodings import sh4_encode
+
+        sigma, feat = self.query_density(pos)
+        h = torch.cat([feat, sh4_encode(view).to(feat.dtype)], dim=-1)
+        for w in self.cmlp[:-1]:
+            h = torch.relu(torch.matmul(h, w))
+        return torch.sigmoid(torch.matmul(h, self.cmlp[-1])), sigma
 
     # -- feature-major paths: positions/directions as three [N] vectors,
     # activations as [C, N] -------------------------------------------------

@@ -8,7 +8,9 @@ layer, then [features, encoded direction] -> 128 -> ReLU -> 3 -> sigmoid.
 
 ``VanillaNeRF`` is an ``nn.Module`` holding nerfjax's parameter layout:
 ``w`` [in, out] and ``b`` [out] per layer, in the same nesting
-(``params()``, ``load_params``). Its feature-major methods keep nerfjax's
+(``params()``, ``load_params``). ``query_density``/``apply`` are nerfjax's
+point-major forward (:89-137): ``x @ w + b`` on [N, C] activations in the
+weights' dtype. Its feature-major methods keep nerfjax's
 names and arithmetic: every weight and bias cast to ``dtype``, the product
 in ``dtype`` (``jnp.dot(w.T.astype(dtype), h, preferred_element_type=dtype)
 + b``). Its products are plain ``torch.matmul``: nerfjax computes them
@@ -29,7 +31,7 @@ import math
 import torch
 from torch import nn
 
-from nerfjax_torch.fields.encodings import fourier_encode_planar, fourier_output_dim
+from nerfjax_torch.fields.encodings import fourier_encode, fourier_encode_planar, fourier_output_dim
 
 N_POS, N_SKIP = 4, 4
 
@@ -41,6 +43,10 @@ class _Linear(nn.Module):
         super().__init__()
         self.w = nn.Parameter(torch.zeros(fan_in, fan_out, device=device), requires_grad=False)
         self.b = nn.Parameter(torch.zeros(fan_out, device=device), requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """[N, in] -> [N, out] in the weights' dtype."""
+        return torch.matmul(x, self.w) + self.b
 
     def planar(self, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """[in, N] -> [out, N] in ``dtype``."""
@@ -119,6 +125,44 @@ class VanillaNeRF(nn.Module):
                     ours[key].copy_(theirs[key])
         return self
 
+    def num_params(self) -> int:
+        """The parameters' element count."""
+        return sum(p.numel() for p in self.parameters())
+
+    @staticmethod
+    def _noisy(sigma: torch.Tensor, noise, generator) -> torch.Tensor:
+        """sigma plus the train-time noise of its shape: ``noise`` (any
+        shape of as many elements), or a draw from ``generator``."""
+        if noise is None:
+            noise = torch.randn(sigma.shape, generator=generator, device=sigma.device, dtype=sigma.dtype)
+        return sigma + noise.reshape(sigma.shape).to(sigma.dtype)
+
+    # -- the point-major path: positions and directions as [N, 3] ----------
+
+    def query_density(self, pos: torch.Tensor, *, train: bool = False, noise=None, generator=None):
+        """pos [N, 3] -> (sigma [N, 1], features [N, hidden]). With ``train``
+        and ``sigma_noise`` the pre-ReLU sigma gets ``noise`` [N, 1] (nerfjax's
+        ``rng`` draw), drawn from ``generator`` when None."""
+        pe = fourier_encode(pos, self.pos_L, self.include_input_pos)
+        x = pe
+        for layer in self.pos_layers:
+            x = torch.relu(layer(x))
+        x = torch.cat([x, pe], dim=-1)
+        for layer in self.skip_layers:
+            x = torch.relu(layer(x))
+        sigma = self.density(x)
+        if train and self.sigma_noise:
+            sigma = self._noisy(sigma, noise, generator)
+        return torch.relu(sigma), self.feature(x)
+
+    def apply(self, pos: torch.Tensor, view: torch.Tensor, *, train: bool = False, noise=None, generator=None):
+        """pos, view [N, 3] -> (rgb [N, 3], sigma [N, 1])."""
+        sigma, features = self.query_density(pos, train=train, noise=noise, generator=generator)
+        x = torch.cat([features, fourier_encode(view, self.dir_L, self.include_input_dir)], dim=-1)
+        for layer in self.color_layers[:-1]:
+            x = torch.relu(layer(x))
+        return torch.sigmoid(self.color_layers[-1](x)), sigma
+
     # -- feature-major paths: positions/directions as three [N] vectors,
     # activations as [C, N] -------------------------------------------------
 
@@ -135,9 +179,7 @@ class VanillaNeRF(nn.Module):
             h = torch.relu(layer.planar(h, dtype))
         sigma = self.density.planar(h, dtype)[0]
         if train and self.sigma_noise:
-            if noise is None:
-                noise = torch.randn(sigma.shape, generator=generator, device=sigma.device, dtype=sigma.dtype)
-            sigma = sigma + noise.to(sigma.dtype)
+            sigma = self._noisy(sigma, noise, generator)
         return torch.relu(sigma), self.feature.planar(h, dtype)
 
     def apply_planar(self, pos3, view3, *, dtype=torch.float32, train: bool = False, noise=None, generator=None):

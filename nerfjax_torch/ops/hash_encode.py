@@ -6,7 +6,8 @@
 custom VJP :293-409, the dense levels: exact ``_dense_levels_encode``
 :487-530, level-subset backward ``_dense_levels_encode_glv`` :538-672,
 stochastic ``_dense_levels_encode_stoch`` :679-766; and
-``hash_encode_planar`` :774-814).
+``hash_encode_planar`` :774-814), and the point-major ("feature-last")
+encode of ``nerfjax/fields/ngp.py``, ``hashgrid_encode`` :212-237.
 
 Semantics, not layout: nerfjax packs bf16 feature pairs into f32 words and
 builds dense-level cell-row tables because the TPU's gather pays per index.
@@ -59,6 +60,14 @@ stream):
     K3's (idx, v0, v1), exact, to the b planned corners, or over gd drawn
     levels, whose cotangent take is the Pallas kernel
     ``_take_along_axis_probe``'s function.
+  * ``hashgrid_fwd``: the feature-last encode's forward, [N, 3] -> [N, 2L]
+    in exact float32 (every level, no bf16 rounding, dense corners clipped
+    per coordinate as nerfjax's ``hashgrid_indices_and_weights``), one
+    thread per (point, level) forming its 8 indices in registers; XLA's
+    take + dot in nerfjax, so it replaces no Pallas kernel;
+  * ``hashgrid_bwd``: its table gradient's terms g*w staged as K3's (idx,
+    v0, v1), recomputed from the positions; K3 adds them, the scatter-add
+    that autodiff makes of nerfjax's take.
 
 K1 and K4 store in the encode's dtype into an ``out=`` slice of its
 [2, L, N] output (rows contiguous, any plane stride), so the encode
@@ -91,7 +100,8 @@ DENSE_SALT = 0x5BD1E995  # nerfjax _DENSE_SALT: the dense levels' corner draws
 DENSE_GL_SALT = 0x27D4EB2F  # nerfjax _DENSE_GL_SALT: the dense level-subset draws
 
 launch_counts = {"hash_levels_fwd": 0, "hash_levels_bwd": 0, "table_grad_scatter": 0,
-                 "pack_pairs": 0, "dense_levels_fwd": 0, "dense_levels_bwd": 0}
+                 "pack_pairs": 0, "dense_levels_fwd": 0, "dense_levels_bwd": 0, "hashgrid_fwd": 0,
+                 "hashgrid_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -636,8 +646,11 @@ def _lib() -> ctypes.CDLL:
     lib.nerf_dense_levels_fwd.argtypes = [vp, vp, vp, vp, i64, i32, vp, vp, vp, i32, i32, f32, vp, i64, i32, vp, vp]
     lib.nerf_dense_levels_bwd.argtypes = [vp, i64, i32, vp, vp, vp, i64, i32, vp, vp, vp, i32, i32, f32, i32, f32,
                                           vp, vp, vp, vp]
+    lib.nerf_hashgrid_fwd.argtypes = [vp, i64, vp, i64, i32, vp, vp, vp, vp, u32, vp, vp]
+    lib.nerf_hashgrid_bwd.argtypes = [vp, vp, i64, i32, vp, vp, vp, vp, u32, vp, vp, vp, vp]
     for fn in (lib.nerf_hash_levels_fwd, lib.nerf_hash_levels_bwd, lib.nerf_table_grad_scatter,
-               lib.nerf_pack_pairs, lib.nerf_dense_levels_fwd, lib.nerf_dense_levels_bwd):
+               lib.nerf_pack_pairs, lib.nerf_dense_levels_fwd, lib.nerf_dense_levels_bwd, lib.nerf_hashgrid_fwd,
+               lib.nerf_hashgrid_bwd):
         fn.restype = i32
     lib.nerf_hash_max_levels.argtypes, lib.nerf_hash_max_levels.restype = [], i32
     return lib
@@ -965,6 +978,143 @@ def dense_levels_bwd(spec: HashGridSpec, g: torch.Tensor, x, y, z, dtype=torch.f
         _raise_if_failed("dense_levels_bwd", err)
         launch_counts["dense_levels_bwd"] += 1
     return idx, v0, v1
+
+
+# -- the feature-last encode ----------------------------------------------------
+
+
+def hashgrid_encode_plain(spec: HashGridSpec, planes: torch.Tensor, x01: torch.Tensor) -> torch.Tensor:
+    """The feature-last encode's plain version, [N, 3] -> [N, 2L] float32:
+    each plane gathered at ``hashgrid_indices_and_weights``' indices, times
+    the weights, summed over a level's 8 corners in order from +0 (the
+    kernel's order; nerfjax sums them by a 0/1 selector matmul)."""
+    from nerfjax_torch.fields.ngp import hashgrid_indices_and_weights
+
+    idx, w = hashgrid_indices_and_weights(spec, x01)
+    N, L = x01.shape[0], spec.n_levels
+    i = idx.to(torch.int64)
+    out = []
+    for p in range(2):
+        prod = (planes[p][i] * w).reshape(N, L, 8)
+        acc = torch.zeros(N, L, dtype=torch.float32, device=x01.device)
+        for c in range(8):
+            acc = acc + prod[..., c]
+        out.append(acc)
+    return torch.cat(out, dim=1)
+
+
+def hashgrid_bwd_entries_plain(spec: HashGridSpec, g: torch.Tensor, x01: torch.Tensor):
+    """K3's inputs for the feature-last encode's table gradient from its
+    cotangent g [N, 2L] float32: (idx [L*8*N] int32, v0, v1 [L*8*N] float32),
+    entry (l*8 + c)*N + n holding corner c of level l at point n and
+    g[n, l]*w, g[n, L + l]*w."""
+    from nerfjax_torch.fields.ngp import hashgrid_indices_and_weights
+
+    idx, w = hashgrid_indices_and_weights(spec, x01)
+    N, L = x01.shape[0], spec.n_levels
+    idx, w = (t.reshape(N, L, 8).permute(1, 2, 0) for t in (idx, w))  # [L, 8, N]
+    g = g.to(torch.float32)
+    v0, v1 = (g[:, p * L:(p + 1) * L].t()[:, None, :] * w for p in range(2))
+    return idx.reshape(-1), v0.reshape(-1), v1.reshape(-1)
+
+
+def _grid_arrays(spec: HashGridSpec):
+    """(scales f32, offsets int64, resolutions int32, hashed int32 [L], mask)
+    of every level, for the feature-last kernels."""
+    levels = spec.level_params()
+    if len(levels) > _lib().nerf_hash_max_levels():
+        raise ValueError(f"{len(levels)} levels exceed the kernels' maximum")
+    return (np.array([lp["scale"] for lp in levels], np.float32),
+            np.array([lp["offset"] for lp in levels], np.int64),
+            np.array([lp["res"] for lp in levels], np.int32),
+            np.array([lp["use_hash"] for lp in levels], np.int32), spec.hashmap_size - 1)
+
+
+def _check_x01(name: str, x01: torch.Tensor) -> int:
+    if x01.dim() != 2 or x01.shape[1] != 3:
+        raise ValueError(f"{name}: x01 must be [N, 3], got {tuple(x01.shape)}")
+    return x01.shape[0]
+
+
+def hashgrid_fwd(spec: HashGridSpec, planes: torch.Tensor, x01: torch.Tensor) -> torch.Tensor:
+    """The feature-last encode's forward -> [N, 2L] float32 (plane-major
+    columns) from the [2, total] float32 planes and x01 [N, 3] float32 in
+    [0, 1]; on the card ``hashgrid_fwd_kernel``, on the CPU
+    ``hashgrid_encode_plain``."""
+    N = _check_x01("hashgrid_fwd", x01)
+    if _device_kind("hashgrid_fwd", x01) == "cpu":
+        return hashgrid_encode_plain(spec, planes, x01)
+    if planes.dim() != 2 or planes.shape != (2, spec.total_table_size):
+        raise ValueError(f"hashgrid_fwd: planes must be [2, {spec.total_table_size}], got {tuple(planes.shape)}")
+    _check_cuda("hashgrid_fwd", {"planes": planes, "x01": x01})
+    out = torch.empty(N, 2 * spec.n_levels, dtype=torch.float32, device=x01.device)
+    if N:
+        scales, offsets, res, hashed, mask = _grid_arrays(spec)
+        err = _lib().nerf_hashgrid_fwd(
+            planes.data_ptr(), planes.shape[1], x01.data_ptr(), N, spec.n_levels, scales.ctypes.data,
+            offsets.ctypes.data, res.ctypes.data, hashed.ctypes.data, mask, out.data_ptr(), _stream(x01))
+        _raise_if_failed("hashgrid_fwd", err)
+        launch_counts["hashgrid_fwd"] += 1
+    return out
+
+
+def hashgrid_bwd_entries(spec: HashGridSpec, g: torch.Tensor, x01: torch.Tensor):
+    """K3's inputs for the feature-last encode's table gradient, as
+    ``hashgrid_bwd_entries_plain`` describes, from g [N, 2L] float32 and
+    x01 [N, 3]; on the card ``hashgrid_bwd_kernel`` recomputes the indices
+    and weights from the positions (the table must have < 2^31 entries)."""
+    N = _check_x01("hashgrid_bwd", x01)
+    if _device_kind("hashgrid_bwd", x01) == "cpu":
+        return hashgrid_bwd_entries_plain(spec, g, x01)
+    L = spec.n_levels
+    if g.shape != (N, 2 * L):
+        raise ValueError(f"hashgrid_bwd: g must be [{N}, {2 * L}], got {tuple(g.shape)}")
+    if spec.total_table_size >= 2**31:
+        raise ValueError(f"hashgrid_bwd: {spec.total_table_size} table entries; int32 indices take fewer than 2^31")
+    _check_cuda("hashgrid_bwd", {"g": g, "x01": x01})
+    K = L * 8 * N
+    idx = torch.empty(K, dtype=torch.int32, device=x01.device)
+    v0 = torch.empty(K, dtype=torch.float32, device=x01.device)
+    v1 = torch.empty(K, dtype=torch.float32, device=x01.device)
+    if N:
+        scales, offsets, res, hashed, mask = _grid_arrays(spec)
+        err = _lib().nerf_hashgrid_bwd(
+            g.data_ptr(), x01.data_ptr(), N, L, scales.ctypes.data, offsets.ctypes.data, res.ctypes.data,
+            hashed.ctypes.data, mask, idx.data_ptr(), v0.data_ptr(), v1.data_ptr(), _stream(x01))
+        _raise_if_failed("hashgrid_bwd", err)
+        launch_counts["hashgrid_bwd"] += 1
+    return idx, v0, v1
+
+
+class _HashGridEncode(torch.autograd.Function):
+    """The feature-last encode -> [N, 2L] float32 (``hashgrid_fwd``). The
+    backward stages the table gradient's terms (``hashgrid_bwd_entries``)
+    and K3 adds them into one zeroed [2, total] float32 gradient; the
+    positions get none."""
+
+    @staticmethod
+    def forward(ctx, planes, x01, spec):
+        ctx.spec, ctx.total = spec, planes.shape[1]
+        ctx.save_for_backward(x01)
+        return hashgrid_fwd(spec, planes, x01)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x01,) = ctx.saved_tensors
+        grad = torch.zeros(2, ctx.total, dtype=torch.float32, device=x01.device)
+        table_grad_scatter(*hashgrid_bwd_entries(ctx.spec, g.contiguous().to(torch.float32), x01), grad)
+        return grad, None, None
+
+
+def hashgrid_encode(spec: HashGridSpec, planes: torch.Tensor, x01: torch.Tensor) -> torch.Tensor:
+    """Multiresolution hash encoding, point-major: x01 [N, 3] in [0, 1] ->
+    [N, 2L] float32, differentiable in ``planes`` [2, total] float32 (nerfjax
+    ``hashgrid_encode``, exact f32). Columns are plane-major (plane 0 over
+    levels 0..L-1, then plane 1), the layout of the planar encode's rows, so
+    both paths share the first density layer's weights."""
+    if spec.n_features != 2:
+        raise ValueError(f"the encode needs 2 features, got {spec.n_features}")
+    return _HashGridEncode.apply(planes, x01.to(torch.float32).contiguous(), spec)
 
 
 # -- the encode, with its table gradient ----------------------------------------

@@ -1,9 +1,12 @@
 """Volume rendering of a ray batch (counterpart of ``nerfjax/render.py``:
 ``stratified_sample`` :17-51, ``sample_pdf`` :54-93, ``merge_z_vals``
-:96-109, ``raw2outputs_planar`` :151-176 and ``render_rays_planar``
-:178-304).
+:96-109, ``raw2outputs`` :112-148, ``raw2outputs_planar`` :151-176,
+``render_rays_planar`` :178-304 and ``render_rays`` :307-381).
 
-Positions flow as three [N] component vectors and activations as [C, N], as
+``render_rays`` is nerfjax's point-major ("feature-last") render: points
+[B*S, 3] through ``field.apply``, rgb [B, S, 3], in the fields' dtype; it
+is the render of nerfjax's quality evals. In ``render_rays_planar``
+positions flow as three [N] component vectors and activations as [C, N], as
 in nerfjax. Compositing runs in float32 whatever the field's dtype. Two
 renders: single pass (all samples from the occupancy CDF, one field pass,
 instant-ngp's design) and coarse->pdf->fine (stratified or occupancy
@@ -20,6 +23,7 @@ sampler give the same depths from the same weights.
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from nerfjax_torch.ops.occupancy import OccupancyGridSpec, linspace01, occupancy_sample, running_sum
 
@@ -73,6 +77,24 @@ def merge_z_vals(rays_o, rays_d, z_coarse, z_importance):
     z_vals [B, S+I])."""
     z = torch.sort(torch.cat([z_coarse, z_importance], dim=-1), dim=-1).values
     return rays_o[:, None, :] + rays_d[:, None, :] * z[..., None], z
+
+
+def raw2outputs(rgb, sigma, z_vals, white_bg: bool = False, dist_last: float = 1e10):
+    """rgb [B, S, 3], sigma [B, S, 1] or [B, S], z_vals [B, S] -> (rgb_map
+    [B, 3], weights [B, S]), in the inputs' dtype; ``dist_last`` is the
+    distance past the last sample (nerfjax ``raw2outputs``)."""
+    sigma = sigma.reshape(z_vals.shape)
+    dists = z_vals[..., 1:] - z_vals[..., :-1]
+    dists = torch.cat([dists, torch.full_like(dists[..., :1], dist_last)], dim=-1)
+    alpha = 1.0 - torch.exp(-sigma * dists)
+    trans = torch.cumprod(
+        torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], dim=-1), dim=-1
+    )[..., :-1]
+    weights = alpha * trans
+    rgb_map = torch.sum(weights[..., None] * rgb, dim=-2)
+    if white_bg:
+        rgb_map = rgb_map + (1.0 - weights.sum(dim=-1)[..., None])
+    return rgb_map, weights
 
 
 def raw2outputs_planar(rgb, sigma, z_vals, white_bg: bool = False, dist_last: float = 1e10):
@@ -167,4 +189,71 @@ def render_rays_planar(
     rgb_map_f, weights_f = raw2outputs_planar(*eval_field(field_fine, z_comb, noise_fine), z_comb, white_bg,
                                               dist_last)
     return {"rgb_coarse": rgb_map_c, "rgb_fine": rgb_map_f, "weights_coarse": weights_c,
+            "weights_fine": weights_f, "z_vals": z_comb}
+
+
+def render_rays(
+    field_coarse,
+    field_fine,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    t_near: torch.Tensor,
+    t_far: torch.Tensor,
+    n_samples: int,
+    n_importance: int,
+    *,
+    white_bg: bool = False,
+    train: bool = False,
+    dist_last: float = 1e10,
+    remat: bool = True,
+    u_strat: torch.Tensor | None = None,
+    u_pdf: torch.Tensor | None = None,
+    noise_coarse: torch.Tensor | None = None,
+    noise_fine: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+) -> dict[str, torch.Tensor]:
+    """Point-major coarse->pdf->fine render of a ray batch (nerfjax
+    ``render_rays``): n_samples stratified depths (uniforms ``u_strat``
+    [B, n_samples], nerfjax's ``k_strat`` draw) through the coarse field's
+    ``apply`` on [B*S, 3], ``raw2outputs``, n_importance depths from
+    ``sample_pdf`` of the inner coarse weights (``u_pdf`` [B, n_importance],
+    the ``k_pdf`` draw) without gradient, merged and sorted, then the fine
+    field's ``apply`` and ``raw2outputs``. The fields hold their weights.
+
+    ``train`` is handed to each ``apply``: a field with train-time sigma
+    noise (vanilla's) gets ``noise_coarse``/``noise_fine`` [B*S, 1] (the
+    ``k_noise_c``/``k_noise_f`` draws). A draw left None comes from
+    ``generator``, in the order u_strat, coarse noise, u_pdf, fine noise.
+    With ``remat`` and ``train`` each field evaluation is recomputed in the
+    backward pass (``torch.utils.checkpoint``, nerfjax's ``jax.checkpoint``)
+    instead of keeping its activations; the noise is drawn outside it, so
+    the recomputation sees the same draw.
+    """
+    B = rays_o.shape[0]
+    if u_strat is None:
+        u_strat = torch.rand(B, n_samples, generator=generator, device=rays_o.device)
+    pts, z_vals = stratified_sample(rays_o, rays_d, t_near, t_far, n_samples, u=u_strat)
+
+    def evaluate(field, pts, noise):
+        S = pts.shape[1]
+        x, d = pts.reshape(-1, 3), rays_d[:, None, :].expand(B, S, 3).reshape(-1, 3)
+        noisy = train and getattr(field, "sigma_noise", False)
+        if noisy and noise is None:
+            noise = torch.randn(B * S, 1, generator=generator, device=x.device, dtype=x.dtype)
+
+        def run(x, d):
+            if noisy:
+                return field.apply(x, d, train=True, noise=noise)
+            return field.apply(x, d, train=train)
+
+        rgb, sigma = (torch.utils.checkpoint.checkpoint(run, x, d, use_reentrant=False) if remat and train
+                      else run(x, d))
+        return rgb.reshape(B, S, 3), sigma.reshape(B, S)
+
+    rgb_map_c, weights = raw2outputs(*evaluate(field_coarse, pts, noise_coarse), z_vals, white_bg, dist_last)
+    z_mid = 0.5 * (z_vals[..., :-1] + z_vals[..., 1:])
+    z_imp = sample_pdf(z_mid, weights[..., 1:-1].detach(), n_importance, u=u_pdf, generator=generator).detach()
+    pts_f, z_comb = merge_z_vals(rays_o, rays_d, z_vals, z_imp)
+    rgb_map_f, weights_f = raw2outputs(*evaluate(field_fine, pts_f, noise_fine), z_comb, white_bg, dist_last)
+    return {"rgb_coarse": rgb_map_c, "rgb_fine": rgb_map_f, "weights_coarse": weights,
             "weights_fine": weights_f, "z_vals": z_comb}

@@ -1125,6 +1125,105 @@ def test_prefetch_on_the_card_yields_the_host_batches(cuda_device, depth):
                 assert b[k].device.type == "cuda" and torch.equal(b[k].cpu(), torch.from_numpy(v)), (i, k)
 
 
+# -- the feature-last encode (hashgrid_fwd, hashgrid_bwd, then K3) -----------------------
+
+GRID_SPECS = {"tuned": TUNED, "medium16": dict(n_levels=16, log2_hashmap_size=17),
+              "small6_ed1": dict(n_levels=6, log2_hashmap_size=15, extra_dense_levels=1)}
+
+
+def _grid_x01(inputs: str, N: int, device):
+    """x01 [N, 3]: uniform with the domain's corners first; ray-major samples
+    (neighbouring points share cells); or one position repeated."""
+    if inputs == "one_position":
+        return torch.tensor([[0.3, 0.6, 0.2]], device=device).expand(N, 3).contiguous()
+    if inputs == "rays":
+        return torch.stack(_ray_samples(N // 192, 192, 51, device), dim=1).contiguous()
+    return torch.stack(_positions(N, 52, device), dim=1).contiguous()
+
+
+@pytest.mark.parametrize("inputs", ["uniform", "rays", "one_position"])
+@pytest.mark.parametrize("spec", list(GRID_SPECS))
+def test_hashgrid_encode_kernels_match_plain(cuda_device, spec, inputs):
+    """hashgrid_fwd against hashgrid_encode_plain within the order of a
+    level's 8-term f32 sum (8 * 2^-24 * sum|f w|; the plain version sums in
+    the kernel's order, so they are expected equal); hashgrid_bwd's staged
+    entries torch.equal to plain; the autograd encode's table gradient (K3)
+    within the atomic-order bound; each wrapper launched once per call."""
+    spec = HashGridSpec(**GRID_SPECS[spec])
+    N = 100_032 if inputs == "rays" else 100_003
+    rng = np.random.default_rng(53)
+    planes = torch.from_numpy(rng.uniform(-1, 1, (2, spec.total_table_size)).astype(np.float32)).to(cuda_device)
+    x01 = _grid_x01(inputs, N, cuda_device)
+    before = dict(hash_encode.launch_counts)
+    got = hash_encode.hashgrid_fwd(spec, planes, x01)
+    ref = hash_encode.hashgrid_encode_plain(spec, planes, x01)
+    bound = 8 * 2.0**-24 * hash_encode.hashgrid_encode_plain(spec, planes.abs(), x01) + 1e-30
+    torch.cuda.synchronize()
+    assert got.shape == (x01.shape[0], 2 * spec.n_levels) and got.dtype == torch.float32
+    assert bool(((got - ref).abs() <= bound).all())
+    g = torch.from_numpy(rng.normal(size=tuple(got.shape)).astype(np.float32)).to(cuda_device)
+    staged = hash_encode.hashgrid_bwd_entries(spec, g, x01)
+    want = hash_encode.hashgrid_bwd_entries_plain(spec, g, x01)
+    assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(staged, want))
+    p = planes.clone().requires_grad_(True)
+    (hash_encode.hashgrid_encode(spec, p, x01) * g).sum().backward()
+    zeros = lambda: torch.zeros(2, spec.total_table_size, device=cuda_device)  # noqa: E731
+    gref = hash_encode.table_grad_scatter_plain(*want, zeros())
+    assert bool(((p.grad - gref).abs() <= _scatter_bound(*want, spec.total_table_size, cuda_device)).all())
+    counts = {k: hash_encode.launch_counts[k] - before[k] for k in before}
+    assert counts["hashgrid_fwd"] == 2 and counts["hashgrid_bwd"] == 2 and counts["table_grad_scatter"] == 1
+    assert counts["hash_levels_fwd"] == counts["dense_levels_fwd"] == 0
+
+
+def test_hashgrid_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    spec = HashGridSpec(**GRID_SPECS["small6_ed1"])
+    planes = torch.zeros(2, spec.total_table_size, device=cuda_device)
+    x01 = torch.rand(10, 3, device=cuda_device)
+    with pytest.raises(ValueError):
+        hash_encode.hashgrid_fwd(spec, planes, x01.t().contiguous())
+    with pytest.raises(ValueError):
+        hash_encode.hashgrid_fwd(spec, planes.double(), x01)
+    with pytest.raises(ValueError):
+        hash_encode.hashgrid_fwd(spec, planes[:, :-1], x01)
+    with pytest.raises(ValueError):
+        hash_encode.hashgrid_bwd_entries(spec, torch.zeros(10, 3, device=cuda_device), x01)
+    assert hash_encode.hashgrid_fwd(spec, planes, x01[:0]).shape == (0, 2 * spec.n_levels)
+
+
+def test_render_rays_on_the_card_runs_the_feature_last_kernels(cuda_device):
+    """render_rays(train=True) with remat: each pass's encode twice (the
+    forward and its recomputation), its staging and K3 once; the same
+    outputs as the CPU's coarse pass within 2e-5 at the same uniforms."""
+    from nerfjax_torch import render
+    from nerfjax_torch.train import build_fields
+
+    cfg = {"ngp": True, "nerf_type": "small", "hash_n_levels": 6}
+    cpu = build_fields(cfg, train=True)[1].init(torch.Generator().manual_seed(0))
+    card = build_fields(cfg, train=True, device=cuda_device)[1].load_params(cpu.params())
+    rng = np.random.default_rng(54)
+    B = 256
+    o = rng.normal(size=(B, 3))
+    o = o / np.linalg.norm(o, axis=1, keepdims=True) * 2.5
+    d = rng.uniform(-0.4, 0.4, (B, 3)) - o
+    d = d / np.linalg.norm(d, axis=1, keepdims=True)
+    near = rng.uniform(1.0, 1.6, B)
+    args = [torch.from_numpy(a.astype(np.float32)) for a in (o, d, near, near + 2.0, rng.uniform(size=(B, 16)),
+                                                               rng.uniform(size=(B, 32)))]
+    before = dict(hash_encode.launch_counts)
+    outs = []
+    for dev, f in ((cuda_device, card), ("cpu", cpu)):
+        o_, d_, n_, f_, us, up = (a.to(dev) for a in args)
+        out = render.render_rays(f, f, o_, d_, n_, f_, 16, 32, train=True, u_strat=us, u_pdf=up)
+        (out["rgb_fine"].sum() + out["rgb_coarse"].sum()).backward()
+        outs.append({k: v.detach().cpu() for k, v in out.items()})
+    torch.cuda.synchronize()
+    counts = {k: hash_encode.launch_counts[k] - before[k] for k in before}
+    assert counts["hashgrid_fwd"] == 4 and counts["hashgrid_bwd"] == 2 and counts["table_grad_scatter"] == 2
+    assert float((outs[0]["rgb_coarse"] - outs[1]["rgb_coarse"]).abs().max()) <= 2e-5
+    assert float((outs[0]["weights_coarse"] - outs[1]["weights_coarse"]).abs().max()) <= 2e-5
+    assert card.table.grad is not None and bool(torch.isfinite(card.table.grad).all())
+
+
 # -- the probe kernels ---------------------------------------------------------------
 
 from nerfjax_torch import probes  # noqa: E402
