@@ -321,27 +321,36 @@ grid, cp.async tiles, register-blocked FP32 products):
      the head's.
 
 Added for the point-major path (nerfjax's render_rays and field.apply; its
-encode's forward, hashgrid_fwd_kernel, and its backward's staging,
-hashgrid_bwd_kernel, whose entries K3 adds):
+encode's forward, pack_pairs then hashgrid_fwd_kernel, and its backward,
+hashgrid_bwd_kernel then the scratch fold):
 
-  R. (after the drop-in run, feature_last_phase) hashgrid_fwd against its
-     plain version at nerfjax's eval shape (N = 786,432 seeded positions
-     with the domain's faces) at the quality protocol's spec (medium, 16
-     levels) and the tuned cfg's, timed beside its bounds (the touched
-     entries once; every gather counted); one render_rays(train=True) pass
-     and its backward at the drop-in shape (the drop-in checkpoint, 8192
-     rays, 64 + 128), launches counted from 0 around it (hashgrid_fwd 4,
-     hashgrid_bwd 2, K3 2, nothing else), each wrapper against its plain
-     version on the pass's own arguments, all three timed at the fine
-     pass; render_rays card vs CPU at the CPU tests' small spec. Alone:
-     python3 chip_smoke.py --only feature_last (a seeded drop-in field);
+  R. (after the drop-in run, feature_last_phase) hashgrid_fwd torch.equal
+     to its plain version at nerfjax's eval shape (N = 786,432 seeded
+     positions with the domain's faces) at the quality protocol's spec
+     (medium, 16 levels) and the tuned cfg's, the pack torch.equal to its
+     plain version, timed beside its bounds (the touched entries once;
+     every gather counted); one render_rays(train=True) pass and its
+     backward at the drop-in shape (the drop-in checkpoint, 8192 rays,
+     64 + 128), launches counted from 0 around it (hashgrid_fwd 4,
+     pack_pairs 4, hashgrid_bwd 2, nothing else), each wrapper against its
+     plain version on the pass's own arguments (the forward torch.equal,
+     the table gradient within the atomic-order bound, its float2 adds
+     beside the first design's), both timed at the fine pass, the peak
+     memory beside the first design's 3.58 GiB; the forward also at the
+     quality phase's first eval's fine pass (captured there); render_rays
+     card vs CPU at the CPU tests' small spec. Alone: python3 chip_smoke.py
+     --only feature_last (a seeded drop-in field, no eval call);
   Q. each run now evaluated as psnr_parity._eval_psnr evaluates it:
      render_rays with the checkpoint's field in f32, all 4,096 rays in one
      call, 64 + 128, train=False, generator seed 0 (the number held against
      nerfjax's range and the floors), the planar bf16 eval of the same
      checkpoint beside it; the tuned arm spass12Led1k1f1scns24gl2sg32
      (NGP-large, batch 8192, 600 steps, cfg/blender_scene_tuned.yml's
-     estimators) added.
+     estimators) added. The first run's render_rays calls of hashgrid_fwd
+     are recorded, and phase R times its fine pass's.
+
+tools/hashgrid_arms.py times the design arms of both kernels on these
+inputs.
 
 The last two lines are a JSON object with each kernel's launches (summed
 over the main paths: the 512^3 extraction, the tuned, drop-in and fast
@@ -363,6 +372,7 @@ import dataclasses
 import io
 import itertools
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -404,8 +414,15 @@ HEAD_DIGESTS = {
 }
 
 
+START = time.perf_counter()
+
+
 def phase(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    """Print one line of the run's log, stamped with the wall seconds since the script started and the CPU
+    seconds that this process and its finished children have used (host work shows where CPU grows with wall)."""
+    t = os.times()
+    cpu = t.user + t.system + t.children_user + t.children_system
+    print(f"[chip_smoke {time.perf_counter() - START:6.1f}s cpu {cpu:6.1f}s] {msg}", flush=True)
 
 
 def card() -> str:
@@ -499,6 +516,7 @@ def _wall_ms(fn, iters: int = 20) -> float:
 
 
 TRACE_PAD = 32  # spin kernels before and after a trace's calls: a trace may lose its first or last few events
+TRACE_CROSS_CHECKS = [8]  # traces left whose raw device events _device_trace holds to the profiler's event tree
 
 
 def _device_trace(fn, n: int, pad: int = TRACE_PAD, only: str | None = None, skip: str | None = None
@@ -523,12 +541,28 @@ def _device_trace(fn, n: int, pad: int = TRACE_PAD, only: str | None = None, ski
         for _ in range(pad):
             torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key
-              and (only is None or only in e.key) and (skip is None or skip not in e.key)]
-    return sum(e.count for e in events), sum(e.self_device_time_total for e in events)
+
+    def counted(name: str) -> bool:
+        return "spin_kernel" not in name and (only is None or only in name) and (skip is None or skip not in name)
+
+    # the trace's raw device events: the profiler's event tree (key_averages) takes up to 0.7 s to build for a
+    # trace of a plain version's thousands of small kernels, and the run takes hundreds of traces
+    events, ns = 0, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and counted(e.name()):
+            events, ns = events + 1, ns + e.duration_ns()
+    if TRACE_CROSS_CHECKS[0] > 0:  # the run's first traces: the same sums from the event tree
+        TRACE_CROSS_CHECKS[0] -= 1
+        tree = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and counted(e.key)]
+        count, us = sum(e.count for e in tree), sum(e.self_device_time_total for e in tree)
+        if count != events or abs(us - ns / 1e3) > 1e-3 + 1e-6 * us:
+            raise AssertionError(f"a trace's raw device events ({events}, {ns / 1e3:.3f} us) differ from its event "
+                                 f"tree's ({count}, {us:.3f} us)")
+    return events, ns / 1e3
 
 
-def _time_ms(fn, iters: int = 20, only: str | None = None, skip: str | None = None, rest=None) -> float:
+def _time_ms(fn, iters: int = 20, only: str | None = None, skip: str | None = None, rest=None,
+             known: dict | None = None) -> float:
     """Device ms per call of fn: the summed durations of the kernels (and
     copies) it runs over iters calls, from a torch.profiler trace of the
     card alone (_device_trace); the host's time between them is left out.
@@ -541,16 +575,24 @@ def _time_ms(fn, iters: int = 20, only: str | None = None, skip: str | None = No
     a line says so. ``only`` and ``skip`` filter the events by name
     (_device_trace); there the fallback takes CUDA events around fn's
     calls less those around ``rest``'s, the part of fn the filter leaves
-    out (the pack in front of K4, an L2 flush), timed alone."""
+    out (the pack in front of K4, an L2 flush), timed alone. ``known``:
+    one call's event count by id(fn), kept for the caller's later runs of
+    the same fn (a timing set's second kernel and plain runs); a trace
+    that does not hold that count times iters is taken again with a fresh
+    count."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     seen = []
     for attempt in range(5):
-        per_call, _ = _device_trace(fn, 1, only=only, skip=skip)
+        per_call = known.get(id(fn)) if known is not None and attempt == 0 else None
+        if per_call is None:
+            per_call, _ = _device_trace(fn, 1, only=only, skip=skip)
         events, us = _device_trace(fn, iters, only=only, skip=skip)
         if per_call > 0 and events == iters * per_call:
+            if known is not None:
+                known[id(fn)] = per_call
             return us / 1e3 / iters
         seen.append(f"{events} events in {iters} calls, {per_call} in one")
     ms = _wall_ms(fn, iters)
@@ -1125,7 +1167,9 @@ def _k4_at_call(spec, planes, x, y, z, dtype, out, label: str, timed: bool):
     t["N"] = N
     T, f32 = he._dense_width(dense), k == 8 and dtype == torch.float32
     pack = lambda: he.pack_pairs(planes[:, :T], f32)  # noqa: E731
-    t["kernel_ms"] = float(np.median([_time_ms(call, only="dense_levels_fwd", rest=pack) for _ in range(2)]))
+    known = {}
+    t["kernel_ms"] = float(np.median([_time_ms(call, only="dense_levels_fwd", rest=pack, known=known)
+                                      for _ in range(2)]))
     return t
 
 
@@ -1296,16 +1340,15 @@ def _time_kernel(kern, plain, library, bound, library_name: str = "index_add_", 
     if flush is not None:
         kern_alone, plain_alone = kern, plain
         kern, plain, skip = (lambda: (flush(), kern_alone())), (lambda: (flush(), plain_alone())), FLUSH_EVENT
-    sets = []
+    sets, known = [], {}  # known: each fn's events in one call, traced once (_time_ms)
     for _ in range(TIMING_SETS):
-        sets.append((_time_ms(plain, skip=skip, rest=flush), _time_ms(kern, skip=skip, rest=flush),
-                     _time_ms(kern, skip=skip, rest=flush), _time_ms(plain, skip=skip, rest=flush)))
+        sets.append(tuple(_time_ms(fn, skip=skip, rest=flush, known=known) for fn in (plain, kern, kern, plain)))
         if _agree(sets[-1][1], sets[-1][2]) and _agree(sets[-1][0], sets[-1][3]):
             break
     else:
         raise AssertionError(f"{TIMING_SETS} timing sets (p, k, k, p) in a row disagree by more than "
                              f"{TIMING_AGREE}x: " + "; ".join(", ".join(f"{v * 1e3:.1f}" for v in r) for r in sets))
-    lib = (_time_ms(library), _time_ms(library)) if library is not None else ()
+    lib = (_time_ms(library, known=known), _time_ms(library, known=known)) if library is not None else ()
     t = {"ms": float(np.median([r[i] for r in sets for i in (1, 2)])),
          "plain_ms": float(np.median([r[i] for r in sets for i in (0, 3)])),
          "library_ms": sum(lib) / 2 if lib else None, "library_name": library_name, "bound": bound,
@@ -1503,7 +1546,8 @@ def launch_floor() -> float:
     import torch
 
     one = torch.zeros(1, device="cuda")
-    runs = [_time_ms(lambda: one.add_(1.0)) for _ in range(2)]
+    add, known = (lambda: one.add_(1.0)), {}
+    runs = [_time_ms(add, known=known) for _ in range(2)]
     phase(f"launch floor: a one-element kernel takes {sum(runs) / 2 * 1e3:.2f} us of device time "
           f"(runs {runs[0] * 1e3:.2f}, {runs[1] * 1e3:.2f})")
     return sum(runs) / 2
@@ -2244,7 +2288,29 @@ def _synthetic_module():
     return mod
 
 
-def _parity_eval_psnr(final: Path, cfg, data: dict, device: str = "cuda") -> dict:
+@contextlib.contextmanager
+def _recording(module, names):
+    """Within the block, each named wrapper of ``module`` files the
+    arguments of every call in seen[name] (the dict yielded) before it runs."""
+    seen = {name: [] for name in names}
+    real = {name: getattr(module, name) for name in names}
+
+    def recorder(name):
+        def call(*args, **kw):
+            seen[name].append(args)
+            return real[name](*args, **kw)
+        return call
+
+    for name in names:
+        setattr(module, name, recorder(name))
+    try:
+        yield seen
+    finally:
+        for name in names:
+            setattr(module, name, real[name])
+
+
+def _parity_eval_psnr(final: Path, cfg, data: dict, device: str = "cuda", record: bool = False) -> dict:
     """psnr_parity._eval_psnr on the port: render_rays (nerfjax's point-major
     render) with the checkpoint's field in f32 for both passes, all the
     held-out rays in one call, 64 + 128 samples, train=False, the draws from
@@ -2252,7 +2318,9 @@ def _parity_eval_psnr(final: Path, cfg, data: dict, device: str = "cuda") -> dic
     "psnr". Beside it "planar_psnr", the same field through
     render_rays_planar in the cfg's precision (the fused bf16 head and the
     bf16-rounded hashed levels for every arm here), and "launches", the hash
-    kernels' launches of the render_rays call."""
+    kernels' launches of the render_rays call. ``record``: also
+    "fwd_calls", the arguments (spec, planes, x01) of render_rays' calls of
+    hashgrid_fwd."""
     import torch
 
     from nerfjax_torch.checkpoint import load_field
@@ -2267,10 +2335,12 @@ def _parity_eval_psnr(final: Path, cfg, data: dict, device: str = "cuda") -> dic
         return -10.0 * float(np.log10(mse))
 
     he.reset_launch_counts()
-    with torch.no_grad():
+    with torch.no_grad(), _recording(he, ("hashgrid_fwd",) if record else ()) as seen:
         rgb = render_rays(field, field, ro, rd, tn, tf, *PARITY_EVAL_SAMPLES, train=False,
                           generator=torch.Generator(device=device).manual_seed(0))["rgb_fine"]
     out = {"psnr": psnr(rgb), "launches": {k: v for k, v in he.launch_counts.items() if v}}
+    if record:
+        out["fwd_calls"] = [(spec, planes.detach(), x01) for spec, planes, x01 in seen["hashgrid_fwd"]]
     with torch.no_grad():
         rgb = render_rays_planar(field, field, ro, rd, tn, tf, *PARITY_EVAL_SAMPLES, train=False,
                                  dtype=torch.bfloat16 if cfg["precision"] == "bf16" else torch.float32,
@@ -2294,7 +2364,9 @@ def quality_parity(tmp: Path, seeds=PARITY_SEEDS) -> dict:
     the min). After every run has printed its line, raises on a run that is
     not finite, misses its steps or lies below PARITY_RUN_FLOOR_DB, or an
     arm whose mean lies below PARITY_FLOOR_DB; the verdict itself is only
-    reported."""
+    reported. Returns the arms, the evals' launches and "eval_call", the
+    first run's eval's fine-pass call of hashgrid_fwd (spec, planes, x01)
+    for phase R."""
     import torch
 
     from nerfjax_torch.train import train
@@ -2314,7 +2386,7 @@ def quality_parity(tmp: Path, seeds=PARITY_SEEDS) -> dict:
           + " and ".join(f"{b * PARITY_STEPS_PER_EPOCH:,}" for b in sorted({b for _, b in PARITY_ARMS.values()}))
           + f" training rays, {PARITY_EVAL_RAYS:,} eval rays of seed {PARITY_EVAL_SEED}) in "
           f"{time.perf_counter() - t0:.1f} s")
-    result, failed, launches, eval_s = {}, [], {}, 0.0
+    result, failed, launches, eval_s, eval_call = {}, [], {}, 0.0, None
     for arm, ref in PARITY_NERFJAX_DB.items():
         runs, t_arm = [], time.perf_counter()
         for seed in seeds:
@@ -2324,8 +2396,11 @@ def quality_parity(tmp: Path, seeds=PARITY_SEEDS) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t1
             t1 = time.perf_counter()
-            ev = _parity_eval_psnr(Path(cfg["checkpoint_dir"]) / "nerf_final.pth", cfg, eval_data)
+            ev = _parity_eval_psnr(Path(cfg["checkpoint_dir"]) / "nerf_final.pth", cfg, eval_data,
+                                   record=eval_call is None)
             eval_s += time.perf_counter() - t1
+            if eval_call is None:  # the first run's fine pass, for phase R
+                eval_call = max(ev.pop("fwd_calls"), key=lambda args: args[2].shape[0])
             for k, v in ev["launches"].items():
                 launches[k] = launches.get(k, 0) + v
             psnr = ev["psnr"]
@@ -2362,7 +2437,7 @@ def quality_parity(tmp: Path, seeds=PARITY_SEEDS) -> dict:
           f"render) {eval_s:.1f} s; render_rays' launches over the evals: {launches}")
     if failed:
         raise AssertionError("quality: " + "; ".join(failed))
-    return {"arms": result, "launches": launches}
+    return {"arms": result, "launches": launches, "eval_call": eval_call}
 
 
 def train_k2_knob(tmp: Path, stats: dict) -> dict:
@@ -2521,32 +2596,37 @@ def precompute_scene(root: Path, n: int = PRECOMPUTE_FRAMES) -> Path:
     return path
 
 
-def precompute_phase(tmp: Path) -> dict:
-    """The chain's head on the card: precompute_scene's frames through
-    ``python -m nerfjax_torch.cli.precompute_rays`` (a JSON cfg naming the
-    transforms JSON and the NPZ): the rays kept of those generated, each
-    stage's seconds as the CLI reports them (decode; rays + intersection,
-    CUDA events; compaction + fetch; the NPZ write), its wall and rays/s;
-    the NPZ read back (its rays count, finite, unit directions, t_far >=
-    t_near). Then the first PRECOMPUTE_CHECK_FRAMES frames made on the card
-    and on the CPU: the hit masks equal (else the count that differ and the
-    largest |t_far - t_near| among them, and a failure), the arrays within
-    1e-6."""
+def precompute_cli(tmp: Path, scene: Path) -> tuple:
+    """``python -m nerfjax_torch.cli.precompute_rays`` on precompute_scene's
+    frames (``scene``, its transforms JSON under tmp/scene), on the card,
+    with a JSON cfg naming the transforms JSON and the NPZ: (the completed
+    process, its output captured; its wall seconds). Prints nothing, so
+    that it can run in a thread beside other phases."""
+    cfg = tmp / "scene" / "precompute.json"
+    cfg.write_text(json.dumps({"scene_name": "train", "transforms_json": str(scene),
+                               "rays_file": str(tmp / "scene" / "train_ray_data.npz")}))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "nerfjax_torch.cli.precompute_rays", "--cfg_path", str(cfg)],
+                         capture_output=True, text=True, cwd=HERE, timeout=600)
+    return res, time.perf_counter() - t0
+
+
+def precompute_phase(tmp: Path, scene: Path, ran: tuple | None = None) -> dict:
+    """The chain's head on the card: precompute_cli (``ran``, its result
+    where it ran already; else it runs here): the rays kept of those
+    generated, each stage's seconds as the CLI reports them (decode; rays
+    + intersection, CUDA events; compaction + fetch; the NPZ write), its
+    wall and rays/s; the NPZ read back (its rays count, finite, unit
+    directions, t_far >= t_near). Then the first PRECOMPUTE_CHECK_FRAMES
+    frames made on the card and on the CPU: the hit masks equal (else the
+    count that differ and the largest |t_far - t_near| among them, and a
+    failure), the arrays within 1e-6."""
     import torch
 
     from nerfjax_torch import rays as R
 
-    t0 = time.perf_counter()
-    scene = precompute_scene(tmp / "scene")
-    phase(f"precompute scene: {PRECOMPUTE_FRAMES} PNG frames of {PRECOMPUTE_SIZE}^2 written in "
-          f"{time.perf_counter() - t0:.1f} s (set-up)")
     npz = tmp / "scene" / "train_ray_data.npz"
-    cfg = tmp / "scene" / "precompute.json"
-    cfg.write_text(json.dumps({"scene_name": "train", "transforms_json": str(scene), "rays_file": str(npz)}))
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", "nerfjax_torch.cli.precompute_rays", "--cfg_path", str(cfg)],
-                         capture_output=True, text=True, cwd=HERE, timeout=600)
-    wall = time.perf_counter() - t0
+    res, wall = precompute_cli(tmp, scene) if ran is None else ran
     if res.returncode != 0:
         raise AssertionError(f"precompute_rays failed (exit {res.returncode}):\n{res.stdout}\n{res.stderr}")
     last = res.stdout.strip().splitlines()[-1]
@@ -2696,9 +2776,9 @@ def _knn_timed(pts, k: int, plain_ms: float | None, err: float, label: str, plan
 
     n = pts.shape[0]
     kern = lambda: knn.knn_mean_distances(pts, k, plan=plan)  # noqa: E731
-    runs = []
+    runs, known = [], {}
     for _ in range(TIMING_SETS):
-        runs += [_time_ms(kern), _time_ms(kern)]
+        runs += [_time_ms(kern, known=known), _time_ms(kern, known=known)]
         if _agree(runs[-2], runs[-1]):
             break
     else:
@@ -3101,7 +3181,8 @@ def probes_vs_plain(floor: float) -> dict:
         phase("  " + _timing_line(t) + f"; launch floor {floor * 1e3:.2f} us, so the least time is "
               f"{max(t['bound'][0], floor) * 1e3:.2f} us")
         if kernel == "k_dot_dim0_bf16":
-            bf16_in = [_time_ms(lambda: torch.matmul(a16.t(), b16)) for _ in range(2)]
+            mm, known = (lambda: torch.matmul(a16.t(), b16)), {}
+            bf16_in = [_time_ms(mm, known=known) for _ in range(2)]
             stats[kernel]["library_bf16_inputs_ms"] = sum(bf16_in) / 2
             phase(f"  {kernel}: torch.matmul on inputs already in bf16 (no casts; extra line) "
                   f"{sum(bf16_in) / 2 * 1e3:.2f} us per call (runs l,l: {bf16_in[0] * 1e3:.2f}, {bf16_in[1] * 1e3:.2f})")
@@ -3655,6 +3736,7 @@ R_EVAL_N = PARITY_EVAL_RAYS * sum(PARITY_EVAL_SAMPLES)  # 786,432: nerfjax's eva
 R_FACE = 4096  # points per face of the domain in the seeded positions
 R_SMALL = {"ngp": True, "nerf_type": "small", "hash_n_levels": 6}  # tests/test_torch_feature_last.py's spec
 R_RAYS = 64  # rays of the card-vs-CPU render, 16 + 32 samples
+R_FIRST_PEAK_GIB = 3.58  # R2's peak with the first design's backward (staged terms, then K3), PERF.md
 
 
 def _hashgrid_x01(N: int, rng):
@@ -3669,23 +3751,19 @@ def _hashgrid_x01(N: int, rng):
     return x01
 
 
-def _hashgrid_check(spec, planes, x01, label: str) -> tuple[float, int]:
-    """hashgrid_fwd against hashgrid_encode_plain: both f32, so they may
-    differ only by the order of a level's 8-term sum, within
-    8 * 2^-24 * sum_c |f_c w_c| of each output. (max |err|, outputs that
-    differ)."""
+def _hashgrid_check(spec, planes, x01, label: str) -> None:
+    """hashgrid_fwd torch.equal to hashgrid_encode_plain (the kernel sums
+    each level's 8 corners in the plain version's order, each product and
+    sum rounded on its own), and the float2 pack in front of it torch.equal
+    to pack_pairs_plain."""
     import torch
 
     from nerfjax_torch.ops import hash_encode as he
 
-    got = he.hashgrid_fwd(spec, planes, x01)
-    ref = he.hashgrid_encode_plain(spec, planes, x01)
-    bound = 8 * 2.0**-24 * he.hashgrid_encode_plain(spec, planes.abs(), x01) + 1e-30
-    err = (got - ref).abs()
-    if not bool(torch.isfinite(got).all()) or not bool((err <= bound).all()):
-        raise AssertionError(f"hashgrid_fwd ({label}): kernel vs plain max |err| {float(err.max())} beyond the 8-term "
-                             "sum-order bound")
-    return float(err.max()), int((err > 0).sum())
+    if not torch.equal(he.hashgrid_fwd(spec, planes, x01), he.hashgrid_encode_plain(spec, planes, x01)):
+        raise AssertionError(f"hashgrid_fwd ({label}): kernel != plain")
+    if not torch.equal(he.pack_pairs(planes, f32=True), he.pack_pairs_plain(planes, True)):
+        raise AssertionError(f"pack_pairs ({label}): kernel != plain")
 
 
 def _hashgrid_bounds(spec, x01) -> tuple[tuple, tuple]:
@@ -3693,9 +3771,10 @@ def _hashgrid_bounds(spec, x01) -> tuple[tuple, tuple]:
     (12 B a point), the [N, 2L] f32 output out (8 L B a point), and the
     table: (1) each distinct entry the call touches, both planes, once
     (8 B: the guide's rule, every repeat served by the L2); (2) every gather
-    counted, 16 4-byte loads a (point, level), the design's requests if no
-    cache served a repeat. Operations: 110 a (point, level) (K1 exact's
-    count), at the FP32 peak."""
+    counted, 8 B for each of a (point, level)'s 8 corners, the design's
+    bytes if no cache served a repeat. Operations: 110 a (point, level) (K1
+    exact's count), at the FP32 peak. The pack in front is left out: the
+    bound is the function's."""
     import torch
 
     from nerfjax_torch.fields.ngp import hashgrid_indices_and_weights
@@ -3713,32 +3792,56 @@ def _hashgrid_timed(spec, planes, x01, label: str) -> dict:
     t = _time_kernel(lambda: he.hashgrid_fwd(spec, planes, x01), lambda: he.hashgrid_encode_plain(spec, planes, x01),
                      None, bound)
     t.update(N=x01.shape[0], gathers_bound=gathers)
-    phase(f"  hashgrid_fwd {label}: " + _timing_line(t) + f"; with every gather counted the bound is "
-          f"{gathers[0] * 1e3:.1f} us ({gathers[1]}), the kernel at {gathers[0] / t['ms']:.0%} of it")
+    phase(f"  hashgrid_fwd {label} (the pack included): " + _timing_line(t) + f"; with every gather counted the "
+          f"bound is {gathers[0] * 1e3:.1f} us ({gathers[1]}), the call at {gathers[0] / t['ms']:.0%} of it")
     return t
 
 
-def feature_last_phase(tmp: Path, final: Path | None, smi: str) -> dict:
+def _hashgrid_bwd_checked(spec, g, x01, label: str) -> dict:
+    """hashgrid_bwd against hashgrid_bwd_plain within the atomic-order bound
+    (_check_scatter); its float2 adds (hashgrid_bwd_add_count, the plain
+    emulation run on these tensors) beside the first design's: one staged
+    term per (level, corner, point), then K3's merged runs of them."""
+    import torch
+
+    from nerfjax_torch.ops import hash_encode as he
+
+    total = spec.total_table_size
+    idx, v0, v1 = he.hashgrid_bwd_entries_plain(spec, g, x01)
+    one = torch.ones_like(v0)
+    err = _check_scatter(f"hashgrid_bwd ({label})", he.hashgrid_bwd(spec, g, x01, _zeros2(total)),
+                         he.table_grad_scatter_plain(idx, v0, v1, _zeros2(total)),
+                         he.table_grad_scatter_plain(idx, v0.abs(), v1.abs(), _zeros2(total)),
+                         he.table_grad_scatter_plain(idx, one, one, _zeros2(total)))
+    return {"max_abs_err": err, "adds": he.hashgrid_bwd_add_count(spec, g, x01), "staged": idx.numel(),
+            "k3_adds": he.k3_atomic_count(idx, total), "touched": int(torch.unique(idx).numel()),
+            "zero_share": float((g == 0).sum()) / g.numel()}
+
+
+def feature_last_phase(tmp: Path, final: Path | None, smi: str, eval_call=None) -> dict:
     """Phase R, nerfjax's point-major path on the port.
 
-    R1: hashgrid_fwd against its plain version at nerfjax's eval shape (N =
-    R_EVAL_N seeded positions with the domain's faces) at the quality
-    protocol's spec (medium, 16 levels) and the tuned cfg's (large, 12
-    levels, 1 promoted dense), timed beside its bounds (_hashgrid_bounds).
-    R2: one render_rays(train=True) pass and the backward of its two losses
-    at the drop-in shape (DROP_IN_TRAIN's model, the checkpoint ``final``
-    or a seeded init, 8192 rays of phase 7's NPZ, 64 + 128), the launch
-    counts set to 0 just before and read just after: hashgrid_fwd 4 (two
-    passes, each recomputed under remat), hashgrid_bwd 2, K3 2, no other
-    kernel; then, on the arguments each wrapper got there, hashgrid_fwd
-    against plain (the sum-order bound), hashgrid_bwd's staged entries
-    torch.equal to plain and handed to K3 whole, K3's table gradient
-    against table_grad_scatter_plain within the atomic-order bound; all
-    three timed at the fine pass (K3 net of its zero fill, beside
-    index_add_). R3: render_rays on the card against the CPU at the CPU
-    tests' small spec in f32, the same field and uniforms, train off and
-    on: the coarse pass (same depths) within 2e-5, rgb_fine within 1e-3
-    (an importance depth in a bin of low pdf moves by the coarse weights'
+    R1: hashgrid_fwd torch.equal to its plain version at nerfjax's eval
+    shape (N = R_EVAL_N seeded positions with the domain's faces) at the
+    quality protocol's spec (medium, 16 levels) and the tuned cfg's (large,
+    12 levels, 1 promoted dense), the pack torch.equal to its plain
+    version, timed beside its bounds (_hashgrid_bounds). R2: one
+    render_rays(train=True) pass and the backward of its two losses at the
+    drop-in shape (DROP_IN_TRAIN's model, the checkpoint ``final`` or a
+    seeded init, 8192 rays of phase 7's NPZ, 64 + 128), the launch counts
+    set to 0 just before and read just after: hashgrid_fwd 4 (two passes,
+    each recomputed under remat), pack_pairs 4 (one in front of each),
+    hashgrid_bwd 2, no other kernel; its peak memory beside the first
+    design's; then, on the arguments each wrapper got there, hashgrid_fwd
+    torch.equal to plain and hashgrid_bwd within the atomic-order bound of
+    hashgrid_bwd_plain, its float2 adds beside the first design's
+    (_hashgrid_bwd_checked); both timed at the fine pass (the backward net
+    of the caller's zero fill, and with it). ``eval_call``: the quality
+    phase's first eval's fine pass (spec, planes, x01), checked and timed
+    as R1. R3: render_rays on the card against the CPU at the CPU tests'
+    small spec in f32, the same field and uniforms, train off and on: the
+    coarse pass (same depths) within 2e-5, rgb_fine within 1e-3 (an
+    importance depth in a bin of low pdf moves by the coarse weights'
     float32 noise over that pdf, as tests/test_torch_render_hier.py
     explains)."""
     import torch
@@ -3752,17 +3855,15 @@ def feature_last_phase(tmp: Path, final: Path | None, smi: str) -> dict:
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED + 18)
-    out = {"fwd": {}, "max_abs_err": {"hashgrid_fwd": 0.0, "hashgrid_bwd": 0.0, "table_grad_scatter": 0.0}}
+    out = {"fwd": {}, "max_abs_err": {"hashgrid_fwd": 0.0, "hashgrid_bwd": 0.0}}
     specs = {"medium16": build_fields(parity_cfg("spass2", tmp / "r.npz", tmp / "r"))[1].spec,
              "tuned12ed1": build_fields(TUNED_CFG)[1].spec}
     for label, spec in specs.items():
         planes = _rand((2, spec.total_table_size), rng)
         x01 = _hashgrid_x01(R_EVAL_N, rng)
-        err, differ = _hashgrid_check(spec, planes, x01, label)
-        out["max_abs_err"]["hashgrid_fwd"] = max(out["max_abs_err"]["hashgrid_fwd"], err)
+        _hashgrid_check(spec, planes, x01, label)
         phase(f"R1 hashgrid_fwd {label} ({spec.n_levels} levels, N={R_EVAL_N:,}, {6 * R_FACE:,} points on the "
-              f"domain's faces): kernel vs plain max |err| {err:.3g} ({differ:,} of {R_EVAL_N * 2 * spec.n_levels:,} "
-              "outputs differ), within the 8-term sum-order bound")
+              "domain's faces): torch.equal to plain; the pack torch.equal to plain")
         out["fwd"][label] = _hashgrid_timed(spec, planes, x01, f"{label} N={R_EVAL_N:,}")
         del planes, x01
 
@@ -3775,19 +3876,7 @@ def feature_last_phase(tmp: Path, final: Path | None, smi: str) -> dict:
     field.requires_grad_(True)
     batch = batch_to_device(next(RayDataset(tmp / "rays.npz", verbose=False).epoch_batches(
         cfg["batch_size"], seed=SEED)), "cuda")
-    names = ("hashgrid_fwd", "hashgrid_bwd_entries", "table_grad_scatter")
-    seen = {name: [] for name in names}
-    real = {name: getattr(he, name) for name in names}
-
-    def recorder(name):
-        def call(*args, **kw):
-            seen[name].append(args)
-            return real[name](*args, **kw)
-        return call
-
-    for name in names:
-        setattr(he, name, recorder(name))
-    try:
+    with _recording(he, ("hashgrid_fwd", "hashgrid_bwd")) as seen:
         he.reset_launch_counts()
         fm.reset_launch_counts()
         torch.cuda.synchronize()
@@ -3801,11 +3890,8 @@ def feature_last_phase(tmp: Path, final: Path | None, smi: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         launches = {k: v for k, v in {**he.launch_counts, **fm.launch_counts}.items() if v}
-    finally:
-        for name in names:
-            setattr(he, name, real[name])
     peak = torch.cuda.max_memory_allocated() / 2**30
-    want = {"hashgrid_fwd": 4, "hashgrid_bwd": 2, "table_grad_scatter": 2}
+    want = {"hashgrid_fwd": 4, "pack_pairs": 4, "hashgrid_bwd": 2}
     if launches != want:
         raise AssertionError(f"R2: render_rays(train=True) + backward launched {launches}, expected {want}")
     grad = field.table.grad
@@ -3815,59 +3901,54 @@ def feature_last_phase(tmp: Path, final: Path | None, smi: str) -> dict:
     phase(f"R2 render_rays(train=True) + backward at the drop-in shape ({cfg['batch_size']} rays, "
           f"{cfg['N_samples']} + {cfg['N_importance']}, {field.spec.n_levels} levels, "
           f"{'the drop-in checkpoint' if final is not None else 'a seeded init'}): {wall * 1e3:.1f} ms wall, peak "
-          f"{peak:.2f} GiB, fine PSNR {psnr:.2f} dB; launches {launches}")
+          f"{peak:.2f} GiB (the first design's backward, staged terms then K3: {R_FIRST_PEAK_GIB} GiB), fine PSNR "
+          f"{psnr:.2f} dB; launches {launches}")
     out.update(launches=launches, wall_ms=wall * 1e3, peak_gib=peak)
 
-    spec, total = field.spec, field.spec.total_table_size
-    planes = field.table.detach()
+    spec = field.spec
     fwd_calls = {args[2].shape[0]: args for args in seen["hashgrid_fwd"]}
-    checked = []
-    for N, (_, pl, x01) in sorted(fwd_calls.items()):
-        err, differ = _hashgrid_check(spec, pl.detach(), x01, f"R2 N={N:,}")
-        out["max_abs_err"]["hashgrid_fwd"] = max(out["max_abs_err"]["hashgrid_fwd"], err)
-        checked.append(f"hashgrid_fwd N={N:,}: max |err| {err:.3g} ({differ:,} outputs differ)")
-    fine_n = max(fwd_calls)
-    staged = {}
-    for (_, g, x01), (idx, v0, v1, _) in zip(seen["hashgrid_bwd_entries"], seen["table_grad_scatter"]):
-        N = x01.shape[0]
-        got = he.hashgrid_bwd_entries(spec, g, x01)
-        ref = he.hashgrid_bwd_entries_plain(spec, g, x01)
-        if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, ref)):
-            raise AssertionError(f"R2 hashgrid_bwd N={N:,}: kernel != plain")
-        if not (torch.equal(got[0], idx) and torch.equal(got[1], v0) and torch.equal(got[2], v1)):
-            raise AssertionError(f"R2 N={N:,}: K3 did not get hashgrid_bwd's {got[0].numel():,} staged entries")
-        one = torch.ones_like(v0)
-        kerr = _check_scatter(f"R2 table_grad_scatter N={N:,}", he.table_grad_scatter(idx, v0, v1, _zeros2(total)),
-                              he.table_grad_scatter_plain(idx, v0, v1, _zeros2(total)),
-                              he.table_grad_scatter_plain(idx, v0.abs(), v1.abs(), _zeros2(total)),
-                              he.table_grad_scatter_plain(idx, one, one, _zeros2(total)))
-        out["max_abs_err"]["table_grad_scatter"] = max(out["max_abs_err"]["table_grad_scatter"], kerr)
-        checked.append(f"hashgrid_bwd N={N:,}: {idx.numel():,} staged entries == plain, all handed to K3; K3 within "
-                       f"the atomic-order bound, max |err| {kerr:.3g}")
-        staged[N] = (g, x01, idx, v0, v1)
-    del seen
+    bwd_calls = {args[2].shape[0]: args for args in seen["hashgrid_bwd"]}
+    if sorted(bwd_calls) != sorted(fwd_calls):
+        raise AssertionError(f"R2: hashgrid_bwd ran at N {sorted(bwd_calls)}, the forward at {sorted(fwd_calls)}")
+    for i, (_, pl, x01) in enumerate(seen["hashgrid_fwd"]):  # each pass's forward and its recomputation
+        _hashgrid_check(spec, pl.detach(), x01, f"R2 call {i} N={x01.shape[0]:,}")
+    checked, counts = [f"all {len(seen['hashgrid_fwd'])} hashgrid_fwd calls torch.equal to plain"], {}
+    for N in sorted(fwd_calls):
+        _, g, x01, _ = bwd_calls[N]
+        b = counts[N] = _hashgrid_bwd_checked(spec, g, x01, f"R2 N={N:,}")
+        out["max_abs_err"]["hashgrid_bwd"] = max(out["max_abs_err"]["hashgrid_bwd"], b["max_abs_err"])
+        checked.append(f"N={N:,}: hashgrid_bwd within the atomic-order bound, "
+                       f"max |err| {b['max_abs_err']:.3g}, {b['adds']:,} float2 adds (the first design: "
+                       f"{b['staged']:,} staged terms, then {b['k3_adds']:,} adds of K3's merged runs), the "
+                       f"cotangent {b['zero_share']:.1%} zero")
     phase("R2 on the pass's own arguments: " + "; ".join(checked))
 
     # the fine pass's calls, timed
+    fine_n = max(fwd_calls)
     _, pl, x01 = fwd_calls[fine_n]
     out["fwd"]["render_fine"] = _hashgrid_timed(spec, pl.detach(), x01, f"the render's fine pass N={fine_n:,}")
-    g, x01, idx, v0, v1 = staged[fine_n]
-    L, K = spec.n_levels, idx.numel()
-    # bytes: positions and the cotangent in, the staged entries out (12 B each); 40 operations an entry
-    out["bwd"] = _time_kernel(lambda: he.hashgrid_bwd_entries(spec, g, x01),
-                              lambda: he.hashgrid_bwd_entries_plain(spec, g, x01), None,
-                              _bound(12 * fine_n + 8 * L * fine_n + 12 * K, 40 * K))
-    phase(f"  hashgrid_bwd at the render's fine pass (N={fine_n:,}, K={K:,}): " + _timing_line(out["bwd"]))
-    buf = torch.empty(2, total, device="cuda")
-    vv = torch.stack([v0, v1])
-    hits = int((torch.bincount(idx.long(), minlength=total) > 0).sum())
-    out["k3"] = _time_kernel(lambda: he.table_grad_scatter(idx, v0, v1, buf),
-                             lambda: he.table_grad_scatter_plain(idx, v0, v1, buf),
-                             lambda: buf.index_add_(1, idx, vv), _bound(12 * K + 8 * hits, 2 * K), fill=buf.zero_)
-    out["k3"]["atomics"] = {"first": 2 * K, "runs": he.k3_atomic_count(idx, total)}
-    phase(f"  table_grad_scatter at the render's fine pass (K={K:,} into {hits:,} distinct entries; "
-          f"{out['k3']['atomics']['runs']:,} float2 adds of merged runs): " + _timing_line(out["k3"]))
-    del staged, fwd_calls, vv, buf
+    _, g, x01, _ = bwd_calls[fine_n]
+    b = counts[fine_n]
+    buf = _zeros2(spec.total_table_size)
+    # bytes: positions and the cotangent in, each touched entry of the gradient out once (both planes);
+    # operations: 8 a term (its weight, two products, two adds)
+    out["bwd"] = _time_kernel(lambda: he.hashgrid_bwd(spec, g, x01, buf),
+                              lambda: he.hashgrid_bwd_plain(spec, g, x01, buf), None,
+                              _bound(12 * fine_n + 8 * spec.n_levels * fine_n + 8 * b["touched"], 8 * b["staged"]),
+                              fill=buf.zero_)
+    out["bwd"].update(adds=b["adds"], adds_first_design=b["k3_adds"], staged_first_design=b["staged"])
+    phase(f"  hashgrid_bwd at the render's fine pass (N={fine_n:,}, {b['staged']:,} terms into {b['touched']:,} "
+          f"entries; {b['adds']:,} float2 adds, the first design {b['k3_adds']:,} after staging every term): "
+          + _timing_line(out["bwd"]))
+    del seen, fwd_calls, bwd_calls, buf
+
+    if eval_call is not None:  # the quality phase's first eval, its fine pass
+        spec_q, pl, x01 = eval_call
+        _hashgrid_check(spec_q, pl, x01, "the quality eval's fine pass")
+        phase(f"R hashgrid_fwd at the quality phase's first eval's fine pass (N={x01.shape[0]:,}, "
+              f"{spec_q.n_levels} levels): torch.equal to plain")
+        out["fwd"]["quality_eval_fine"] = _hashgrid_timed(spec_q, pl, x01,
+                                                          f"the quality eval's fine pass N={x01.shape[0]:,}")
 
     # R3: the card against the CPU at the CPU tests' small size
     cpu = build_fields(R_SMALL)[1].init(torch.Generator().manual_seed(SEED))
@@ -3902,11 +3983,14 @@ def feature_last_phase(tmp: Path, final: Path | None, smi: str) -> dict:
         f"{e['rgb_fine']:.2g} (bound 1e-3), depths {e['z_vals']:.2g}" for t, e in errs.items()))
     out["seconds"] = time.perf_counter() - t0
     fwd = out["fwd"]["medium16"]
+    ev = out["fwd"].get("quality_eval_fine")
     phase(f"phase R: {out['seconds']:.1f} s; {smi}: hashgrid_fwd at N={R_EVAL_N:,} (medium, 16 levels) "
           f"{fwd['ms'] * 1e3:.1f} us (plain {fwd['plain_ms'] * 1e3:.1f}, bound {fwd['bound'][0] * 1e3:.1f}); "
           f"tuned spec {out['fwd']['tuned12ed1']['ms'] * 1e3:.1f} us; the render's fine pass "
-          f"{out['fwd']['render_fine']['ms'] * 1e3:.1f} us; hashgrid_bwd {out['bwd']['ms'] * 1e3:.1f} us; K3 "
-          f"{out['k3']['ms'] * 1e3:.1f} us (index_add_ {out['k3']['library_ms'] * 1e3:.1f})")
+          f"{out['fwd']['render_fine']['ms'] * 1e3:.1f} us; the quality eval's fine pass "
+          + ("not run" if ev is None else f"{ev['ms'] * 1e3:.1f} us") + f"; hashgrid_bwd "
+          f"{out['bwd']['ms'] * 1e3:.1f} us (with the caller's zero fill {out['bwd']['with_fill_ms'] * 1e3:.1f}); "
+          f"R2's peak {out['peak_gib']:.2f} GiB (first design {R_FIRST_PEAK_GIB})")
     return out
 
 
@@ -3953,24 +4037,34 @@ def _launcher_outputs(out_dir: Path, transforms: Path):
 LAUNCHER_FRAMES = range(0, PRECOMPUTE_FRAMES, 3)  # phase L's cut: 20 of H's 60 frames (all 60: 146 s on a slow host)
 
 
-def launcher_phase(tmp: Path, colmap_text: Path, planted: np.ndarray) -> dict:
-    """Phase L: the GUI's launcher on the card. A scene config from
+@contextlib.contextmanager
+def _here_on_pythonpath():
+    """The checkout first on PYTHONPATH while the block runs, for the
+    launcher's CLIs (run from another directory)."""
+    env_path = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = str(HERE) + (os.pathsep + env_path if env_path else "")
+    try:
+        yield
+    finally:
+        if env_path is None:
+            del os.environ["PYTHONPATH"]
+        else:
+            os.environ["PYTHONPATH"] = env_path
+
+
+def launcher_run(tmp: Path, colmap_text: Path) -> dict:
+    """Phase L's pipeline: a scene config from
     nerfjax_torch.gui.logic.generate_config_dict (LAUNCHER_FRAMES of phase
     H's 800^2 frames resized to FRONT_SIZE^2, a copy of phase C's COLMAP
     text model with those images, 256^3 volume) plus TUNED_TRAIN and one
-    epoch, written as JSON; every pipeline
-    step but "Run COLMAP" (no COLMAP binary here) through
-    build_pipeline_commands and the launcher's own loop (logic.run_commands:
-    each CLI a subprocess, on the card by default, its output streamed);
-    every step must exit 0. Then both volume files through load_volume_any,
-    the AABB band from the transforms JSON (aabb_band_from_transforms,
-    clip_aabb_band, slice_z), and the volume's IoU with the ball fitted to
-    the normalized inliers of the recentered model (>= 0.5). Returns each
-    step's seconds and the IoU."""
-    import os
-
-    from nerfjax_torch.colmap import colmap_to_nerf
-    from nerfjax_torch.config import ConfigNode, with_defaults
+    epoch, written as JSON; every pipeline step but "Run COLMAP" (no COLMAP
+    binary here) through build_pipeline_commands and the launcher's own
+    loop (logic.run_commands: each CLI a subprocess, on the card by
+    default), under _here_on_pythonpath, which the caller sets: it changes
+    the environment, which no thread should do while another may start a
+    process. Prints nothing, so that it can run in a thread beside other
+    phases: the CLIs' output lines are kept in the result ("log"), with
+    the config, each step's start and whether every step exited 0."""
     from nerfjax_torch.gui.logic import PIPELINE_STEPS, build_pipeline_commands, generate_config_dict, run_commands
 
     work = tmp / "launcher"
@@ -3992,26 +4086,38 @@ def launcher_phase(tmp: Path, colmap_text: Path, planted: np.ndarray) -> dict:
     cfg_path.write_text(json.dumps(cfg, indent=1))
     selected = [label != "Run COLMAP" for label, _ in PIPELINE_STEPS]
     cmds = build_pipeline_commands(str(cfg_path), selected)
-    labels = [label for label, _ in PIPELINE_STEPS if label != "Run COLMAP"]
     starts: list[float] = []
+    log_lines: list[str] = []
 
     def log(line: str) -> None:
         if line.startswith("$ "):
             starts.append(time.perf_counter())
-        print(f"  [launcher] {line}", flush=True)
+        log_lines.append(line)
 
-    env_path = os.environ.get("PYTHONPATH")
-    os.environ["PYTHONPATH"] = str(HERE) + (os.pathsep + env_path if env_path else "")
-    try:
-        with contextlib.chdir(work):  # the CLIs' relative paths (transforms JSON, NPZ, outputs) land here
-            ok = run_commands(cmds, log)
-    finally:
-        if env_path is None:
-            del os.environ["PYTHONPATH"]
-        else:
-            os.environ["PYTHONPATH"] = env_path
-    end = time.perf_counter()
-    if not ok:
+    with contextlib.chdir(work):  # the CLIs' relative paths (transforms JSON, NPZ, outputs) land here
+        ok = run_commands(cmds, log)
+    return {"work": work, "cfg": cfg, "cmds": cmds, "ok": ok, "starts": starts, "end": time.perf_counter(),
+            "log": log_lines, "labels": [label for label, _ in PIPELINE_STEPS if label != "Run COLMAP"]}
+
+
+def launcher_phase(tmp: Path, colmap_text: Path, planted: np.ndarray, run: dict | None = None) -> dict:
+    """Phase L: the GUI's launcher on the card. launcher_run's pipeline
+    (``run``, where it ran already; else it runs here), its CLIs' output
+    printed; every step must exit 0. Then both volume files through
+    load_volume_any, the AABB band from the transforms JSON
+    (aabb_band_from_transforms, clip_aabb_band, slice_z), and the volume's
+    IoU with the ball fitted to the normalized inliers of the recentered
+    model (>= 0.5). Returns each step's seconds and the IoU."""
+    from nerfjax_torch.colmap import colmap_to_nerf
+    from nerfjax_torch.config import ConfigNode, with_defaults
+
+    if run is None:
+        with _here_on_pythonpath():
+            run = launcher_run(tmp, colmap_text)
+    for line in run["log"]:
+        print(f"  [launcher] {line}")
+    work, cfg, cmds, labels, starts, end = (run[k] for k in ("work", "cfg", "cmds", "labels", "starts", "end"))
+    if not run["ok"]:
         raise AssertionError(f"the launcher stopped at step {len(starts)} ({labels[len(starts) - 1]}): see its log")
     seconds = {label: b - a for label, a, b in zip(labels, starts, starts[1:] + [end])}
     out_dir = work / "outputs" / "ball"
@@ -4083,8 +4189,8 @@ def _children(job: str, world: int, work: Path, env_for) -> list[str]:
     outs = [log.read_text() for log in logs]
     for r, text in enumerate(outs):
         for line in text.splitlines():
-            if line.startswith("[chip_smoke]"):
-                print(f"  [{job} rank {r}] {line[len('[chip_smoke] '):]}")
+            if line.startswith("[chip_smoke"):
+                print(f"  [{job} rank {r}] {line.partition('] ')[2]}")
     bad = [r for r, p in enumerate(procs) if p.returncode != 0]
     if bad:
         raise AssertionError(f"{job}: rank(s) {bad} exited {[procs[r].returncode for r in bad]}\n" + "\n".join(
@@ -4449,7 +4555,7 @@ def main() -> int:
                 DROP_IN_KERNELS + ("pack_pairs",) if which == "fine"
                 else ("hash_levels_fwd", "dense_levels_fwd", "table_grad_scatter", "hash_levels_bwd"))
         del passes
-        flast = feature_last_phase(Path(tmp), dropin["final"], smi)
+        flast = feature_last_phase(Path(tmp), dropin["final"], smi, eval_call=quality.pop("eval_call"))
         shapes = hstats["dense_levels_fwd"]["shapes"]  # K4 at the train steps' calls
         shapes["tuned_step"] = {k: v for k, v in hstats["dense_levels_fwd"].items() if k != "shapes"}
         for label, knob in knobs.items():
@@ -4460,20 +4566,31 @@ def main() -> int:
         shapes["k2_knob_step"] = k2["timings"]["dense_levels_fwd"]
         shapes["fast_step"] = fast["timings"]["dense_levels_fwd"]
         extract_trained(trained["cfg"], trained["final"])
-        tail = tail_on_trained(trained["cfg"], trained["final"], Path(tmp))
-        head = precompute_phase(Path(tmp))
+        t0 = time.perf_counter()
+        scene = precompute_scene(Path(tmp) / "scene")
+        phase(f"precompute scene: {PRECOMPUTE_FRAMES} PNG frames of {PRECOMPUTE_SIZE}^2 written in "
+              f"{time.perf_counter() - t0:.1f} s (set-up)")
         front = front_end_phase(Path(tmp))
         knn_more = knn_phase()
         evals = {"tuned": eval_render(trained["final"], TUNED_CFG, "tuned", stats, hstats),
                  "drop-in": eval_render(dropin["final"], DROP_IN_TRAIN, "drop-in", stats, hstats)}
-        for label in ("tuned", *DENSE_KNOBS, "fast", "fast bf16"):
-            step_card_vs_cpu(Path(tmp), label)
-        dropin_step_card_vs_cpu(Path(tmp))
-        render_card_vs_cpu(trained["final"])
-        # last: after other processes have used the card, this process's profiler traces dropped or gained
-        # device events for a while (PERF.md), which the timings above rely on
-        launcher = launcher_phase(Path(tmp), front.pop("colmap_text"), front.pop("planted"))
-        multi = multi_phase(Path(tmp))
+        # last, the phases that time no kernel: after other processes have used the card, this process's
+        # profiler traces dropped or gained device events for a while (PERF.md), which the timings above rely
+        # on. Two threads that print nothing run subprocesses beside the rest: the launcher's CLIs (L, one at a
+        # time) and the chain's head (precompute_rays); here meanwhile the checks against the CPU, the chain's
+        # tail and the processes of D; then L's and the head's outputs are checked.
+        with _here_on_pythonpath(), concurrent.futures.ThreadPoolExecutor(2) as pool:
+            colmap_text = front.pop("colmap_text")
+            launched = pool.submit(launcher_run, Path(tmp), colmap_text)
+            head_ran = pool.submit(precompute_cli, Path(tmp), scene)
+            for label in ("tuned", *DENSE_KNOBS, "fast", "fast bf16"):
+                step_card_vs_cpu(Path(tmp), label)
+            dropin_step_card_vs_cpu(Path(tmp))
+            render_card_vs_cpu(trained["final"])
+            tail = tail_on_trained(trained["cfg"], trained["final"], Path(tmp))
+            multi = multi_phase(Path(tmp))
+            head = precompute_phase(Path(tmp), scene, head_ran.result())
+            launcher = launcher_phase(Path(tmp), colmap_text, front.pop("planted"), launched.result())
     phase(f"train() wall per step, tuned run: {trained['train_wall_ms_per_step']:.2f} ms; precompute_rays: "
           f"{head['kept']:,} of {head['generated']:,} rays, {head['process_wall']:.2f} s (NPZ write "
           f"{head['write']:.2f} s)")
@@ -4608,8 +4725,8 @@ def main() -> int:
             t = knobs["dgl1"]["timings"][name]
             kernels[-1].update(dgl1_step_ms=t["ms"], dgl1_step_bound_ms=t["bound"][0],
                                dgl1_step_flushed_ms=t["flushed_timing"]["ms"])
-    # the feature-last forward (nerfjax's hashgrid_encode, an XLA op) at nerfjax's eval shape, its backward's
-    # staging, and K3 at phase R's fine pass (extra keys of K3's row)
+    # the feature-last forward (nerfjax's hashgrid_encode, an XLA op) at nerfjax's eval shape (the pack in front
+    # included), its other calls as extra keys; its backward at phase R's fine pass
     t = flast["fwd"]["medium16"]
     kernels.append({
         "name": "hashgrid_fwd", "route": "cuda", "source": "nerfjax_torch/csrc/hash_encode.cu",
@@ -4620,7 +4737,7 @@ def main() -> int:
         "launches_by_path": {"feature-last render (R)": flast["launches"].get("hashgrid_fwd", 0),
                              "quality evals": quality["launches"].get("hashgrid_fwd", 0)},
     })
-    for label in ("tuned12ed1", "render_fine"):
+    for label in ("tuned12ed1", "render_fine", "quality_eval_fine"):
         t = flast["fwd"][label]
         kernels[-1].update({f"{label}_N": t["N"], f"{label}_ms": t["ms"], f"{label}_plain_ms": t["plain_ms"],
                             f"{label}_bound_ms": t["bound"][0], f"{label}_gathers_bound_ms": t["gathers_bound"][0]})
@@ -4630,14 +4747,10 @@ def main() -> int:
         "replaces": "nerfjax/fields/ngp.py:212", "launches": launches["hashgrid_bwd"],
         "max_abs_err": flast["max_abs_err"]["hashgrid_bwd"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "library_ms": None,
+        "with_fill_ms": t["with_fill_ms"], "fill_ms": t["fill_ms"], "adds": t["adds"],
+        "adds_first_design": t["adds_first_design"], "staged_first_design": t["staged_first_design"],
+        "peak_gib": flast["peak_gib"],
     })
-    t = next(k for k in kernels if k["name"] == "table_grad_scatter")
-    r = flast["k3"]
-    t.update(feature_last_fine_ms=r["ms"], feature_last_fine_plain_ms=r["plain_ms"],
-             feature_last_fine_bound_ms=r["bound"][0], feature_last_fine_library_ms=r["library_ms"],
-             feature_last_fine_with_fill_ms=r["with_fill_ms"], feature_last_fine_fill_ms=r["fill_ms"],
-             feature_last_fine_atomics=r["atomics"]["runs"],
-             feature_last_max_abs_err=flast["max_abs_err"]["table_grad_scatter"])
     # K6's grid route at C3's cloud, launched by C3's colmap2nerf (every grid kernel's launches beside)
     t = front["knn"]
     kernels.append({

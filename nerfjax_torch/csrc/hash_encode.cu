@@ -31,10 +31,9 @@
 //                         each corner coordinate clipped to [0, r-1],
 //                         :149-206), both planes gathered and blended in
 //                         f32, no bf16 rounding, into a row-major [N, 2L]
-//   hashgrid_bwd       <- the first half of its autodiff transpose: the
-//                         terms g*w of the table gradient, staged as K3's
-//                         (idx, v0, v1); K3 then adds them (the scatter-add
-//                         of the take's transpose)
+//   hashgrid_bwd       <- its autodiff transpose: the scatter-add of g*w
+//   (+ fold)              to every level's 8 corners, into the table
+//                         gradient
 //   table_grad_scatter <- the Pallas kernels grad_onehot (_onehot_kernel)
 //                         and grad_rowscatter (_rowscatter_kernel) of
 //                         benchmarks/micro_onehot.py:44-129: out[p][idx_k]
@@ -234,28 +233,44 @@
 // against 20.5).
 
 // The feature-last encode (hashgrid_fwd, hashgrid_bwd) is the path of
-// nerfjax's render_rays and its quality evals: exact f32, no pack, no
-// rounding. One thread per (point, level): the thread forms the lattice
-// cell and the 8 indices in registers (no [N, L*8] index tensor), issues
-// the 16 independent 4-byte gathers, and sums f*w over the corners in
-// order, each product and sum rounded on its own (no FMA, as the plain
-// version's separate multiplies and adds). Points run outermost (t = n*L
-// + l), so a point's L threads store its two L-value rows of the [N, 2L]
-// output side by side. Like K1 it is bound by its scattered requests: 16
-// random 4-byte loads per (point, level), each pulling a 32-byte sector.
-// The level as blockIdx.y of a 2-D grid (a warp's lanes 32 neighbouring
-// points at one level, as in K1, whose lanes share cells along a ray) was
-// slower on an H100 80GB HBM3 (700 W): 1,908 us against 1,493 at nerfjax's
-// eval shape (16 levels, N = 786,432) and 3,213 against 2,258 at the
-// drop-in render's fine pass, its two stores per (point, level) 8L bytes
-// apart, each a sector of its own (PERF.md).
-// The backward recomputes the indices and weights from the positions
-// instead of saving them: saving would write 8 bytes per (corner, level,
-// point) in the forward and hold them until the backward (1.6 GB at the
-// drop-in fine pass), where recomputing reads 12 bytes per point. It
-// stages one entry per (level, corner, point) in that order, so that
-// neighbouring lanes are neighbouring samples of one ray at one corner,
-// the runs K3's merge sums.
+// nerfjax's render_rays and its quality evals: exact f32, no rounding.
+// Times below: an H100 80GB HBM3 at 700 W, tools/hashgrid_arms.py (each arm
+// against the first design in p, k, k, p sets, the pack counted).
+//
+// The forward is bound by its scattered table requests, not by bytes: at
+// nerfjax's eval shape (16 levels, N = 786,432) the table's 14 MB sit in the
+// L2 and the function's bytes take 37 us. The first design, one thread per
+// (point, level) with the level innermost, loaded both planes of each
+// corner in place: 16 random 4-byte loads a (point, level), the planes
+// 4*total bytes apart, two sectors a corner; 1,493 us there (uniform
+// positions), 2,073 at the drop-in render's fine pass (N = 1,572,864,
+// ray-ordered), 786 at a quality eval's fine pass. Now (1) a pass in front
+// packs the planes into one float2 per entry (pack_pairs_f32_kernel; the
+// values copied, so the sums do not change), one 8-byte load a corner:
+// 555, 954 and 346 us; (2) a block takes 64 points and every level, its
+// warps' lanes 32 points at one level (neighbouring samples of a ray share
+// sectors at the coarse levels), the sums staged in shared memory and
+// written as the block's whole rows (the first design's level-major
+// variant, the level in blockIdx.y, lost by storing two values 8L bytes
+// apart a (point, level)): 535, 947 and 275 us. One 16-byte load for two x-neighbour
+// corners where both entries lie in it (a hashed level at even ix, the x
+// prime being 1) gained on uniform positions (491 us) and lost on both
+// ray-ordered passes (968, 282), so it is not kept.
+//
+// The backward adds the table gradient itself: nothing is staged. The
+// first design wrote g*w per (level, corner, point) (2.3 GiB at the drop-in
+// fine pass) for K3 to read back and merge: 3,930 us. Now K2 exact's design
+// carried to every level, the dense ones with their clipped corners: one
+// thread per (level, point), level-major on a 2-D grid (one level's part of
+// the scratch live in the L2 at a time), the cell and weights recomputed
+// from the positions, each warp's runs of equal entries merged per corner,
+// one float2 atomic per run whose sums are not both 0 (69 % of that pass's
+// cotangent is 0: 32.5M adds where K3 issued 130.0M) into an interleaved
+// scratch that a last pass folds into the gradient. Read in place, the
+// cotangent [N, 2L] costs two sectors a (level, point) and every level's
+// pass streams all of it again: 1,287 us; a pass in front transposes it to
+// [L, N] float2 (one coalesced 8-byte load a (level, point)): 682 us, with
+// 0.24 GiB allocated against the first design's 2.30.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1167,57 +1182,116 @@ __device__ __forceinline__ void grid_cell(const GridLevels& G, int l, const floa
   lattice(x01[3 * n + 2], s, iz, tz);
 }
 
-// out[n, l] and out[n, L + l] = sum over the corners, in order, of
-// plane_p[i_c] * w_c, from +0 in f32. planes: [2, total] f32; out [N, 2L].
-__global__ void __launch_bounds__(THREADS)
-hashgrid_fwd_kernel(const float* __restrict__ planes, int64_t total, const float* __restrict__ x01, int64_t N,
-                    int L, GridLevels G, uint32_t mask, float* __restrict__ out) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
-  if (t >= N * L) return;
-  const int64_t n = t / L;
-  const int l = static_cast<int>(t - n * L);
-  int ix, iy, iz;
-  float tx, ty, tz;
-  grid_cell(G, l, x01, n, ix, iy, iz, tx, ty, tz);
-  float f0[8], f1[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const int64_t i = grid_index(G, l, ix, iy, iz, c, mask);
-    f0[c] = __ldg(planes + i);
-    f1[c] = __ldg(planes + total + i);
-  }
+// The forward's sum at one (point, level): sum over the corners, in order,
+// of f_c * w_c from +0 in f32, each product and sum rounded on its own.
+__device__ __forceinline__ float2 grid_blend(const float2 (&f)[8], float tx, float ty, float tz) {
   float e0 = 0.0f, e1 = 0.0f;
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     const float w = corner_weight(c, tx, ty, tz);
-    e0 = __fadd_rn(e0, __fmul_rn(f0[c], w));
-    e1 = __fadd_rn(e1, __fmul_rn(f1[c], w));
+    e0 = __fadd_rn(e0, __fmul_rn(f[c].x, w));
+    e1 = __fadd_rn(e1, __fmul_rn(f[c].y, w));
   }
-  out[n * 2 * L + l] = e0;
-  out[n * 2 * L + L + l] = e1;
+  return make_float2(e0, e1);
 }
 
-// The table gradient's terms from g [N, 2L] (f32): entry (l*8 + c)*N + n
-// holds corner c's index (int32) and g[n, l]*w_c, g[n, L + l]*w_c. One
-// thread per (level, point), level outermost.
+constexpr int FWD_POINTS = 64;  // the points of one block of the feature-last forward
+
+// out[n, l] and out[n, L + l] = sum over the corners, in order, of
+// plane_p[i_c] * w_c, from +0 in f32 (grid_blend). pairs: [total] float2,
+// the two planes packed (pack_pairs_f32_kernel): one 8-byte load a corner;
+// x01 [N, 3]; out [N, 2L] f32. A block takes FWD_POINTS consecutive points
+// and all L levels: it stages their positions in shared memory, then each
+// warp takes (32 points, one level) tasks, its lanes 32 consecutive points
+// at one level (neighbouring samples of a ray, which share cells at the
+// coarse levels, so one load instruction's lanes share sectors), and puts
+// the two sums in a [FWD_POINTS, 2L] shared tile (an odd row stride: the
+// 32 lanes' stores hit 32 banks). The tile is then written as the block's
+// contiguous rows of out.
 __global__ void __launch_bounds__(THREADS)
-hashgrid_bwd_kernel(const float* __restrict__ g, const float* __restrict__ x01, int64_t N, int L, GridLevels G,
-                    uint32_t mask, int32_t* __restrict__ idx, float* __restrict__ v0, float* __restrict__ v1) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
-  if (t >= N * L) return;
-  const int l = static_cast<int>(t / N);
-  const int64_t n = t - static_cast<int64_t>(l) * N;
-  int ix, iy, iz;
-  float tx, ty, tz;
-  grid_cell(G, l, x01, n, ix, iy, iz, tx, ty, tz);
-  const float g0 = g[n * 2 * L + l], g1 = g[n * 2 * L + L + l];
+hashgrid_fwd_kernel(const float2* __restrict__ pairs, const float* __restrict__ x01, int64_t N, int L, GridLevels G,
+                    uint32_t mask, float* __restrict__ out) {
+  __shared__ float xs[3 * FWD_POINTS];
+  __shared__ float tile[FWD_POINTS * (2 * MAX_LEVELS + 1)];
+  const int64_t p0 = static_cast<int64_t>(blockIdx.x) * FWD_POINTS;
+  const int np = static_cast<int>(N - p0 < FWD_POINTS ? N - p0 : FWD_POINTS);
+  for (int i = threadIdx.x; i < 3 * np; i += THREADS) xs[i] = x01[3 * p0 + i];
+  __syncthreads();
+  const int row = 2 * L, stride = row + 1;
+  const int warp = static_cast<int>(threadIdx.x >> 5), lane = static_cast<int>(threadIdx.x & 31);
+  for (int task = warp; task < (FWD_POINTS / 32) * L; task += THREADS / 32) {
+    const int l = task % L, p = (task / L) * 32 + lane;
+    if (p >= np) continue;
+    const float s = G.scale[l];
+    int ix, iy, iz;
+    float tx, ty, tz;
+    lattice(xs[3 * p], s, ix, tx);
+    lattice(xs[3 * p + 1], s, iy, ty);
+    lattice(xs[3 * p + 2], s, iz, tz);
+    float2 f[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) f[c] = __ldg(pairs + grid_index(G, l, ix, iy, iz, c, mask));
+    const float2 v = grid_blend(f, tx, ty, tz);
+    tile[p * stride + l] = v.x;
+    tile[p * stride + L + l] = v.y;
+  }
+  __syncthreads();
+  for (int p = warp; p < np; p += THREADS / 32) {
+    for (int c = lane; c < row; c += 32) out[(p0 + p) * row + c] = tile[p * stride + c];
+  }
+}
+
+// gT[l*N + n] = (g[n, l], g[n, L + l]): the cotangent [N, 2L] f32 as
+// [L, N] float2, so that the backward's lanes (neighbouring points at one
+// level) read it coalesced. A block takes 32 points' rows (contiguous)
+// through shared memory (an odd row stride) and writes L rows of 32.
+__global__ void __launch_bounds__(THREADS)
+hashgrid_cotangent_kernel(const float* __restrict__ g, int N, int L, float2* __restrict__ gT) {
+  __shared__ float s[32 * (2 * MAX_LEVELS + 1)];
+  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * 32;
+  const int rows = static_cast<int>(N - n0 < 32 ? N - n0 : 32), row = 2 * L, stride = row + 1;
+  for (int i = threadIdx.x; i < rows * row; i += THREADS) s[(i / row) * stride + i % row] = g[n0 * row + i];
+  __syncthreads();
+  for (int i = threadIdx.x; i < 32 * L; i += THREADS) {
+    const int l = i >> 5, p = i & 31;
+    if (p < rows) gT[static_cast<int64_t>(l) * N + n0 + p] = make_float2(s[p * stride + l], s[p * stride + L + l]);
+  }
+}
+
+// The table gradient from the cotangent gT [L, N] float2 (above):
+// g[n, l] * w_c and g[n, L + l] * w_c added to corner c's entry, for every
+// (level, point) and corner. One thread per (level, point) on a 2-D grid
+// (blockIdx.y the level: level-major, so that about one level's entries of
+// the scratch are live in the L2 at a time), the cell and weights
+// recomputed from x01. Per corner, the lanes of a warp whose entries are
+// equal in a row (neighbouring samples of one ray in one cell) sum their
+// terms (merge_run) and each run's last lane adds both sums with one float2
+// atomic into scratch, the zeroed interleaved [total, 2], unless both sums
+// are 0 (adding 0 changes no entry); a warp whose g are all 0 adds nothing.
+// scratch_fold_kernel then adds scratch into the [2, total] gradient. Lanes
+// past N take part in the shuffles with no add.
+__global__ void __launch_bounds__(THREADS)
+hashgrid_bwd_kernel(const float2* __restrict__ gT, const float* __restrict__ x01, int N, GridLevels G,
+                    uint32_t mask, float2* __restrict__ scratch) {
+  const int n = blockIdx.x * THREADS + threadIdx.x;
+  const int l = blockIdx.y;
+  const bool live = n < N;
+  const float2 gv = live ? gT[static_cast<int64_t>(l) * N + n] : make_float2(0.0f, 0.0f);
+  if (__ballot_sync(FULL_WARP, gv.x != 0.0f || gv.y != 0.0f) == 0) return;
+  int ix = 0, iy = 0, iz = 0;
+  float tx = 0.0f, ty = 0.0f, tz = 0.0f;
+  if (live) grid_cell(G, l, x01, n, ix, iy, iz, tx, ty, tz);
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
-    const int64_t k = (static_cast<int64_t>(l) * 8 + c) * N + n;
-    const float w = corner_weight(c, tx, ty, tz);
-    idx[k] = static_cast<int32_t>(grid_index(G, l, ix, iy, iz, c, mask));
-    v0[k] = __fmul_rn(g0, w);
-    v1[k] = __fmul_rn(g1, w);
+    int64_t i = -1;  // -1: no add
+    float v0 = 0.0f, v1 = 0.0f;
+    if (live) {
+      const float w = corner_weight(c, tx, ty, tz);
+      i = grid_index(G, l, ix, iy, iz, c, mask);
+      v0 = __fmul_rn(gv.x, w);
+      v1 = __fmul_rn(gv.y, w);
+    }
+    if (merge_run(i, v0, v1) && i >= 0 && (v0 != 0.0f || v1 != 0.0f)) atomicAdd(scratch + i, make_float2(v0, v1));
   }
 }
 
@@ -1512,26 +1586,37 @@ extern "C" int nerf_dense_levels_bwd(const void* g, int64_t gs, int g_bf16, cons
 }
 
 // The feature-last encode's forward: out [N, 2L] f32 (row-major) from the
-// [2, total] f32 planes and x01 [N, 3]. Levels as fill_grid_levels takes
-// them (every level, in the planes' order); mask = hashmap size - 1.
-extern "C" int nerf_hashgrid_fwd(const float* planes, int64_t total, const float* x01, int64_t N, int L,
-                                 const float* scales, const int64_t* offsets, const int32_t* res,
-                                 const int32_t* hashed, uint32_t mask, float* out, void* stream) {
+// [total] float2 pairs (nerf_pack_pairs with f32 = 1 over the [2, total]
+// planes) and x01 [N, 3]. Levels as fill_grid_levels takes them (every
+// level, in the planes' order); mask = hashmap size - 1.
+extern "C" int nerf_hashgrid_fwd(const void* pairs, const float* x01, int64_t N, int L, const float* scales,
+                                 const int64_t* offsets, const int32_t* res, const int32_t* hashed, uint32_t mask,
+                                 float* out, void* stream) {
   GridLevels G;
   if (!fill_grid_levels(G, L, scales, offsets, res, hashed)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  hashgrid_fwd_kernel<<<blocks(N * L), THREADS, 0, s>>>(planes, total, x01, N, L, G, mask, out);
+  const unsigned nb = static_cast<unsigned>((N + FWD_POINTS - 1) / FWD_POINTS);
+  hashgrid_fwd_kernel<<<nb, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<const float2*>(pairs), x01,
+                                                                             N, L, G, mask, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Its table gradient's terms for K3: idx, v0, v1 [L * 8 * N] from the
-// cotangent g [N, 2L] f32 (row-major); the entries' indices must fit int32.
+// Its table gradient from the cotangent g [N, 2L] f32 (row-major), added
+// into grad [2, total] f32: g transposed into gT, an [L, N, 2] f32 buffer,
+// then added through scratch, a zeroed [total, 2] f32 buffer; N < 2^31.
 extern "C" int nerf_hashgrid_bwd(const float* g, const float* x01, int64_t N, int L, const float* scales,
                                  const int64_t* offsets, const int32_t* res, const int32_t* hashed, uint32_t mask,
-                                 int32_t* idx, float* v0, float* v1, void* stream) {
+                                 int64_t total, float* grad, float* gT, float* scratch, void* stream) {
   GridLevels G;
-  if (!fill_grid_levels(G, L, scales, offsets, res, hashed)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!fill_grid_levels(G, L, scales, offsets, res, hashed) || N >= (int64_t{1} << 31) || gT == nullptr ||
+      scratch == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  hashgrid_bwd_kernel<<<blocks(N * L), THREADS, 0, s>>>(g, x01, N, L, G, mask, idx, v0, v1);
+  float2* gt = reinterpret_cast<float2*>(gT);
+  float2* sc = reinterpret_cast<float2*>(scratch);
+  const int n = static_cast<int>(N);
+  hashgrid_cotangent_kernel<<<static_cast<unsigned>((N + 31) / 32), THREADS, 0, s>>>(g, n, L, gt);
+  hashgrid_bwd_kernel<<<dim3(blocks(N), L), THREADS, 0, s>>>(gt, x01, n, G, mask, sc);
+  scratch_fold_kernel<<<stride_blocks(total), THREADS, 0, s>>>(sc, total, total, 0, grad);
   return static_cast<int>(cudaGetLastError());
 }

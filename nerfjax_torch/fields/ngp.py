@@ -121,10 +121,10 @@ def hashgrid_indices_and_weights(spec: HashGridSpec, x01: torch.Tensor) -> tuple
             (ix + dx).clamp(0, r - 1) + (iy + dy).clamp(0, r - 1) * r + (iz + dz).clamp(0, r - 1) * (r * r)
             for dx, dy, dz in CORNERS
         ]) + lp["offset"])
-    N = x01.shape[0]
+    N, L8 = x01.shape[0], 8 * len(levels)
     w = torch.stack(_corner_weights(levels, x, y, z), dim=1)  # [L, 8, N]
-    return (torch.stack(idx).permute(2, 0, 1).reshape(N, -1).to(torch.int32),
-            w.permute(2, 0, 1).reshape(N, -1).contiguous())
+    return (torch.stack(idx).permute(2, 0, 1).reshape(N, L8).to(torch.int32),
+            w.permute(2, 0, 1).reshape(N, L8).contiguous())
 
 
 def _to01(c: torch.Tensor) -> torch.Tensor:

@@ -62,12 +62,16 @@ stream):
     ``_take_along_axis_probe``'s function.
   * ``hashgrid_fwd``: the feature-last encode's forward, [N, 3] -> [N, 2L]
     in exact float32 (every level, no bf16 rounding, dense corners clipped
-    per coordinate as nerfjax's ``hashgrid_indices_and_weights``), one
-    thread per (point, level) forming its 8 indices in registers; XLA's
-    take + dot in nerfjax, so it replaces no Pallas kernel;
-  * ``hashgrid_bwd``: its table gradient's terms g*w staged as K3's (idx,
-    v0, v1), recomputed from the positions; K3 adds them, the scatter-add
-    that autodiff makes of nerfjax's take.
+    per coordinate as nerfjax's ``hashgrid_indices_and_weights``) from the
+    planes packed into float2 pairs by ``pack_pairs``; a block takes 64
+    points and every level, its warps' lanes 32 points at one level, and
+    writes whole rows; XLA's take + dot in nerfjax, so it replaces no
+    Pallas kernel;
+  * ``hashgrid_bwd``: its table gradient, the scatter-add that autodiff
+    makes of nerfjax's take, with no term staged: the cotangent transposed
+    to [L, N], the cells and weights recomputed from the positions, one
+    float2 atomic per warp run of equal entries into a scratch that a last
+    pass folds into the gradient.
 
 K1 and K4 store in the encode's dtype into an ``out=`` slice of its
 [2, L, N] output (rows contiguous, any plane stride), so the encode
@@ -646,8 +650,8 @@ def _lib() -> ctypes.CDLL:
     lib.nerf_dense_levels_fwd.argtypes = [vp, vp, vp, vp, i64, i32, vp, vp, vp, i32, i32, f32, vp, i64, i32, vp, vp]
     lib.nerf_dense_levels_bwd.argtypes = [vp, i64, i32, vp, vp, vp, i64, i32, vp, vp, vp, i32, i32, f32, i32, f32,
                                           vp, vp, vp, vp]
-    lib.nerf_hashgrid_fwd.argtypes = [vp, i64, vp, i64, i32, vp, vp, vp, vp, u32, vp, vp]
-    lib.nerf_hashgrid_bwd.argtypes = [vp, vp, i64, i32, vp, vp, vp, vp, u32, vp, vp, vp, vp]
+    lib.nerf_hashgrid_fwd.argtypes = [vp, vp, i64, i32, vp, vp, vp, vp, u32, vp, vp]
+    lib.nerf_hashgrid_bwd.argtypes = [vp, vp, i64, i32, vp, vp, vp, vp, u32, i64, vp, vp, vp, vp]
     for fn in (lib.nerf_hash_levels_fwd, lib.nerf_hash_levels_bwd, lib.nerf_table_grad_scatter,
                lib.nerf_pack_pairs, lib.nerf_dense_levels_fwd, lib.nerf_dense_levels_bwd, lib.nerf_hashgrid_fwd,
                lib.nerf_hashgrid_bwd):
@@ -1004,7 +1008,7 @@ def hashgrid_encode_plain(spec: HashGridSpec, planes: torch.Tensor, x01: torch.T
 
 
 def hashgrid_bwd_entries_plain(spec: HashGridSpec, g: torch.Tensor, x01: torch.Tensor):
-    """K3's inputs for the feature-last encode's table gradient from its
+    """The terms of the feature-last encode's table gradient from its
     cotangent g [N, 2L] float32: (idx [L*8*N] int32, v0, v1 [L*8*N] float32),
     entry (l*8 + c)*N + n holding corner c of level l at point n and
     g[n, l]*w, g[n, L + l]*w."""
@@ -1016,6 +1020,42 @@ def hashgrid_bwd_entries_plain(spec: HashGridSpec, g: torch.Tensor, x01: torch.T
     g = g.to(torch.float32)
     v0, v1 = (g[:, p * L:(p + 1) * L].t()[:, None, :] * w for p in range(2))
     return idx.reshape(-1), v0.reshape(-1), v1.reshape(-1)
+
+
+def hashgrid_bwd_plain(spec: HashGridSpec, g: torch.Tensor, x01: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """The feature-last encode's table gradient (``hashgrid_bwd_entries_plain``'s
+    terms) added into the [2, total] float32 planes ``out``, returned."""
+    return table_grad_scatter_plain(*hashgrid_bwd_entries_plain(spec, g, x01), out)
+
+
+def hashgrid_bwd_runs(spec: HashGridSpec, g: torch.Tensor, x01: torch.Tensor):
+    """(head [L, 8, N] bool, nonzero [L, 8, N] bool) of ``hashgrid_bwd_kernel``:
+    head is True where point n's lane starts a run of its warp at that
+    (level, corner) (a warp is 32 points in a row of n from a multiple of
+    32, at one level; a run starts at its first lane and wherever the entry
+    differs from the previous lane's); nonzero where the lane's term is not
+    0 in either plane."""
+    idx, v0, v1 = hashgrid_bwd_entries_plain(spec, g, x01)
+    L, N = spec.n_levels, x01.shape[0]
+    idx, v0, v1 = (t.reshape(L, 8, N) for t in (idx, v0, v1))
+    head = torch.ones_like(idx, dtype=torch.bool)
+    head[..., 1:] = idx[..., 1:] != idx[..., :-1]
+    head[..., ::32] = True
+    return head, (v0 != 0) | (v1 != 0)
+
+
+def hashgrid_bwd_add_count(spec: HashGridSpec, g: torch.Tensor, x01: torch.Tensor) -> int:
+    """The float2 atomic adds ``hashgrid_bwd_kernel`` issues on the card for
+    the cotangent g and positions x01: its warp runs (``hashgrid_bwd_runs``)
+    that hold a term not 0 (the card skips a run whose two sums are 0, and a
+    warp whose g are all 0; a run whose terms cancel to exactly 0 would be
+    counted here and skipped there). The first design added every term: L*8*N
+    staged entries, then K3's merged runs of them (``k3_atomic_count``)."""
+    head, nonzero = (t.reshape(-1) for t in hashgrid_bwd_runs(spec, g, x01))
+    run = torch.cumsum(head.to(torch.int64), 0) - 1
+    hits = torch.zeros(int(head.sum()), dtype=torch.int64, device=head.device)
+    hits.index_add_(0, run, nonzero.to(torch.int64))
+    return int((hits > 0).sum())
 
 
 def _grid_arrays(spec: HashGridSpec):
@@ -1039,58 +1079,68 @@ def _check_x01(name: str, x01: torch.Tensor) -> int:
 def hashgrid_fwd(spec: HashGridSpec, planes: torch.Tensor, x01: torch.Tensor) -> torch.Tensor:
     """The feature-last encode's forward -> [N, 2L] float32 (plane-major
     columns) from the [2, total] float32 planes and x01 [N, 3] float32 in
-    [0, 1]; on the card ``hashgrid_fwd_kernel``, on the CPU
-    ``hashgrid_encode_plain``."""
+    [0, 1]; on the CPU ``hashgrid_encode_plain``. On the card ``pack_pairs``
+    first packs the planes into one float2 per entry (the values copied,
+    so the sums do not change), then ``hashgrid_fwd_kernel`` reads one
+    entry per corner, a block's warps each at one level over 32
+    neighbouring points, and writes the block's rows whole."""
     N = _check_x01("hashgrid_fwd", x01)
     if _device_kind("hashgrid_fwd", x01) == "cpu":
         return hashgrid_encode_plain(spec, planes, x01)
-    if planes.dim() != 2 or planes.shape != (2, spec.total_table_size):
+    if planes.shape != (2, spec.total_table_size):
         raise ValueError(f"hashgrid_fwd: planes must be [2, {spec.total_table_size}], got {tuple(planes.shape)}")
     _check_cuda("hashgrid_fwd", {"planes": planes, "x01": x01})
     out = torch.empty(N, 2 * spec.n_levels, dtype=torch.float32, device=x01.device)
     if N:
         scales, offsets, res, hashed, mask = _grid_arrays(spec)
+        pairs = pack_pairs(planes, f32=True)
         err = _lib().nerf_hashgrid_fwd(
-            planes.data_ptr(), planes.shape[1], x01.data_ptr(), N, spec.n_levels, scales.ctypes.data,
-            offsets.ctypes.data, res.ctypes.data, hashed.ctypes.data, mask, out.data_ptr(), _stream(x01))
+            pairs.data_ptr(), x01.data_ptr(), N, spec.n_levels, scales.ctypes.data, offsets.ctypes.data,
+            res.ctypes.data, hashed.ctypes.data, mask, out.data_ptr(), _stream(x01))
         _raise_if_failed("hashgrid_fwd", err)
         launch_counts["hashgrid_fwd"] += 1
     return out
 
 
-def hashgrid_bwd_entries(spec: HashGridSpec, g: torch.Tensor, x01: torch.Tensor):
-    """K3's inputs for the feature-last encode's table gradient, as
-    ``hashgrid_bwd_entries_plain`` describes, from g [N, 2L] float32 and
-    x01 [N, 3]; on the card ``hashgrid_bwd_kernel`` recomputes the indices
-    and weights from the positions (the table must have < 2^31 entries)."""
+def hashgrid_bwd(spec: HashGridSpec, g: torch.Tensor, x01: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """The feature-last encode's table gradient from its cotangent g
+    [N, 2L] float32 (contiguous) at x01 [N, 3], added into the [2, total]
+    float32 planes ``out`` (contiguous) and returned; on the CPU
+    ``hashgrid_bwd_plain``. On the card a first pass transposes g into an
+    [L, N] float2 buffer (8 B a (level, point)), then ``hashgrid_bwd_kernel``
+    recomputes each (level, point)'s cell and weights, merges each warp's
+    runs of equal entries and adds each run's sums that are not both 0 with
+    one float2 atomic into a zeroed interleaved scratch ``[total, 2]``
+    float32, which a last pass adds into ``out``; both buffers allocated
+    here, no term staged. N < 2^31."""
     N = _check_x01("hashgrid_bwd", x01)
     if _device_kind("hashgrid_bwd", x01) == "cpu":
-        return hashgrid_bwd_entries_plain(spec, g, x01)
+        return hashgrid_bwd_plain(spec, g, x01, out)
     L = spec.n_levels
     if g.shape != (N, 2 * L):
         raise ValueError(f"hashgrid_bwd: g must be [{N}, {2 * L}], got {tuple(g.shape)}")
-    if spec.total_table_size >= 2**31:
-        raise ValueError(f"hashgrid_bwd: {spec.total_table_size} table entries; int32 indices take fewer than 2^31")
+    if N >= 2**31:
+        raise ValueError(f"hashgrid_bwd: N = {N}; the kernel takes fewer than 2^31 points")
     _check_cuda("hashgrid_bwd", {"g": g, "x01": x01})
-    K = L * 8 * N
-    idx = torch.empty(K, dtype=torch.int32, device=x01.device)
-    v0 = torch.empty(K, dtype=torch.float32, device=x01.device)
-    v1 = torch.empty(K, dtype=torch.float32, device=x01.device)
+    total = _check_out("hashgrid_bwd", out, x01.device)
+    if total != spec.total_table_size:
+        raise ValueError(f"hashgrid_bwd: out must be [2, {spec.total_table_size}], got {tuple(out.shape)}")
     if N:
         scales, offsets, res, hashed, mask = _grid_arrays(spec)
+        gT = torch.empty(L, N, 2, dtype=torch.float32, device=x01.device)
+        scratch = torch.zeros(total, 2, dtype=torch.float32, device=x01.device)
         err = _lib().nerf_hashgrid_bwd(
             g.data_ptr(), x01.data_ptr(), N, L, scales.ctypes.data, offsets.ctypes.data, res.ctypes.data,
-            hashed.ctypes.data, mask, idx.data_ptr(), v0.data_ptr(), v1.data_ptr(), _stream(x01))
+            hashed.ctypes.data, mask, total, out.data_ptr(), gT.data_ptr(), scratch.data_ptr(), _stream(x01))
         _raise_if_failed("hashgrid_bwd", err)
         launch_counts["hashgrid_bwd"] += 1
-    return idx, v0, v1
+    return out
 
 
 class _HashGridEncode(torch.autograd.Function):
     """The feature-last encode -> [N, 2L] float32 (``hashgrid_fwd``). The
-    backward stages the table gradient's terms (``hashgrid_bwd_entries``)
-    and K3 adds them into one zeroed [2, total] float32 gradient; the
-    positions get none."""
+    backward adds the table gradient into one zeroed [2, total] float32
+    gradient (``hashgrid_bwd``); the positions get none."""
 
     @staticmethod
     def forward(ctx, planes, x01, spec):
@@ -1102,8 +1152,7 @@ class _HashGridEncode(torch.autograd.Function):
     def backward(ctx, g):
         (x01,) = ctx.saved_tensors
         grad = torch.zeros(2, ctx.total, dtype=torch.float32, device=x01.device)
-        table_grad_scatter(*hashgrid_bwd_entries(ctx.spec, g.contiguous().to(torch.float32), x01), grad)
-        return grad, None, None
+        return hashgrid_bwd(ctx.spec, g.contiguous().to(torch.float32), x01, grad), None, None
 
 
 def hashgrid_encode(spec: HashGridSpec, planes: torch.Tensor, x01: torch.Tensor) -> torch.Tensor:

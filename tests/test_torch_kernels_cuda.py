@@ -1125,7 +1125,7 @@ def test_prefetch_on_the_card_yields_the_host_batches(cuda_device, depth):
                 assert b[k].device.type == "cuda" and torch.equal(b[k].cpu(), torch.from_numpy(v)), (i, k)
 
 
-# -- the feature-last encode (hashgrid_fwd, hashgrid_bwd, then K3) -----------------------
+# -- the feature-last encode (pack_pairs + hashgrid_fwd, hashgrid_bwd) ---------------------
 
 GRID_SPECS = {"tuned": TUNED, "medium16": dict(n_levels=16, log2_hashmap_size=17),
               "small6_ed1": dict(n_levels=6, log2_hashmap_size=15, extra_dense_levels=1)}
@@ -1141,14 +1141,18 @@ def _grid_x01(inputs: str, N: int, device):
     return torch.stack(_positions(N, 52, device), dim=1).contiguous()
 
 
+def _grid_bwd_bound(spec, g, x01, device):
+    return _scatter_bound(*hash_encode.hashgrid_bwd_entries_plain(spec, g, x01), spec.total_table_size, device)
+
+
 @pytest.mark.parametrize("inputs", ["uniform", "rays", "one_position"])
 @pytest.mark.parametrize("spec", list(GRID_SPECS))
 def test_hashgrid_encode_kernels_match_plain(cuda_device, spec, inputs):
-    """hashgrid_fwd against hashgrid_encode_plain within the order of a
-    level's 8-term f32 sum (8 * 2^-24 * sum|f w|; the plain version sums in
-    the kernel's order, so they are expected equal); hashgrid_bwd's staged
-    entries torch.equal to plain; the autograd encode's table gradient (K3)
-    within the atomic-order bound; each wrapper launched once per call."""
+    """hashgrid_fwd torch.equal to hashgrid_encode_plain (it sums a level's
+    8 corners in the plain version's order, each product and sum rounded on
+    its own); hashgrid_bwd and the autograd encode's table gradient within
+    the atomic-order bound of hashgrid_bwd_plain; each wrapper launched once
+    per call, the pack once in front of each forward, K3 never."""
     spec = HashGridSpec(**GRID_SPECS[spec])
     N = 100_032 if inputs == "rays" else 100_003
     rng = np.random.default_rng(53)
@@ -1157,28 +1161,74 @@ def test_hashgrid_encode_kernels_match_plain(cuda_device, spec, inputs):
     before = dict(hash_encode.launch_counts)
     got = hash_encode.hashgrid_fwd(spec, planes, x01)
     ref = hash_encode.hashgrid_encode_plain(spec, planes, x01)
-    bound = 8 * 2.0**-24 * hash_encode.hashgrid_encode_plain(spec, planes.abs(), x01) + 1e-30
     torch.cuda.synchronize()
     assert got.shape == (x01.shape[0], 2 * spec.n_levels) and got.dtype == torch.float32
-    assert bool(((got - ref).abs() <= bound).all())
+    assert torch.equal(got, ref)
     g = torch.from_numpy(rng.normal(size=tuple(got.shape)).astype(np.float32)).to(cuda_device)
-    staged = hash_encode.hashgrid_bwd_entries(spec, g, x01)
-    want = hash_encode.hashgrid_bwd_entries_plain(spec, g, x01)
-    assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(staged, want))
+    zeros = lambda: torch.zeros(2, spec.total_table_size, device=cuda_device)  # noqa: E731
+    gref = hash_encode.hashgrid_bwd_plain(spec, g, x01, zeros())
+    bound = _grid_bwd_bound(spec, g, x01, cuda_device)
+    assert bool(((hash_encode.hashgrid_bwd(spec, g, x01, zeros()) - gref).abs() <= bound).all())
     p = planes.clone().requires_grad_(True)
     (hash_encode.hashgrid_encode(spec, p, x01) * g).sum().backward()
-    zeros = lambda: torch.zeros(2, spec.total_table_size, device=cuda_device)  # noqa: E731
-    gref = hash_encode.table_grad_scatter_plain(*want, zeros())
-    assert bool(((p.grad - gref).abs() <= _scatter_bound(*want, spec.total_table_size, cuda_device)).all())
+    assert bool(((p.grad - gref).abs() <= bound).all())
     counts = {k: hash_encode.launch_counts[k] - before[k] for k in before}
-    assert counts["hashgrid_fwd"] == 2 and counts["hashgrid_bwd"] == 2 and counts["table_grad_scatter"] == 1
-    assert counts["hash_levels_fwd"] == counts["dense_levels_fwd"] == 0
+    assert counts == {**{k: 0 for k in before}, "hashgrid_fwd": 2, "pack_pairs": 2, "hashgrid_bwd": 2}
+
+
+@pytest.mark.parametrize("N", [0, 1, 31, 63, 64, 65, 1_000])
+@pytest.mark.parametrize("spec", ["medium16", "small6_ed1"])
+def test_hashgrid_fwd_at_ragged_n_and_the_faces(cuda_device, spec, N):
+    """N not a multiple of the block's 64 points, and every point on a face
+    or an edge of the domain (dense corners clipped to [0, r-1]): torch.equal
+    to plain; N = 0 launches nothing."""
+    spec = HashGridSpec(**GRID_SPECS[spec])
+    rng = np.random.default_rng(55)
+    planes = torch.from_numpy(rng.uniform(-1, 1, (2, spec.total_table_size)).astype(np.float32)).to(cuda_device)
+    x01 = rng.uniform(size=(N, 3)).astype(np.float32)
+    x01[np.arange(N), np.arange(N) % 3] = (np.arange(N) // 3) % 2  # one coordinate 0 or 1
+    rows = np.arange(0, N, 7)
+    x01[rows, (rows + 1) % 3] = 1.0  # and every 7th on an edge
+    x01 = torch.from_numpy(x01).to(cuda_device)
+    before = hash_encode.launch_counts["hashgrid_fwd"]
+    got = hash_encode.hashgrid_fwd(spec, planes, x01)
+    torch.cuda.synchronize()
+    assert got.shape == (N, 2 * spec.n_levels)
+    assert torch.equal(got, hash_encode.hashgrid_encode_plain(spec, planes, x01))
+    assert hash_encode.launch_counts["hashgrid_fwd"] == before + (N > 0)
+
+
+@pytest.mark.parametrize("zero", ["all", "half", "levels"])
+def test_hashgrid_bwd_skips_zero_cotangent(cuda_device, zero):
+    """A cotangent that is all 0 leaves the gradient exactly as it was (0 +
+    nothing); with half of the points' rows 0, or levels 0, 2 and 4 0 in
+    both planes, the gradient lies within the atomic-order bound of plain and
+    the entries only zero terms reach stay 0."""
+    spec = HashGridSpec(**GRID_SPECS["small6_ed1"])
+    x01 = _grid_x01("rays", 20_160, cuda_device)
+    rng = np.random.default_rng(56)
+    g = torch.from_numpy(rng.normal(size=(x01.shape[0], 2 * spec.n_levels)).astype(np.float32)).to(cuda_device)
+    if zero == "all":
+        g.zero_()
+    elif zero == "half":
+        g[: x01.shape[0] // 2] = 0.0
+    else:
+        g[:, ::2] = 0.0
+    zeros = lambda: torch.zeros(2, spec.total_table_size, device=cuda_device)  # noqa: E731
+    got = hash_encode.hashgrid_bwd(spec, g, x01, zeros())
+    ref = hash_encode.hashgrid_bwd_plain(spec, g, x01, zeros())
+    torch.cuda.synchronize()
+    assert bool(((got - ref).abs() <= _grid_bwd_bound(spec, g, x01, cuda_device)).all())
+    assert torch.equal(got == 0, ref == 0)
+    if zero == "all":
+        assert not bool(got.any())
 
 
 def test_hashgrid_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     spec = HashGridSpec(**GRID_SPECS["small6_ed1"])
     planes = torch.zeros(2, spec.total_table_size, device=cuda_device)
     x01 = torch.rand(10, 3, device=cuda_device)
+    g = torch.zeros(10, 2 * spec.n_levels, device=cuda_device)
     with pytest.raises(ValueError):
         hash_encode.hashgrid_fwd(spec, planes, x01.t().contiguous())
     with pytest.raises(ValueError):
@@ -1186,14 +1236,25 @@ def test_hashgrid_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError):
         hash_encode.hashgrid_fwd(spec, planes[:, :-1], x01)
     with pytest.raises(ValueError):
-        hash_encode.hashgrid_bwd_entries(spec, torch.zeros(10, 3, device=cuda_device), x01)
+        hash_encode.hashgrid_fwd(spec, planes, x01.t().contiguous().t())  # not contiguous
+    with pytest.raises(ValueError):
+        hash_encode.hashgrid_bwd(spec, torch.zeros(10, 3, device=cuda_device), x01, planes.clone())
+    with pytest.raises(ValueError):
+        hash_encode.hashgrid_bwd(spec, g.t().contiguous().t(), x01, planes.clone())  # g not contiguous
+    with pytest.raises(ValueError):
+        hash_encode.hashgrid_bwd(spec, g, x01, planes[:, :-1].clone())
+    with pytest.raises(ValueError):
+        hash_encode.hashgrid_bwd(spec, g, x01, planes.t().contiguous().t())  # out not contiguous
+    with pytest.raises(ValueError):
+        hash_encode.hashgrid_bwd(spec, g.double(), x01, planes.clone())
     assert hash_encode.hashgrid_fwd(spec, planes, x01[:0]).shape == (0, 2 * spec.n_levels)
 
 
 def test_render_rays_on_the_card_runs_the_feature_last_kernels(cuda_device):
     """render_rays(train=True) with remat: each pass's encode twice (the
-    forward and its recomputation), its staging and K3 once; the same
-    outputs as the CPU's coarse pass within 2e-5 at the same uniforms."""
+    forward and its recomputation, each with its pack), its backward once,
+    K3 never; the same outputs as the CPU's coarse pass within 2e-5 at the
+    same uniforms."""
     from nerfjax_torch import render
     from nerfjax_torch.train import build_fields
 
@@ -1218,7 +1279,7 @@ def test_render_rays_on_the_card_runs_the_feature_last_kernels(cuda_device):
         outs.append({k: v.detach().cpu() for k, v in out.items()})
     torch.cuda.synchronize()
     counts = {k: hash_encode.launch_counts[k] - before[k] for k in before}
-    assert counts["hashgrid_fwd"] == 4 and counts["hashgrid_bwd"] == 2 and counts["table_grad_scatter"] == 2
+    assert counts == {**{k: 0 for k in before}, "hashgrid_fwd": 4, "pack_pairs": 4, "hashgrid_bwd": 2}
     assert float((outs[0]["rgb_coarse"] - outs[1]["rgb_coarse"]).abs().max()) <= 2e-5
     assert float((outs[0]["weights_coarse"] - outs[1]["weights_coarse"]).abs().max()) <= 2e-5
     assert card.table.grad is not None and bool(torch.isfinite(card.table.grad).all())
