@@ -10,7 +10,10 @@ NERFJAX_PROCESS_ID set, or under torchrun with NERFJAX_DISTRIBUTED=1
 
 --fp32 is the reference's no-AMP twin: fp32 compute, dist_last=1e6 and a
 global-norm gradient clip of 1.0. --profile_dir writes a torch.profiler
-trace (trace.json) of the run.
+trace (trace.json) of the run and the program's spans (spans.json: the train
+step and its stages, the batch feed and the host's waits, each with its start
+and end in ns since the epoch, the clock the profiler stamps the card's
+events on, its parent, its step and its counts; see ``nerfjax_torch.tracing``).
 """
 
 from __future__ import annotations

@@ -19,6 +19,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from nerfjax_torch import tracing
 from nerfjax_torch.rays import load_ray_data
 
 
@@ -63,13 +64,16 @@ class RayDataset:
         lo = process_index * block
         for start in range(0, end, batch_size):
             idx = perm[start + lo : start + lo + block]
-            yield {
-                "rays_o": np.ascontiguousarray(self.rays_o[idx]),
-                "rays_d": np.ascontiguousarray(self.rays_d[idx]),
-                "rgb": np.ascontiguousarray(self.rgbs[idx]),
-                "t_near": np.ascontiguousarray(self.t_near[idx]),
-                "t_far": np.ascontiguousarray(self.t_far[idx]),
-            }
+            with tracing.span("feed.gather") as sp:
+                sp.count("rows", len(idx))
+                batch = {
+                    "rays_o": np.ascontiguousarray(self.rays_o[idx]),
+                    "rays_d": np.ascontiguousarray(self.rays_d[idx]),
+                    "rgb": np.ascontiguousarray(self.rgbs[idx]),
+                    "t_near": np.ascontiguousarray(self.t_near[idx]),
+                    "t_far": np.ascontiguousarray(self.t_far[idx]),
+                }
+            yield batch
 
     def steps_per_epoch(self, batch_size: int, drop_last: bool = True) -> int:
         return self.num_rays // batch_size if drop_last else -(-self.num_rays // batch_size)
@@ -104,17 +108,19 @@ def prefetch_to_device(iterator: Iterator[dict[str, np.ndarray]], device, depth:
     for i, batch in enumerate(iterator):
         slot = i % depth
         if copied[slot] is not None:
-            copied[slot].synchronize()  # the copy out of this slot's buffers has ended
-        host = pinned[slot]
-        for k, v in batch.items():
-            src = torch.from_numpy(v)
-            if k not in host or host[k].shape != src.shape or host[k].dtype != src.dtype:
-                host[k] = torch.empty_like(src, pin_memory=True)
-            host[k].copy_(src)
-        with torch.cuda.stream(copy_stream):
-            on_dev = {k: host[k].to(dev, non_blocking=True) for k in batch}
-            copied[slot] = torch.cuda.Event()
-            copied[slot].record(copy_stream)
+            with tracing.span("wait.feed_slot"):
+                copied[slot].synchronize()  # the copy out of this slot's buffers has ended
+        with tracing.span("feed.pin"):
+            host = pinned[slot]
+            for k, v in batch.items():
+                src = torch.from_numpy(v)
+                if k not in host or host[k].shape != src.shape or host[k].dtype != src.dtype:
+                    host[k] = torch.empty_like(src, pin_memory=True)
+                host[k].copy_(src)
+            with torch.cuda.stream(copy_stream):
+                on_dev = {k: host[k].to(dev, non_blocking=True) for k in batch}
+                copied[slot] = torch.cuda.Event()
+                copied[slot].record(copy_stream)
         queue.append((on_dev, copied[slot]))
         if len(queue) >= depth:
             yield _handed_over(*queue.popleft(), dev)

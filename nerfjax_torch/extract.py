@@ -25,6 +25,7 @@ occupied_ratio, total_voxels, occupied_voxels, timestamp, ...}}.
 
 from __future__ import annotations
 
+import itertools
 import time
 from pathlib import Path
 from typing import Mapping
@@ -33,12 +34,14 @@ import numpy as np
 import torch
 
 from nerfjax_torch import checkpoint as ckpt
+from nerfjax_torch import tracing
 from nerfjax_torch.ops.otsu import otsu_threshold
 from nerfjax_torch.train import build_fields
 
 B = 4  # fine voxels per coarse cell per axis
 FINE_CHUNK_CELLS = 8192  # marked cells per fine-pass call: 524,288 points
 COARSE_SLAB = 8  # x-slices per coarse-pass call
+_volume_ids = itertools.count(1)  # the id of each ``extract.volume`` span: the volume's number in this process
 
 
 def resolve_device(device) -> torch.device:
@@ -53,18 +56,22 @@ def resolve_device(device) -> torch.device:
 
 
 class _PhaseClock:
-    """Wall seconds per phase; synchronises a CUDA device at each lap."""
+    """Wall seconds per phase on the tracing clock (``time.time_ns``), each
+    lap from the end of the one before: "coarse" (the coarse pass and the
+    mark), "fine", "otsu", "fetch". Each lap first waits for a CUDA device
+    (a ``wait.phase`` span)."""
 
     def __init__(self, dev: torch.device):
         self.dev = dev
         self.seconds: dict[str, float] = {}
-        self._t = time.perf_counter()
+        self._t = time.time_ns()
 
     def lap(self, name: str) -> None:
         if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
-        now = time.perf_counter()
-        self.seconds[name] = self.seconds.get(name, 0.0) + now - self._t
+            with tracing.span("wait.phase"):
+                torch.cuda.synchronize(self.dev)
+        now = time.time_ns()
+        self.seconds[name] = self.seconds.get(name, 0.0) + (now - self._t) / 1e9
         self._t = now
 
 
@@ -98,13 +105,15 @@ def _gathered(local: torch.Tensor, counts: list[int]) -> torch.Tensor:
 
 
 def _linspace(lo: float, hi: float, res: int, dev) -> torch.Tensor:
-    return torch.from_numpy(np.linspace(lo, hi, res, dtype=np.float32)).to(dev)
+    with tracing.span("wait.upload"):
+        return torch.from_numpy(np.linspace(lo, hi, res, dtype=np.float32)).to(dev)
 
 
 def _step_coords(lo: float, hi: float, res: int, dev) -> torch.Tensor:
     step = np.float32((hi - lo) / (res - 1))
     c = np.float32(lo) + np.arange(res, dtype=np.float32) * step
-    return torch.from_numpy(c).to(dev)
+    with tracing.span("wait.upload"):
+        return torch.from_numpy(c).to(dev)
 
 
 def _slab_points(xs: torch.Tensor, coords: torch.Tensor):
@@ -142,7 +151,8 @@ def _packbits(occ_flat: torch.Tensor) -> torch.Tensor:
     pad = (-occ_flat.numel()) % 8
     if pad:
         occ_flat = torch.cat([occ_flat, occ_flat.new_zeros(pad)])
-    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8, device=occ_flat.device)
+    with tracing.span("wait.upload"):
+        weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8, device=occ_flat.device)
     return (occ_flat.reshape(-1, 8) * weights).sum(1).to(torch.uint8)
 
 
@@ -160,45 +170,56 @@ def _fetch_volumes(occupancy_dev: torch.Tensor, rgb_dev: torch.Tensor, res: int,
     """
     occ_flat = occupancy_dev.reshape(-1)
     rgb_flat = rgb_dev.reshape(-1, 3)
-    rgb_global_max = float(rgb_dev.max())
+    with tracing.span("wait.fetch_copy"):
+        rgb_global_max = float(rgb_dev.max())
     total = res**3
     if sparse:
-        occ_host = np.unpackbits(_packbits(occ_flat).cpu().numpy())[:total]
-        count = int(occ_host.sum())
+        packed = _packbits(occ_flat)
+        with tracing.span("wait.fetch_copy"):
+            packed = packed.cpu().numpy()
+        with tracing.span("extract.fetch.unpack"):
+            occ_host = np.unpackbits(packed)[:total]
+            count = int(occ_host.sum())
         K = 1 << max(12, (max(count, 1) - 1).bit_length())
         if K * 7 < total * 4:
-            idx = torch.nonzero(occ_flat).squeeze(1)  # ascending, as np.flatnonzero
-            rgb_host = np.zeros((total, 3), np.uint8)
-            rgb_host[np.flatnonzero(occ_host)] = rgb_flat[idx].cpu().numpy()
-            return (
-                occ_host.reshape(res, res, res).astype(np.uint8),
-                rgb_host.reshape(res, res, res, 3),
-                True,
-                rgb_global_max,
-            )
-    occupancy = occupancy_dev.cpu().numpy().reshape(res, res, res)
-    rgb = rgb_dev.cpu().numpy().reshape(res, res, res, 3)
+            with tracing.span("wait.fetch_copy"):
+                idx = torch.nonzero(occ_flat).squeeze(1)  # ascending, as np.flatnonzero
+                rgb_occupied = rgb_flat[idx].cpu().numpy()
+            with tracing.span("extract.fetch.unpack"):
+                occupied = np.flatnonzero(occ_host)
+                occupancy = occ_host.reshape(res, res, res).astype(np.uint8)
+            with tracing.span("extract.fetch.scatter"):
+                rgb_host = np.zeros((total, 3), np.uint8)
+                rgb_host[occupied] = rgb_occupied
+            return occupancy, rgb_host.reshape(res, res, res, 3), True, rgb_global_max
+    with tracing.span("wait.fetch_copy"):
+        occupancy = occupancy_dev.cpu().numpy().reshape(res, res, res)
+        rgb = rgb_dev.cpu().numpy().reshape(res, res, res, 3)
     return occupancy, rgb, False, rgb_global_max
 
 
 def _finish(sigma_vol, rgb_vol, res, sparse_fetch, clock, verbose, queries):
     """Otsu on the full-resolution sigma volume, occupancy, fetch, metadata."""
-    sigma_flat = sigma_vol.reshape(-1)
-    threshold_dev = otsu_threshold(sigma_flat)
-    occupancy_dev = (sigma_flat > threshold_dev).to(torch.uint8)
-    stats = {
-        "min": float(sigma_flat.min()),
-        "max": float(sigma_flat.max()),
-        "mean": float(sigma_flat.mean()),
-        "std": float(sigma_flat.std(correction=0)),
-    }
-    threshold = float(threshold_dev)
-    clock.lap("otsu")
-    occupancy, rgb_out, sparse_used, rgb_global_max = _fetch_volumes(
-        occupancy_dev, rgb_vol, res, sparse_fetch
-    )
-    clock.lap("fetch")
-    occupied = int(occupancy.sum())
+    with tracing.span("extract.otsu"):
+        sigma_flat = sigma_vol.reshape(-1)
+        threshold_dev = otsu_threshold(sigma_flat)
+        occupancy_dev = (sigma_flat > threshold_dev).to(torch.uint8)
+        with tracing.span("wait.stats"):
+            stats = {
+                "min": float(sigma_flat.min()),
+                "max": float(sigma_flat.max()),
+                "mean": float(sigma_flat.mean()),
+                "std": float(sigma_flat.std(correction=0)),
+            }
+            threshold = float(threshold_dev)
+        clock.lap("otsu")
+    with tracing.span("extract.fetch"):
+        occupancy, rgb_out, sparse_used, rgb_global_max = _fetch_volumes(
+            occupancy_dev, rgb_vol, res, sparse_fetch
+        )
+        clock.lap("fetch")
+    with tracing.span("extract.count"):
+        occupied = int(occupancy.sum())
     total = res**3
     s = clock.seconds
     query_time = s.get("coarse", 0.0) + s.get("fine", 0.0) + s["otsu"]
@@ -262,45 +283,48 @@ def extract_volume(
         dev = torch.device("cuda", torch.cuda.current_device())
     verbose = verbose and _world()[0] == 0
     res = int(resolution or cfg.get("volume_resolution", 512))
-    _, field, _ = build_fields(cfg, device=dev)
-    if params is None:
-        params = ckpt.load_field_params(cfg["checkpoint"], cfg, which="fine")
-    field.load_params(params["model"] if "model" in params else params["fine"])
+    with tracing.unit("extract.volume", next(_volume_ids)):
+        with tracing.span("extract.build"):
+            _, field, _ = build_fields(cfg, device=dev)
+            if params is None:
+                params = ckpt.load_field_params(cfg["checkpoint"], cfg, which="fine")
+            field.load_params(params["model"] if "model" in params else params["fine"])
 
-    view = np.asarray(view_direction, np.float32)
-    view = tuple(float(v) for v in view / np.linalg.norm(view))
+        view = np.asarray(view_direction, np.float32)
+        view = tuple(float(v) for v in view / np.linalg.norm(view))
 
-    if hierarchical is None:
-        hierarchical = res >= 128 and res % 4 == 0
-    if sparse_fetch is None:
-        sparse_fetch = hierarchical
-    clock = _PhaseClock(dev)
-    if hierarchical:
-        sigma_vol, rgb_vol, queries, extra = _query_hierarchical(
-            field, res, bounds, view, dev, dtype, verbose, sparse_fetch,
-            coarse_density_only, coarse_supersample, clock,
+        if hierarchical is None:
+            hierarchical = res >= 128 and res % 4 == 0
+        if sparse_fetch is None:
+            sparse_fetch = hierarchical
+        clock = _PhaseClock(dev)
+        if hierarchical:
+            sigma_vol, rgb_vol, queries, extra = _query_hierarchical(
+                field, res, bounds, view, dev, dtype, verbose, sparse_fetch,
+                coarse_density_only, coarse_supersample, clock,
+            )
+        else:
+            with tracing.span("extract.fine"):
+                sigma_vol, rgb_vol, queries = _query_exact(field, res, bounds, view, slab, dev, dtype)
+                clock.lap("fine")
+            extra = {}
+        occupancy, rgb_out, metadata = _finish(
+            sigma_vol, rgb_vol, res, sparse_fetch, clock, verbose, queries
         )
-    else:
-        sigma_vol, rgb_vol, queries = _query_exact(field, res, bounds, view, slab, dev, dtype)
-        clock.lap("fine")
-        extra = {}
-    occupancy, rgb_out, metadata = _finish(
-        sigma_vol, rgb_vol, res, sparse_fetch, clock, verbose, queries
-    )
-    return {
-        "occupancy_volume": occupancy,
-        "rgb_volume": rgb_out,
-        "metadata": {
-            "resolution": res,
-            "bounds": [float(bounds[0]), float(bounds[1])],
-            **metadata,
-            "timestamp": time.strftime("%Y-%m-%d %H:%M:%S"),
-            "checkpoint_path": str(cfg.get("checkpoint", "")),
-            "view_direction": list(view),
-            "device": str(dev),
-            **extra,
-        },
-    }
+        return {
+            "occupancy_volume": occupancy,
+            "rgb_volume": rgb_out,
+            "metadata": {
+                "resolution": res,
+                "bounds": [float(bounds[0]), float(bounds[1])],
+                **metadata,
+                "timestamp": time.strftime("%Y-%m-%d %H:%M:%S"),
+                "checkpoint_path": str(cfg.get("checkpoint", "")),
+                "view_direction": list(view),
+                "device": str(dev),
+                **extra,
+            },
+        }
 
 
 def _query_exact(field, res, bounds, view, slab, dev, dtype):
@@ -343,52 +367,76 @@ def _query_hierarchical(
     lo, hi = bounds
 
     # -- coarse pass ------------------------------------------------------
-    coords2 = _linspace(lo, hi, res2, dev)
-    starts = list(range(0, res2, COARSE_SLAB))
-    mine, counts = _split([min(res2, x0 + COARSE_SLAB) - x0 for x0 in starts])
-    first, rows = (starts[mine[0]] if mine else 0), counts[_world()[0]]
-    sig2 = torch.empty(rows, res2, res2, dtype=torch.float32, device=dev)
-    rgb2 = None if coarse_density_only else torch.empty(rows, res2, res2, 3, dtype=torch.float32, device=dev)
-    for i in mine:
-        x0, x1 = starts[i], min(res2, starts[i] + COARSE_SLAB)
-        pos3 = _slab_points(coords2[x0:x1], coords2)
-        if coarse_density_only:
-            sigma = field.query_density_planar_fused(pos3, dtype=dtype)
+    with tracing.span("extract.coarse"):
+        coords2 = _linspace(lo, hi, res2, dev)
+        starts = list(range(0, res2, COARSE_SLAB))
+        mine, counts = _split([min(res2, x0 + COARSE_SLAB) - x0 for x0 in starts])
+        first, rows = (starts[mine[0]] if mine else 0), counts[_world()[0]]
+        sig2 = torch.empty(rows, res2, res2, dtype=torch.float32, device=dev)
+        rgb2 = None if coarse_density_only else torch.empty(rows, res2, res2, 3, dtype=torch.float32, device=dev)
+        for i in mine:
+            x0, x1 = starts[i], min(res2, starts[i] + COARSE_SLAB)
+            pos3 = _slab_points(coords2[x0:x1], coords2)
+            if coarse_density_only:
+                sigma = field.query_density_planar_fused(pos3, dtype=dtype)
+            else:
+                rgb, sigma = field.apply_planar_fused(pos3, _view3(view, pos3[0]), dtype=dtype)
+                rgb2[x0 - first : x1 - first] = rgb.to(torch.float32).T.reshape(x1 - x0, res2, res2, 3)
+            sig2[x0 - first : x1 - first] = sigma.to(torch.float32).reshape(x1 - x0, res2, res2)
+        sig2 = _gathered(sig2, counts)
+        rgb2 = None if rgb2 is None else _gathered(rgb2, counts)
+
+        cell_sigma = sig2 if ss == 1 else sig2.reshape(C, ss, C, ss, C, ss).amax(dim=(1, 3, 5))
+
+        def rep(a):
+            return a.repeat_interleave(B, 0).repeat_interleave(B, 1).repeat_interleave(B, 2)
+
+        sigma_vol = rep(cell_sigma)
+        if rgb2 is None:
+            rgb_vol = torch.zeros(res, res, res, 3, dtype=torch.uint8, device=dev)
         else:
-            rgb, sigma = field.apply_planar_fused(pos3, _view3(view, pos3[0]), dtype=dtype)
-            rgb2[x0 - first : x1 - first] = rgb.to(torch.float32).T.reshape(x1 - x0, res2, res2, 3)
-        sig2[x0 - first : x1 - first] = sigma.to(torch.float32).reshape(x1 - x0, res2, res2)
-    sig2 = _gathered(sig2, counts)
-    rgb2 = None if rgb2 is None else _gathered(rgb2, counts)
+            cell_rgb = rgb2[::ss, ::ss, ::ss]
+            rgb_vol = torch.round(rep(cell_rgb) * 255.0).clamp(0, 255).to(torch.uint8)
 
-    cell_sigma = sig2 if ss == 1 else sig2.reshape(C, ss, C, ss, C, ss).amax(dim=(1, 3, 5))
-
-    def rep(a):
-        return a.repeat_interleave(B, 0).repeat_interleave(B, 1).repeat_interleave(B, 2)
-
-    sigma_vol = rep(cell_sigma)
-    if rgb2 is None:
-        rgb_vol = torch.zeros(res, res, res, 3, dtype=torch.uint8, device=dev)
-    else:
-        cell_rgb = rgb2[::ss, ::ss, ::ss]
-        rgb_vol = torch.round(rep(cell_rgb) * 255.0).clamp(0, 255).to(torch.uint8)
-
-    coarse_thresh = float(otsu_threshold(cell_sigma))
-    margin = 0.25 * coarse_thresh
-    marked = _dilate_mask(cell_sigma.cpu().numpy() > margin)
-    n_marked = int(marked.sum())
-    if verbose:
-        print(
-            f"Hierarchical extraction: {n_marked}/{C**3} cells marked "
-            f"({n_marked / C**3:.1%}), coarse otsu {coarse_thresh:.4f}"
-        )
-    clock.lap("coarse")
+    # -- the mark: Otsu on the cells, dilated, the marked cells on the device
+    with tracing.span("extract.mark"):
+        coarse_thresh_dev = otsu_threshold(cell_sigma)
+        with tracing.span("wait.mark_to_host"):
+            coarse_thresh = float(coarse_thresh_dev)
+            cell_sigma_host = cell_sigma.cpu().numpy()
+        margin = 0.25 * coarse_thresh
+        marked = _dilate_mask(cell_sigma_host > margin)
+        n_marked = int(marked.sum())
+        if verbose:
+            print(
+                f"Hierarchical extraction: {n_marked}/{C**3} cells marked "
+                f"({n_marked / C**3:.1%}), coarse otsu {coarse_thresh:.4f}"
+            )
+        # Cells come from argwhere on the [C,C,C] mask, so every voxel index is
+        # in range and unique within a call; the last call is simply shorter
+        # (nerfjax pads it with copies of its first cell to keep one jit shape).
+        cells = torch.from_numpy(np.argwhere(marked))  # [M, 3] int64
+        with tracing.span("wait.upload"):
+            cells = cells.to(dev)
+        clock.lap("coarse")
 
     # -- fine pass over marked cells --------------------------------------
-    # Cells come from argwhere on the [C,C,C] mask, so every voxel index is
-    # in range and unique within a call; the last call is simply shorter
-    # (nerfjax pads it with copies of its first cell to keep one jit shape).
-    cells = torch.from_numpy(np.argwhere(marked)).to(dev)  # [M, 3] int64
+    with tracing.span("extract.fine"):
+        _fine_pass(field, cells, sigma_vol, rgb_vol, res, lo, hi, view, dev, dtype)
+        clock.lap("fine")
+
+    extra = {
+        "hierarchical": True,
+        "marked_cells": n_marked,
+        "coarse_density_only": bool(coarse_density_only),
+        "coarse_supersample": ss,
+    }
+    return sigma_vol, rgb_vol, n_marked * B**3 + res2**3, extra
+
+
+def _fine_pass(field, cells, sigma_vol, rgb_vol, res, lo, hi, view, dev, dtype) -> None:
+    """The field at every voxel of the marked ``cells`` [M, 3], written into
+    ``sigma_vol`` and ``rgb_vol`` in place (gathered over the ranks)."""
     coords = _step_coords(lo, hi, res, dev)
     ar = torch.arange(B, device=dev)
     off = torch.stack(torch.meshgrid(ar, ar, ar, indexing="ij"), -1).reshape(-1, 3)  # [64, 3]
@@ -424,15 +472,6 @@ def _query_hierarchical(
         flat = torch.cat([(xi * res + yi) * res + zi for xi, yi, zi in map(voxels, range(len(starts)))])
         sigma_flat[flat] = sigma_all
         rgb_flat[flat] = rgb_all
-    clock.lap("fine")
-
-    extra = {
-        "hierarchical": True,
-        "marked_cells": n_marked,
-        "coarse_density_only": bool(coarse_density_only),
-        "coarse_supersample": ss,
-    }
-    return sigma_vol, rgb_vol, n_marked * B**3 + res2**3, extra
 
 
 def save_volume(volume: dict, output_path: str | Path) -> None:

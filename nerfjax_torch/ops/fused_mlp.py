@@ -39,6 +39,8 @@ import functools
 
 import torch
 
+from nerfjax_torch import tracing
+
 HIDDEN = 64
 GEO = 16
 SH = 16
@@ -61,6 +63,9 @@ launch_counts = {"fused_ngp_head": 0, "fused_ngp_density": 0}
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+tracing.register_counters("fused_mlp", launch_counts)
 
 
 def _weights(params: dict, dtype: torch.dtype) -> list[torch.Tensor]:

@@ -96,6 +96,7 @@ import functools
 import numpy as np
 import torch
 
+from nerfjax_torch import tracing
 from nerfjax_torch.fields.ngp import CORNERS, HASH_PRIMES, HashGridSpec
 
 M32 = 0xFFFFFFFF
@@ -111,6 +112,9 @@ launch_counts = {"hash_levels_fwd": 0, "hash_levels_bwd": 0, "table_grad_scatter
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+tracing.register_counters("hash_encode", launch_counts)
 
 
 def _split_levels(spec: HashGridSpec) -> tuple[list[dict], list[dict]]:

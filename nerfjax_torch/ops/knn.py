@@ -69,6 +69,8 @@ import math
 
 import torch
 
+from nerfjax_torch import tracing
+
 K_MAX = 256
 ELEMENTS_PER_CHUNK = 1 << 26  # query rows x points of one chunk of the plain version
 CELL_TARGET = 0.5  # points in a point's cell, in units of k (at least CELL_MIN)
@@ -98,6 +100,9 @@ class KernelLimitError(ValueError):
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+tracing.register_counters("knn", launch_counts)
 
 
 def _check(points: torch.Tensor) -> None:

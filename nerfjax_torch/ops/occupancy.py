@@ -25,6 +25,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from nerfjax_torch import tracing
+
 
 @dataclasses.dataclass(frozen=True)
 class OccupancyGridSpec:
@@ -104,7 +106,8 @@ def linspace01(n: int, device) -> torch.Tensor:
         return torch.zeros(1, dtype=torch.float32, device=device)
     step = float(np.float32(1.0) / np.float32(n - 1))
     t = torch.arange(n, dtype=torch.float32, device=device) * step
-    t[-1] = 1.0
+    with tracing.span("wait.upload"):  # on a card the scalar is copied from the host and waited for
+        t[-1] = 1.0
     return t
 
 

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from nerfjax_torch import tracing
+
 NBINS = 256
 
 
@@ -27,7 +29,8 @@ def otsu_threshold(values: torch.Tensor) -> torch.Tensor:
     span = torch.clamp_min(vmax - vmin, 1e-12)
 
     bin_idx = ((v - vmin) / span * NBINS).to(torch.int64).clamp(0, NBINS - 1)
-    hist = torch.bincount(bin_idx, minlength=NBINS).to(torch.float64)
+    with tracing.span("wait.otsu_hist"):  # on a card bincount reads the largest index on the host
+        hist = torch.bincount(bin_idx, minlength=NBINS).to(torch.float64)
 
     bin_width = span / NBINS
     centers = vmin + (torch.arange(NBINS, dtype=torch.float32, device=v.device) + 0.5) * bin_width
@@ -42,4 +45,5 @@ def otsu_threshold(values: torch.Tensor) -> torch.Tensor:
         [0],
     )
     var12 = w1[:-1] * w2[1:] * (m1[:-1] - m2[1:]) ** 2
-    return centers[torch.argmax(var12)]
+    with tracing.span("wait.otsu_argmax"):  # indexing by a tensor reads the index on the host
+        return centers[torch.argmax(var12)]

@@ -33,6 +33,8 @@ import sys
 import numpy as np
 import torch
 
+from nerfjax_torch import tracing
+
 ROWS = 512  # the one-hot probes' rows (k_onehot_row) and lanes (k_col_slice)
 
 launch_counts = {"k_reshape": 0, "k_transpose": 0, "k_dot_dim0": 0, "k_dot_dim0_bf16": 0,
@@ -42,6 +44,9 @@ launch_counts = {"k_reshape": 0, "k_transpose": 0, "k_dot_dim0": 0, "k_dot_dim0_
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+tracing.register_counters("probes", launch_counts)
 
 
 def probe_inputs(device="cpu") -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

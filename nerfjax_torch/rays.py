@@ -22,6 +22,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from nerfjax_torch import tracing
+
 RAY_KEYS = ("rays_o", "rays_d", "rgbs", "t_near", "t_far")
 
 
@@ -75,14 +77,17 @@ def get_rays(H: int, W: int, K, c2w, opencv_to_opengl: bool = True,
     OpenCV pixel rays into the OpenGL/NeRF convention."""
     c2w = torch.as_tensor(c2w, dtype=torch.float32)
     dev = c2w.device
-    K_inv = torch.linalg.inv(torch.as_tensor(K, dtype=torch.float32).cpu()).to(dev)
+    K_inv = torch.linalg.inv(torch.as_tensor(K, dtype=torch.float32).cpu())
+    with tracing.span("wait.upload"):
+        K_inv = K_inv.to(dev)
+        flip = torch.tensor([1.0, -1.0, -1.0], device=dev)
     u = torch.arange(W, dtype=torch.float32, device=dev)
     v = torch.arange(H, dtype=torch.float32, device=dev)
     uu, vv = torch.meshgrid(u, v, indexing="xy")  # [H, W] each
     pix = torch.stack([uu.reshape(-1), vv.reshape(-1), torch.ones(H * W, dtype=torch.float32, device=dev)])
     dirs = _dot3(K_inv, pix)  # [3, H*W], camera frame (OpenCV: +z forward)
     if opencv_to_opengl:
-        dirs = dirs * torch.tensor([1.0, -1.0, -1.0], device=dev)[:, None]
+        dirs = dirs * flip[:, None]
     if normalize:
         dirs = _div(dirs, _fma_chain((d, d) for d in dirs).double().sqrt().float().clamp_min(1e-8))
     rays_d = _dot3(c2w[:, :3, :3], dirs)  # [M, 3, H*W]

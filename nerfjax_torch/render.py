@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.utils.checkpoint
 
+from nerfjax_torch import tracing
 from nerfjax_torch.ops.occupancy import OccupancyGridSpec, linspace01, occupancy_sample, running_sum
 
 
@@ -105,10 +106,9 @@ def raw2outputs_planar(rgb, sigma, z_vals, white_bg: bool = False, dist_last: fl
     dists = z_vals[..., 1:] - z_vals[..., :-1]
     dists = torch.cat([dists, torch.full_like(dists[..., :1], dist_last)], dim=-1)
     alpha = 1.0 - torch.exp(-sigma * dists)
-    trans = torch.cumprod(
-        torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], dim=-1), dim=-1
-    )[..., :-1]
-    weights = alpha * trans
+    trans = torch.cumprod(torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], dim=-1), dim=-1)
+    tracing.backward_span(trans, "wait.cumprod_backward")  # its backward asks the card whether a factor is 0
+    weights = alpha * trans[..., :-1]
     rgb_map = torch.einsum("bs,cbs->bc", weights, rgb)
     if white_bg:
         rgb_map = rgb_map + (1.0 - weights.sum(dim=-1)[..., None])
@@ -158,36 +158,39 @@ def render_rays_planar(
     """
     B = rays_o.shape[0]
     n_first = n_samples + n_importance if single_pass else n_samples
-    if u_strat is None:
-        u_strat = torch.rand(B, n_first, generator=generator, device=rays_o.device)
-    if occ_spec is not None and occ_grid is not None:
-        z = occupancy_sample(occ_spec, occ_grid, rays_o, rays_d, t_near, t_far, n_first, xi=u_strat)
-    else:
-        z = stratified_z(t_near, t_far, n_first, u_strat)
-
-    def eval_field(field, z, noise=None):
-        S = z.shape[-1]
-        pos3 = tuple((rays_o[:, i, None] + rays_d[:, i, None] * z).reshape(-1) for i in range(3))
-        view3 = tuple(rays_d[:, i, None].expand(B, S).reshape(-1) for i in range(3))
-        if not train:
-            rgb, sigma = field.apply_planar_fused(pos3, view3, dtype=dtype)
-        elif getattr(field, "sigma_noise", False):
-            rgb, sigma = field.apply_planar(pos3, view3, dtype=dtype, train=True, noise=noise, generator=generator)
+    with tracing.span("render.sample"):
+        if u_strat is None:
+            u_strat = torch.rand(B, n_first, generator=generator, device=rays_o.device)
+        if occ_spec is not None and occ_grid is not None:
+            z = occupancy_sample(occ_spec, occ_grid, rays_o, rays_d, t_near, t_far, n_first, xi=u_strat)
         else:
-            rgb, sigma = field.apply_planar(pos3, view3, dtype=dtype)
-        return rgb.reshape(3, B, S), sigma.reshape(B, S)
+            z = stratified_z(t_near, t_far, n_first, u_strat)
+
+    def eval_field(field, z, noise, which):
+        S = z.shape[-1]
+        with tracing.span("render.field", which):
+            pos3 = tuple((rays_o[:, i, None] + rays_d[:, i, None] * z).reshape(-1) for i in range(3))
+            view3 = tuple(rays_d[:, i, None].expand(B, S).reshape(-1) for i in range(3))
+            if not train:
+                rgb, sigma = field.apply_planar_fused(pos3, view3, dtype=dtype)
+            elif getattr(field, "sigma_noise", False):
+                rgb, sigma = field.apply_planar(pos3, view3, dtype=dtype, train=True, noise=noise, generator=generator)
+            else:
+                rgb, sigma = field.apply_planar(pos3, view3, dtype=dtype)
+        with tracing.span("render.composite", which):
+            return raw2outputs_planar(rgb.reshape(3, B, S), sigma.reshape(B, S), z, white_bg, dist_last)
 
     if single_pass:
-        rgb_map, weights = raw2outputs_planar(*eval_field(field_fine, z, noise_fine), z, white_bg, dist_last)
+        rgb_map, weights = eval_field(field_fine, z, noise_fine, "fine")
         return {"rgb_coarse": rgb_map.detach(), "rgb_fine": rgb_map, "weights_coarse": weights.detach(),
                 "weights_fine": weights, "z_vals": z}
 
-    rgb_map_c, weights_c = raw2outputs_planar(*eval_field(field_coarse, z, noise_coarse), z, white_bg, dist_last)
-    z_mid = 0.5 * (z[..., :-1] + z[..., 1:])
-    z_imp = sample_pdf(z_mid, weights_c[..., 1:-1].detach(), n_importance, u=u_pdf, generator=generator)
-    z_comb = torch.sort(torch.cat([z, z_imp], dim=-1), dim=-1).values
-    rgb_map_f, weights_f = raw2outputs_planar(*eval_field(field_fine, z_comb, noise_fine), z_comb, white_bg,
-                                              dist_last)
+    rgb_map_c, weights_c = eval_field(field_coarse, z, noise_coarse, "coarse")
+    with tracing.span("render.pdf"):
+        z_mid = 0.5 * (z[..., :-1] + z[..., 1:])
+        z_imp = sample_pdf(z_mid, weights_c[..., 1:-1].detach(), n_importance, u=u_pdf, generator=generator)
+        z_comb = torch.sort(torch.cat([z, z_imp], dim=-1), dim=-1).values
+    rgb_map_f, weights_f = eval_field(field_fine, z_comb, noise_fine, "fine")
     return {"rgb_coarse": rgb_map_c, "rgb_fine": rgb_map_f, "weights_coarse": weights_c,
             "weights_fine": weights_f, "z_vals": z_comb}
 

@@ -15,14 +15,18 @@ pixel's ray, as nerfjax pads it, so every chunk has ``chunk_rays`` rays.
 
 from __future__ import annotations
 
+import itertools
 import json
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from nerfjax_torch import tracing
 from nerfjax_torch.rays import get_rays, ray_cube_intersection
 from nerfjax_torch.render import render_rays_planar
+
+_frame_ids = itertools.count(1)  # the id of each ``render.frame`` span: the frame's number in this process
 
 
 def render_image(
@@ -44,32 +48,42 @@ def render_image(
     from a camera pose; pixels whose rays miss the [-1, 1]^3 cube get the
     background color."""
     dev = next(field.parameters()).device
-    rays_o, rays_d = get_rays(H, W, K, torch.as_tensor(np.asarray(c2w, np.float32), device=dev)[None])
-    ro, rd = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
-    hit, tn, tf = ray_cube_intersection(ro, rd)
-    out = torch.full((H * W, 3), 1.0 if white_bg else 0.0, dtype=torch.float32, device=dev)
-    idx = torch.nonzero(hit).squeeze(1)
-    n_hit = idx.shape[0]
-    if n_hit == 0:
-        return out.reshape(H, W, 3).cpu().numpy()
-    n_pad = -(-n_hit // chunk_rays) * chunk_rays
-    idx_pad = torch.cat([idx, idx[:1].expand(n_pad - n_hit)])
-    rendered = torch.empty(n_pad, 3, dtype=torch.float32, device=dev)
-    gen = torch.Generator(device=dev)
-    with torch.no_grad():
-        for s in range(0, n_pad, chunk_rays):
-            sel = idx_pad[s : s + chunk_rays]
-            u_strat = u_pdf = None
-            if draws is None:
-                gen.manual_seed(seed * 1_000_003 + s)
-            else:
-                u_strat, u_pdf = (torch.as_tensor(u, dtype=torch.float32, device=dev) for u in draws(s, chunk_rays))
-            rendered[s : s + chunk_rays] = render_rays_planar(
-                field, field, ro[sel], rd[sel], tn[sel], tf[sel], n_samples, n_importance,
-                white_bg=white_bg, train=False, dtype=dtype, u_strat=u_strat, u_pdf=u_pdf, generator=gen,
-            )["rgb_fine"]
-    out[idx] = rendered[:n_hit]
-    return out.reshape(H, W, 3).cpu().numpy()
+    with tracing.unit("render.frame", next(_frame_ids)) as frame:
+        with tracing.span("render.rays"):
+            with tracing.span("wait.upload"):
+                pose = torch.as_tensor(np.asarray(c2w, np.float32), device=dev)
+            rays_o, rays_d = get_rays(H, W, K, pose[None])
+            ro, rd = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+            hit, tn, tf = ray_cube_intersection(ro, rd)
+            out = torch.full((H * W, 3), 1.0 if white_bg else 0.0, dtype=torch.float32, device=dev)
+        with tracing.span("wait.hit_rays"):
+            idx = torch.nonzero(hit).squeeze(1)
+        n_hit = idx.shape[0]
+        n_pad = -(-n_hit // chunk_rays) * chunk_rays
+        frame.count("hit_rays", n_hit)
+        frame.count("rays", n_pad)
+        frame.count("chunks", n_pad // chunk_rays)
+        if n_hit:
+            idx_pad = torch.cat([idx, idx[:1].expand(n_pad - n_hit)])
+            rendered = torch.empty(n_pad, 3, dtype=torch.float32, device=dev)
+            gen = torch.Generator(device=dev)
+            with torch.no_grad():
+                for s in range(0, n_pad, chunk_rays):
+                    with tracing.span("render.chunk", s):
+                        sel = idx_pad[s : s + chunk_rays]
+                        u_strat = u_pdf = None
+                        if draws is None:
+                            gen.manual_seed(seed * 1_000_003 + s)
+                        else:
+                            u_strat, u_pdf = (torch.as_tensor(u, dtype=torch.float32, device=dev)
+                                              for u in draws(s, chunk_rays))
+                        rendered[s : s + chunk_rays] = render_rays_planar(
+                            field, field, ro[sel], rd[sel], tn[sel], tf[sel], n_samples, n_importance,
+                            white_bg=white_bg, train=False, dtype=dtype, u_strat=u_strat, u_pdf=u_pdf, generator=gen,
+                        )["rgb_fine"]
+            out[idx] = rendered[:n_hit]
+        with tracing.span("wait.frame_to_host"):
+            return out.reshape(H, W, 3).cpu().numpy()
 
 
 def orbit_poses(n: int, *, radius: float = 2.5, height: float = 1.2, target: np.ndarray | None = None) -> np.ndarray:

@@ -58,6 +58,7 @@ from typing import TYPE_CHECKING, Mapping
 import torch
 import torch.distributed as dist
 
+from nerfjax_torch import tracing
 from nerfjax_torch.fields.ngp import NERF_TYPE_LOG2, HashGridSpec, InstantNGP
 from nerfjax_torch.fields.vanilla import VanillaNeRF
 from nerfjax_torch.ops.occupancy import OccupancyGridSpec
@@ -517,14 +518,18 @@ def step_gradients(state: TrainState, batch: Mapping[str, torch.Tensor], *, u_st
     if state.shard is not None:
         state.shard.gather()
     state.generator.manual_seed(state.seed * 1_000_003 + state.step)
-    update_occupancy(state, jitter=occ_jitter)
+    if s.use_occupancy:
+        with tracing.span("train.occupancy"):
+            update_occupancy(state, jitter=occ_jitter)
     draws = {"u_strat": u_strat, "u_pdf": u_pdf, "noise_coarse": noise_coarse, "noise_fine": noise_fine}
     if state.mesh is not None and state.mesh.world > 1:
         draws = _global_draws(state, batch["rays_o"].shape[0], draws)
-    total, aux = loss_fn(state.field, batch, s, state.occ_grid, field_coarse=state.field_coarse,
-                         generator=state.generator, **draws)
-    state.optimizer.zero_grad(set_to_none=True)
-    total.backward()
+    with tracing.span("train.forward"):
+        total, aux = loss_fn(state.field, batch, s, state.occ_grid, field_coarse=state.field_coarse,
+                             generator=state.generator, **draws)
+    with tracing.span("train.backward"):
+        state.optimizer.zero_grad(set_to_none=True)
+        total.backward()
     return total, aux
 
 
@@ -556,18 +561,21 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor], *, u_strat=
     With ``state.mesh`` over several ranks ``batch`` is this rank's block
     of the global batch and the overrides its rows; the gradients are
     averaged over the world and the metrics are those of the global batch."""
-    total, aux = step_gradients(state, batch, u_strat=u_strat, u_pdf=u_pdf, occ_jitter=occ_jitter,
-                                noise_coarse=noise_coarse, noise_fine=noise_fine)
-    apply_gradients(state)
-    metrics = {"loss_total": total.detach(), "loss_coarse": aux["loss_coarse"].detach(),
-               "loss_fine": aux["loss_fine"].detach(), "psnr": aux["psnr"].detach()}
-    if state.mesh is not None and state.mesh.world > 1:
-        from nerfjax_torch.parallel import all_reduce_sum_
+    with tracing.unit("train.step", state.step) as sp:
+        sp.count("rays", batch["rays_o"].shape[0])
+        total, aux = step_gradients(state, batch, u_strat=u_strat, u_pdf=u_pdf, occ_jitter=occ_jitter,
+                                    noise_coarse=noise_coarse, noise_fine=noise_fine)
+        with tracing.span("train.optimizer"):
+            apply_gradients(state)
+        metrics = {"loss_total": total.detach(), "loss_coarse": aux["loss_coarse"].detach(),
+                   "loss_fine": aux["loss_fine"].detach(), "psnr": aux["psnr"].detach()}
+        if state.mesh is not None and state.mesh.world > 1:
+            from nerfjax_torch.parallel import all_reduce_sum_
 
-        losses = all_reduce_sum_(torch.stack([metrics[k] for k in ("loss_total", "loss_coarse", "loss_fine")]))
-        losses = losses / state.mesh.world
-        metrics = {"loss_total": losses[0], "loss_coarse": losses[1], "loss_fine": losses[2],
-                   "psnr": -10.0 * torch.log10(losses[2])}
+            losses = all_reduce_sum_(torch.stack([metrics[k] for k in ("loss_total", "loss_coarse", "loss_fine")]))
+            losses = losses / state.mesh.world
+            metrics = {"loss_total": losses[0], "loss_coarse": losses[1], "loss_fine": losses[2],
+                       "psnr": -10.0 * torch.log10(losses[2])}
     return metrics
 
 
@@ -660,7 +668,10 @@ def train(
     "psnr" (every step's), "total_time", "rays_per_sec", "steps", "rank",
     "world", "table_optimizer_bytes" (this rank's)}. Writes TensorBoard
     scalars under ``output_dir/logs``, ``nerf_epoch_{E:06d}.pth`` every
-    second epoch and ``nerf_final.pth`` under ``checkpoint_dir``.
+    second epoch and ``nerf_final.pth`` under ``checkpoint_dir``. With
+    ``profile_dir`` (rank 0) it writes the run's ``torch.profiler`` trace
+    (``trace.json``) and the program's spans (``spans.json``: ns since the
+    epoch, each span's parent, unit id and counts; ``nerfjax_torch.tracing``).
 
     Over several ranks (``parallel.init_distributed`` first) every rank
     calls it with the same cfg and seed; ``batch_size`` is the global
@@ -731,6 +742,8 @@ def train(
     metrics_host: dict = {}
     psnr_steps: list[torch.Tensor] = []
     with profiler:
+        if profile_dir and is_lead:
+            tracing.clear()  # this session's spans only
         for epoch in range(start_epoch, num_epochs + 1):
             batches = dataset.epoch_batches(batch_size, seed=seed * 100003 + epoch, process_index=mesh.rank,
                                             process_count=mesh.world)
@@ -766,6 +779,7 @@ def train(
     if profile_dir and is_lead:
         Path(profile_dir).mkdir(parents=True, exist_ok=True)
         profiler.export_chrome_trace(str(Path(profile_dir) / "trace.json"))
+        tracing.write_json(Path(profile_dir) / "spans.json")
 
     final_path = checkpoint_dir / "nerf_final.pth"
     save(final_path, num_epochs)
