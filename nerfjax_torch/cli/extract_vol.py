@@ -25,9 +25,9 @@ def main() -> None:
     p.add_argument("--exact", action="store_true",
                    help="exhaustive grid sweep instead of hierarchical refine")
     p.add_argument("--dense-fetch", action="store_true",
-                   help="fetch the full dense RGB volume from the device even in "
-                        "hierarchical mode (default: occupied-voxel-compacted "
-                        "fetch; unoccupied RGB comes back as zeros)")
+                   help="keep the RGB of unoccupied voxels even in hierarchical "
+                        "mode (default: the sparse fetch's result, unoccupied RGB "
+                        "zeroed on the card)")
     p.add_argument("--coarse-full", action="store_true",
                    help="run the hierarchical coarse mark pass through the full "
                         "rgb+sigma head (default: the density-only kernel when "

@@ -18,6 +18,12 @@ coarse pass (nerfjax: ``jnp.linspace``, extract.py:61,75), ``lo + i*step`` in
 float32 for the fine pass (extract.py:454,471-473). Both differ from JAX's in
 the last bit at some entries (ROADMAP Queue 3).
 
+The volumes are finished on the card: the occupied count is one scalar read
+from it, and where nerfjax's sparse fetch applies (its rule, from that
+count) the RGB of unoccupied voxels is zeroed there, the bytes nerfjax's
+bit-packed occupancy and compacted RGB give. Both volumes then come to the
+host whole, one copy each into pinned memory; the host walks no voxel.
+
 File contract (unchanged): volume.pth = {occupancy_volume uint8 [R,R,R],
 rgb_volume uint8 [R,R,R,3], metadata{resolution, bounds, threshold,
 occupied_ratio, total_voxels, occupied_voxels, timestamp, ...}}.
@@ -146,56 +152,41 @@ def _dilate_mask(mask: np.ndarray) -> np.ndarray:
     return out
 
 
-def _packbits(occ_flat: torch.Tensor) -> torch.Tensor:
-    """np.packbits on the device: uint8 0/1 [T] -> [ceil(T/8)], MSB first."""
-    pad = (-occ_flat.numel()) % 8
-    if pad:
-        occ_flat = torch.cat([occ_flat, occ_flat.new_zeros(pad)])
-    with tracing.span("wait.upload"):
-        weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8, device=occ_flat.device)
-    return (occ_flat.reshape(-1, 8) * weights).sum(1).to(torch.uint8)
-
-
-def _fetch_volumes(occupancy_dev: torch.Tensor, rgb_dev: torch.Tensor, res: int, sparse: bool):
+def _fetch_volumes(occupancy_dev: torch.Tensor, rgb_dev: torch.Tensor, res: int, sparse: bool,
+                   occupied: int | None = None):
     """Bring the finished uint8 volumes to the host (nerfjax extract.py:248-301).
 
     Returns (occupancy [R,R,R], rgb [R,R,R,3], sparse_used, rgb_global_max).
     rgb_global_max is the max over the whole device RGB volume, taken before
-    compaction (post_process_vol divides by it). sparse=True fetches the
-    occupancy bit-packed and the RGB of occupied voxels only; unoccupied RGB
-    comes back as zeros. It falls back to the dense fetch when the sparse one
-    would move more bytes (K*7 >= 4*R^3, K the occupied count rounded up to a
-    power of two >= 4096, as nerfjax pads it), and reports that as
-    sparse_used=False.
+    the mask (post_process_vol divides by it). ``occupied`` is the card's
+    count of occupied voxels (read here when None). sparse=True gives
+    nerfjax's sparse result: the RGB of unoccupied voxels zeroed, on the
+    card. It is not taken where nerfjax's compaction would move more bytes
+    than its dense fetch (K*7 >= 4*R^3, K the occupied count rounded up to a
+    power of two >= 4096, as nerfjax pads it): the RGB stays whole and
+    sparse_used is False. Either way both volumes come over whole, each in
+    one copy into pinned memory from PyTorch's caching host allocator and
+    one wait for both; the arrays are views of those buffers, which return
+    to the allocator's cache when the caller drops them. On the CPU the
+    arrays are the tensors' own.
     """
-    occ_flat = occupancy_dev.reshape(-1)
-    rgb_flat = rgb_dev.reshape(-1, 3)
     with tracing.span("wait.fetch_copy"):
         rgb_global_max = float(rgb_dev.max())
-    total = res**3
-    if sparse:
-        packed = _packbits(occ_flat)
+        if occupied is None:
+            occupied = int(occupancy_dev.sum(dtype=torch.int64))
+    K = 1 << max(12, (max(occupied, 1) - 1).bit_length())
+    sparse_used = bool(sparse) and K * 7 < 4 * res**3
+    occupancy = occupancy_dev.reshape(res, res, res)
+    rgb = rgb_dev.reshape(res, res, res, 3)
+    if sparse_used:
+        rgb = rgb * occupancy[..., None]
+    if occupancy_dev.device.type == "cuda":
+        host = [torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(v, non_blocking=True)
+                for v in (occupancy, rgb)]
         with tracing.span("wait.fetch_copy"):
-            packed = packed.cpu().numpy()
-        with tracing.span("extract.fetch.unpack"):
-            occ_host = np.unpackbits(packed)[:total]
-            count = int(occ_host.sum())
-        K = 1 << max(12, (max(count, 1) - 1).bit_length())
-        if K * 7 < total * 4:
-            with tracing.span("wait.fetch_copy"):
-                idx = torch.nonzero(occ_flat).squeeze(1)  # ascending, as np.flatnonzero
-                rgb_occupied = rgb_flat[idx].cpu().numpy()
-            with tracing.span("extract.fetch.unpack"):
-                occupied = np.flatnonzero(occ_host)
-                occupancy = occ_host.reshape(res, res, res).astype(np.uint8)
-            with tracing.span("extract.fetch.scatter"):
-                rgb_host = np.zeros((total, 3), np.uint8)
-                rgb_host[occupied] = rgb_occupied
-            return occupancy, rgb_host.reshape(res, res, res, 3), True, rgb_global_max
-    with tracing.span("wait.fetch_copy"):
-        occupancy = occupancy_dev.cpu().numpy().reshape(res, res, res)
-        rgb = rgb_dev.cpu().numpy().reshape(res, res, res, 3)
-    return occupancy, rgb, False, rgb_global_max
+            torch.cuda.current_stream(occupancy_dev.device).synchronize()
+        occupancy, rgb = host
+    return occupancy.numpy(), rgb.numpy(), sparse_used, rgb_global_max
 
 
 def _finish(sigma_vol, rgb_vol, res, sparse_fetch, clock, verbose, queries):
@@ -212,14 +203,16 @@ def _finish(sigma_vol, rgb_vol, res, sparse_fetch, clock, verbose, queries):
                 "std": float(sigma_flat.std(correction=0)),
             }
             threshold = float(threshold_dev)
+            occupied = int(occupancy_dev.sum(dtype=torch.int64))
         clock.lap("otsu")
-    with tracing.span("extract.fetch"):
+    with tracing.span("extract.fetch") as fetch:
         occupancy, rgb_out, sparse_used, rgb_global_max = _fetch_volumes(
-            occupancy_dev, rgb_vol, res, sparse_fetch
+            occupancy_dev, rgb_vol, res, sparse_fetch, occupied=occupied
         )
         clock.lap("fetch")
-    with tracing.span("extract.count"):
-        occupied = int(occupancy.sum())
+        fetch.count("bytes", occupancy.nbytes + rgb_out.nbytes if occupancy_dev.is_cuda else 0)
+        fetch.count("occupied", occupied)
+        fetch.count("sparse", int(sparse_used))
     total = res**3
     s = clock.seconds
     query_time = s.get("coarse", 0.0) + s.get("fine", 0.0) + s["otsu"]
@@ -272,9 +265,10 @@ def extract_volume(
     density pass marks 4^3 cells (Otsu on the cell maxima, margin 0.25x the
     threshold, 3^3 dilation) and only marked cells are queried at full
     resolution. hierarchical=False is the exhaustive sweep. sparse_fetch
-    (default: on for hierarchical) fetches the occupancy bit-packed and the
-    RGB of occupied voxels only. coarse_density_only (default: follows
-    sparse_fetch) runs the mark pass through the density-only kernel;
+    (default: on for hierarchical) gives nerfjax's sparse-fetch result, the
+    RGB of unoccupied voxels zeroed on the card (``_fetch_volumes``).
+    coarse_density_only (default: follows sparse_fetch) runs the mark pass
+    through the density-only kernel;
     coarse_supersample (1 or 2; default 1 under sparse_fetch, else 2) sets
     the coarse subsamples per cell per axis.
     """

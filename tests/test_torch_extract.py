@@ -124,23 +124,69 @@ def test_extract_own_grid_coordinates_bounded(tmp_path, jax_params, jax_volume):
     assert (a["occupancy_volume"] != b["occupancy_volume"]).sum() <= 0.0005 * 32**3
 
 
-def test_fetch_volumes_sparse_and_dense(tmp_path):
+def _parent_fetch(occ: np.ndarray, rgb: np.ndarray, res: int, sparse: bool):
+    """The host fetch as it was before the volumes were finished on the card,
+    frozen here as the reference: occupancy bit-packed, unpacked and counted
+    on the host, the occupied voxels' RGB scattered into a zeroed volume."""
+    total = res**3
+    rgb_global_max = float(rgb.max())
+    if sparse:
+        occ_host = np.unpackbits(np.packbits(occ.reshape(-1)))[:total]
+        count = int(occ_host.sum())
+        K = 1 << max(12, (max(count, 1) - 1).bit_length())
+        if K * 7 < total * 4:
+            occupied = np.flatnonzero(occ_host)
+            rgb_host = np.zeros((total, 3), np.uint8)
+            rgb_host[occupied] = rgb.reshape(-1, 3)[occupied]
+            return occ_host.reshape(res, res, res).astype(np.uint8), rgb_host.reshape(res, res, res, 3), True, \
+                rgb_global_max
+    return occ.reshape(res, res, res), rgb.reshape(res, res, res, 3), False, rgb_global_max
+
+
+FETCH_CASES = {  # name -> (share of voxels occupied, sparse requested, sparse taken)
+    "sparse_taken": (0.05, True, True),  # K = 4096 (the minimum) * 7 < 4 * 32^3
+    "mostly_occupied_falls_back": (0.9, True, False),
+    "all_empty": (0.0, True, True),
+    "dense_requested": (0.05, False, False),
+}
+
+
+@pytest.mark.parametrize("case", list(FETCH_CASES))
+def test_fetch_volumes_sparse_and_dense(case):
+    """_fetch_volumes gives the frozen host algorithm's arrays bit for bit,
+    its sparse_used and its rgb_global_max, which is taken before the mask."""
+    share, sparse, taken = FETCH_CASES[case]
     rng = np.random.default_rng(0)
-    res = 32  # K = 4096 (the minimum) * 7 < 4 * 32^3: sparse is taken
-    occ = torch.from_numpy((rng.uniform(size=res**3) < 0.05).astype(np.uint8))
-    rgb = torch.from_numpy(rng.integers(0, 200, (res**3, 3), dtype=np.uint8))
-    rgb[0] = 250  # brightest voxel, unoccupied: rgb_global_max is taken before compaction
-    occ[0] = 0
-    o_s, r_s, used, gmax = textract._fetch_volumes(occ, rgb, res, sparse=True)
-    o_d, r_d, used_d, _ = textract._fetch_volumes(occ, rgb, res, sparse=False)
-    assert used and not used_d and gmax == 250.0
-    np.testing.assert_array_equal(o_s, o_d)
-    m = o_d.astype(bool)
-    np.testing.assert_array_equal(r_s[m], r_d[m])
-    assert not r_s[~m].any()
-    # mostly occupied: the sparse request falls back to the dense fetch
-    _, _, used_full, _ = textract._fetch_volumes(torch.ones(res**3, dtype=torch.uint8), rgb, res, True)
-    assert not used_full
+    res = 32
+    occ = (rng.uniform(size=res**3) < share).astype(np.uint8)
+    rgb = rng.integers(1, 200, (res**3, 3), dtype=np.uint8)  # no zero: a zeroed voxel shows
+    occ[0], rgb[0] = 0, 250  # brightest voxel, unoccupied
+    want = _parent_fetch(occ, rgb, res, sparse)
+    got = textract._fetch_volumes(torch.from_numpy(occ), torch.from_numpy(rgb), res, sparse)
+    assert got[2:] == want[2:] == (taken, 250.0)
+    for g, w in zip(got[:2], want[:2]):
+        assert g.dtype == w.dtype == np.uint8 and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+    if taken:
+        assert not got[1][~got[0].astype(bool)].any() and got[1][got[0].astype(bool)].all()
+    # the card's count, when the caller has read it, decides as the count made here
+    again = textract._fetch_volumes(torch.from_numpy(occ), torch.from_numpy(rgb), res, sparse,
+                                    occupied=int(occ.sum()))
+    assert again[2:] == got[2:]
+    np.testing.assert_array_equal(again[1], got[1])
+
+
+@pytest.mark.parametrize("hierarchical", [True, False], ids=["hierarchical", "exact"])
+def test_occupied_voxels_is_the_volume_count(tmp_path, jax_params, hierarchical):
+    """The metadata's count, read from the card, is the fetched volume's."""
+    vol = textract.extract_volume(
+        _cfg(tmp_path), params={"model": tckpt.params_from_jax(jax_params["model"])}, resolution=32,
+        hierarchical=hierarchical, verbose=False, device="cpu", dtype=torch.float32,
+    )
+    md, occ = vol["metadata"], vol["occupancy_volume"]
+    assert 0 < md["occupied_voxels"] == int(occ.sum()) < 32**3
+    assert md["occupied_ratio"] == md["occupied_voxels"] / 32**3
+    assert md["sparse_fetch"] == hierarchical
 
 
 def test_checkpoint_loads_equal(tmp_path, jax_params):

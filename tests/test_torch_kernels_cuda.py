@@ -1515,3 +1515,31 @@ def test_radius_filter_card_keeps_the_cpu_indices(cuda_device, cloud):
     kept_cpu, keep_cpu = outliers.filter_radius_outliers(pts, radius, nb, device="cpu")
     assert np.array_equal(keep_card, keep_cpu) and np.array_equal(kept_card, kept_cpu)
     assert 0 < len(keep_cpu) < len(pts)
+
+
+from nerfjax_torch import extract  # noqa: E402
+
+
+@pytest.mark.parametrize("sparse", [True, False], ids=["sparse", "dense"])
+def test_fetch_volumes_pinned_volumes_are_their_own(cuda_device, sparse):
+    """Two fetches in a row from the card: each gives the device volumes
+    (the RGB of unoccupied voxels zeroed under sparse) in arrays of its own,
+    pinned, so the second fetch leaves the first volume as it was."""
+    res, got, want = 64, [], []
+    for seed in (0, 1):
+        rng = np.random.default_rng(seed)
+        occ = (rng.uniform(size=res**3) < 0.05).astype(np.uint8)
+        rgb = rng.integers(1, 256, (res**3, 3), dtype=np.uint8)
+        out = extract._fetch_volumes(torch.from_numpy(occ).to(cuda_device), torch.from_numpy(rgb).to(cuda_device),
+                                     res, sparse)
+        assert out[2:] == (sparse, float(rgb.max()))
+        got.append([a.copy() for a in out[:2]])
+        want.append(out[:2])
+        expected_rgb = rgb * occ[:, None] if sparse else rgb
+        np.testing.assert_array_equal(out[0], occ.reshape(res, res, res))
+        np.testing.assert_array_equal(out[1], expected_rgb.reshape(res, res, res, 3))
+        assert all(torch.from_numpy(a).is_pinned() for a in out[:2])
+    for a in want[0]:
+        assert not any(np.shares_memory(a, b) for b in want[1])
+    for a, b in zip(want[0], got[0]):
+        np.testing.assert_array_equal(a, b)
