@@ -6,8 +6,8 @@
 For each of ``--seeds`` seeds the program's compared numbers (set-up, a
 one-unit window, the check); for ``--control`` seeds the control's (the
 reference in float8 e4m3 in the program's place); ``--faults`` seeds of
-each fault of the cell's kind (``portbench/faults.py``, planted in the
-program as the tests plant it); ``--witness`` seeds of the program run at
+each fault of the cell's kind (its ``FAULTS``, planted in the program as
+the tests plant them); ``--witness`` seeds of the program run at
 ``precision: fp32`` (a second witness). Prints one JSON line a run and writes them all to
 ``--out``. The benchmark's own runs never run this."""
 
@@ -22,6 +22,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
+def plan(cell: str, seeds: int, control: int, faults: int, witness: int) -> list[tuple]:
+    """The runs that calibrate ``cell``: (label, mode, fault or None,
+    overrides, number of seeds), one a part."""
+    from portbench.harness import HERE, kind_module, load_json
+
+    traffic = next(w["traffic"] for w in load_json(ROOT / "BENCHMARK.json")["workloads"] if w["name"] == cell)
+    kind = kind_module(load_json(HERE / "workloads" / f"{traffic}.json")["kind"])
+    parts = [("program", "program", None, {}, seeds), ("control", "control", None, {}, control)]
+    parts += [(fault.__name__, "program", fault, {}, faults) for fault in kind.FAULTS]
+    parts.append(("program_fp32", "program", None, {"cfg": {"precision": "fp32"}}, witness))
+    return parts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", required=True)
@@ -33,21 +46,15 @@ def main() -> int:
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
-    from portbench import faults
-    from portbench.harness import HERE, load_json, run_cell
+    from portbench.faults import Patches
+    from portbench.harness import run_cell
 
-    manifest = load_json(ROOT / "BENCHMARK.json")
-    traffic = next(w["traffic"] for w in manifest["workloads"] if w["name"] == args.workload)
-    kind = load_json(HERE / "workloads" / f"{traffic}.json")["kind"]
-    plan = [("program", "program", None, {}, args.seeds), ("control", "control", None, {}, args.control)]
-    plan += [(fault.__name__, "program", fault, {}, args.faults) for fault in faults.BY_KIND[kind]]
-    plan.append(("program_fp32", "program", None, {"cfg": {"precision": "fp32"}}, args.witness))
     rows = []
     seed = args.first_seed
-    for label, mode, fault, overrides, n in plan:
+    for label, mode, fault, overrides, n in plan(args.workload, args.seeds, args.control, args.faults, args.witness):
         for _ in range(n):
             seed += 7919
-            patches = faults.Patches()
+            patches = Patches()
             if fault is not None:
                 fault(patches)
             try:

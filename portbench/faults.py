@@ -5,7 +5,10 @@ produced, answers lost on their way to the host.
 
 Each fault takes ``patch(module, name, value)`` (pytest's
 ``monkeypatch.setattr``, or ``Patches`` below) and swaps one function of
-the program. The tests and ``calibrate.py`` plant the same faults."""
+the program. A kind lists the faults its check has to catch in its own
+``FAULTS`` (``portbench/kinds/<kind>.py``); the tests and ``calibrate.py``
+plant those. A new kind may define its own faults, in its module or in a
+new file."""
 
 from __future__ import annotations
 
@@ -88,5 +91,3 @@ def dropped_voxels(patch) -> None:
 
     patch(extract, "_fetch_volumes", lossy)
 
-
-BY_KIND = {"train": [unchanged, half_batch], "render": [altered_frame], "extract": [altered_volume, dropped_voxels]}

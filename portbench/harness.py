@@ -4,9 +4,9 @@ plain reference, and the result line.
 Everything a cell is comes from files found by name: the cell's entry in
 ``BENCHMARK.json`` names its configuration (``portbench/configs/``) and
 its traffic mix (``portbench/workloads/<traffic>.json``, whose ``kind``
-picks the module in ``portbench/kinds/`` that runs it); its limits are in
-``portbench/limits/<cell>.json``; each per-layer metric is read by
-``portbench/metrics/<metric>.py``.
+picks the module in ``portbench/kinds/`` that runs it: ``kind_module``);
+its limits are in ``portbench/limits/<cell>.json``; each per-layer metric
+is read by ``portbench/metrics/<metric>.py``.
 """
 
 from __future__ import annotations
@@ -55,6 +55,17 @@ def load_module(path: Path, name: str):
     return mod
 
 
+def kind_module(kind: str):
+    """``portbench/kinds/<kind>.py``, loaded once under ``portbench_kind_<kind>``
+    and kept in ``sys.modules``: its ``setup``, ``window`` and ``check`` run a
+    cell, its ``TINY`` sizes the cell for the CPU tests, and its ``FAULTS``
+    are what its check has to catch."""
+    name = f"portbench_kind_{kind}"
+    if name not in sys.modules:
+        sys.modules[name] = load_module(HERE / "kinds" / f"{kind}.py", name)
+    return sys.modules[name]
+
+
 def forbidden_modules() -> list[str]:
     """Loaded modules whose top-level name is jax, jaxlib, flax or nerfjax."""
     return sorted({m.split(".", 1)[0] for m in list(sys.modules)} & set(FORBIDDEN))
@@ -80,7 +91,7 @@ class Run:
         self.limits = load_json(limits)["limits"] if limits.exists() else {}
         for key, value in (overrides or {}).items():
             getattr(self, key).update(value)
-        self.kind = load_module(HERE / "kinds" / f"{self.traffic['kind']}.py", f"portbench_kind_{self.traffic['kind']}")
+        self.kind = kind_module(self.traffic["kind"])
         self.device_name = device
         self.tmp = Path(os.environ.get("TMPDIR") or root / ".portbench_cache")
         self.tmp.mkdir(parents=True, exist_ok=True)

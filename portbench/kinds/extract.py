@@ -14,9 +14,14 @@ import time
 
 import torch
 
+from portbench import faults
 from portbench import traffic as gen
 from portbench.reference.extract import extract as ref_extract
 from portbench.reference.precision import no_tf32
+
+# The CPU tests' sizes, and the faults the check has to catch (the tests and calibrate.py plant them).
+TINY = {"cfg": {"nerf_type": "small", "hash_n_levels": 8}, "traffic": {"resolution": 128}}
+FAULTS = [faults.altered_volume, faults.dropped_voxels]
 
 
 def setup(run) -> None:

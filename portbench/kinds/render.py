@@ -19,6 +19,7 @@ import time
 import numpy as np
 import torch
 
+from portbench import faults
 from portbench import traffic as gen
 from portbench import work
 from portbench.reference.precision import no_tf32
@@ -27,6 +28,10 @@ from portbench.reference.train import field_fns
 
 
 ENTRY_EVERY = 4  # the hash-grid bound counts table entries on every 4th chunk of the checked frame
+# The CPU tests' sizes, and the faults the check has to catch (the tests and calibrate.py plant them).
+TINY = {"cfg": {"nerf_type": "small", "hash_n_levels": 8, "N_samples": 8, "N_importance": 16},
+        "traffic": {"frame": [24, 24], "chunk_rays": 128}}
+FAULTS = [faults.altered_frame]
 
 
 def _frame_args(run):

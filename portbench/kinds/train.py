@@ -26,12 +26,18 @@ import time
 import numpy as np
 import torch
 
+from portbench import faults
 from portbench import traffic as gen
 from portbench import work
 from portbench.reference import train as ref
 from portbench.reference.precision import no_tf32
 
 BETA1 = 0.9
+# The CPU tests' sizes, and the faults the check has to catch (the tests and calibrate.py plant them).
+TINY = {"cfg": {"nerf_type": "small", "hash_n_levels": 8, "batch_size": 64, "N_samples": 8, "N_importance": 16,
+                "train_rays": 4096, "hidden_dim": 32},
+        "traffic": {"warmup_steps": 4}}
+FAULTS = [faults.unchanged, faults.half_batch]
 
 
 def _flat_params(state) -> dict:

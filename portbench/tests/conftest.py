@@ -24,3 +24,10 @@ def cuda_device():
         pytest.skip("needs a CUDA card: the cell's kernels have no CPU mode at its size")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+@pytest.fixture(autouse=True)
+def _own_tmpdir(tmp_path, monkeypatch):
+    """Each test's runs write their inputs under its own TMPDIR: two test
+    workers running one cell at once would share the harness's default."""
+    monkeypatch.setenv("TMPDIR", str(tmp_path))

@@ -1,7 +1,7 @@
 """``correct`` has to come out false for the control and for each fault a
 cell can have. The control is the reference in float8 e4m3 put in the
 program's place; the faults break the timed path underneath the harness:
-the faults of ``portbench/faults.py``, planted in the program.
+each kind's ``FAULTS``, planted in the program.
 
 On the CPU at a tiny size (the program's plain versions), and, marked
 ``card``, at each cell's own size on the card (``pytest portbench/tests -m
@@ -12,12 +12,36 @@ import io
 import pytest
 
 from pb_helpers import CELLS, SEED, kind_of, tiny
-from portbench import faults
-from portbench.harness import run_cell
+from portbench.harness import kind_module, run_cell
 
 
-CASES = [(cell, f) for cell in CELLS for f in faults.BY_KIND[kind_of(cell)]]
+CASES = [(cell, f) for cell in CELLS for f in kind_module(kind_of(cell)).FAULTS]
 IDS = [f"{c}-{f.__name__}" for c, f in CASES]
+
+
+FIRST_CASES = ["ngp_dropin.train-unchanged", "ngp_dropin.train-half_batch", "nerf_vanilla.train-unchanged",
+               "nerf_vanilla.train-half_batch", "ngp_dropin.render-altered_frame",
+               "ngp_dropin.extract-altered_volume", "ngp_dropin.extract-dropped_voxels"]
+FIRST_TINY = [
+    ("train", {"cfg": {"nerf_type": "small", "hash_n_levels": 8, "batch_size": 64, "N_samples": 8, "N_importance": 16,
+                       "train_rays": 4096, "hidden_dim": 32},
+               "traffic": {"warmup_steps": 4}}),
+    ("render", {"cfg": {"nerf_type": "small", "hash_n_levels": 8, "N_samples": 8, "N_importance": 16},
+                "traffic": {"frame": [24, 24], "chunk_rays": 128}}),
+    ("extract", {"cfg": {"nerf_type": "small", "hash_n_levels": 8}, "traffic": {"resolution": 128}}),
+]
+
+
+def test_the_first_cells_keep_their_seven_cases():
+    """The cells of the first three kinds have the fault cases they had when one list in
+    ``faults.py`` held them, in order; cells of later kinds add theirs."""
+    first = {c.rsplit("-", 1)[0] for c in FIRST_CASES}
+    assert [i for (c, _), i in zip(CASES, IDS) if c in first] == FIRST_CASES
+
+
+@pytest.mark.parametrize("kind,sizes", FIRST_TINY, ids=[k for k, _ in FIRST_TINY])
+def test_the_first_kinds_keep_their_cpu_sizes(kind, sizes):
+    assert kind_module(kind).TINY == sizes
 
 
 def _run(cell, device, mode="program", seed=SEED, seconds=0.3):

@@ -7,7 +7,7 @@ import json
 import subprocess
 import sys
 
-from pb_helpers import ROOT, SEED, TINY
+from pb_helpers import CELLS, ROOT, SEED, tiny
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "nerfjax"}
 PB = ROOT / "portbench"
@@ -25,9 +25,8 @@ TOPS = "print(json.dumps(sorted({m.split('.', 1)[0] for m in sys.modules})))\n"
 
 def test_a_run_of_every_kind_loads_no_jax():
     runs = "".join(
-        f"run_cell({cell!r}, {SEED}, 0.2, True, device='cpu', overrides={TINY[kind]!r}, stream=io.StringIO())\n"
-        for cell, kind in (("ngp_dropin.train", "train"), ("nerf_vanilla.train", "train"),
-                           ("ngp_dropin.render", "render"), ("ngp_dropin.extract", "extract")))
+        f"run_cell({cell!r}, {SEED}, 0.2, True, device='cpu', overrides={tiny(cell)!r}, stream=io.StringIO())\n"
+        for cell in CELLS)
     tops = _loaded(PRELUDE + "import io\nfrom portbench.harness import run_cell, load_module\n" + runs
                    + "import portbench.calibrate, portbench.work, portbench.trace\n" + TOPS)
     assert "nerfjax_torch" in tops and not tops & FORBIDDEN
